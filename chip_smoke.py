@@ -1,27 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
 
 Phases, each on its own lines:
-  1. card:    the card's name and power limit, as nvidia-smi reports them;
-  2. build:   the kernels of recmodels_tpu_torch/csrc/, built into
-              recmodels_tpu_torch/_build/ (reused when the sources are unchanged);
-  3. kernels: each kernel against its plain PyTorch version on the card at the
-              flagship serving shapes (xDeepFM: B = 16,384, 26 slots of 1e5
-              ids, dim 16, CIN(128,128)), its time, the plain version's, a
-              single PyTorch call's where one computes the same function, and
-              its bound (the larger of bytes over the memory rate and
-              operations over the peak rate, from the H100 SXM data sheet);
-  4. serving: full-width bf16 xDeepFM (26 x 1e5 ids, dim 16, CIN(128,128),
-              DNN(400,400)) initialised from a seed (with weights under which
-              each kernel's output moves the logits), exported, loaded with
-              load_predictor(device="cuda") and asked requests of 1, 1,000 and
-              16,384 examples; every kernel must have launched, the logits must
-              be finite and match the same artifact served on the CPU by the
-              plain path; throughput at 16,384;
-  5. a JSON line listing the kernels, then the card line again, then the
-     result line {"ok": true, "device": {...}}.
+  1. card:     the card's name and power limit, as nvidia-smi reports them;
+  2. build:    the kernels of recmodels_tpu_torch/csrc/, built into
+               recmodels_tpu_torch/_build/ (reused when the sources are unchanged);
+  3. kernels:  each kernel against its plain PyTorch version on the card at the
+               flagship shapes (xDeepFM: B = 16,384, 26 slots of 1e5 ids, dim
+               16, CIN(128,128)): the gather, the fanout and the CIN forward of
+               serving, the fanout and CIN backward and the sparse Adagrad
+               update of training (on the 2,600,960 x 17 table and on a dim-1
+               table of as many rows); its time, the plain version's, a single
+               PyTorch call's where one computes the same function, and its
+               bound (the larger of bytes over the memory rate and operations
+               over the peak rate, from the H100 SXM data sheet);
+  4. serving:  full-width bf16 xDeepFM (26 x 1e5 ids, dim 16, CIN(128,128),
+               DNN(400,400)) initialised from a seed (with weights under which
+               each kernel's output moves the logits), exported, loaded with
+               load_predictor(device="cuda") and asked requests of 1, 1,000 and
+               16,384 examples; every serving kernel must have launched, the
+               logits must be finite and match the same artifact served on the
+               CPU by the plain path; throughput at 16,384;
+  5. training: the same model trained with Engine.train_step at 16,384
+               (dense Adam lr 1e-3, sparse Adagrad lr 1e-2) for 30 steps of the
+               synthetic stream; every kernel of the step must have launched,
+               the loss must be finite and fall; one step from live weights
+               at 1,024 examples must match the CPU plain path's step (loss,
+               Adam moments, which hold the dense grads, the touched rows of
+               the table and acc, untouched rows bit for bit); the step's device time,
+               examples/s and profile;
+  6. a JSON line listing the kernels (launches from the training run), then
+     the card line again, then the result line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero before the result line.
 It also exits non-zero when no CUDA device is present, and when it stands
@@ -66,6 +78,14 @@ LOGIT_REL_TOL = 1e-2
 TERM_MIN_TOLS = 10.0
 # f32 sums of 26 values in another order: a few f32 ulps
 F32_REL_TOL = 1e-5
+TRAIN_STEPS = 30
+TRAIN_CHECK_BATCH = 1024
+# GPU step vs CPU step from one state: the grads pass through the same bf16
+# rounding points; a rounding that lands one bf16 step apart in the CIN or
+# the MLP moves a grad by about 2^-8 of its size. 3% of the largest change
+# of each tensor, or part of the table (the repo's bf16 rule,
+# tests/test_tpu_kernels.py), bounds it.
+STEP_REL_TOL = 0.03
 
 
 def check(ok: bool, what: str) -> None:
@@ -96,9 +116,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile(fn, calls: int = 3, top: int = 12) -> None:
+def profile(fn, calls: int = 3, top: int = 12) -> float:
     """Print the device time per call of the kernels ``fn`` runs, from
-    torch.profiler, and the share of the window the device was busy."""
+    torch.profiler, and the share of the window the device was busy; return
+    the kernels' time per call (ms)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -124,6 +145,8 @@ def profile(fn, calls: int = 3, top: int = 12) -> None:
           f"({busy / wall_ms:.1%}), {calls} calls")
     for ms, count, name in rows[:top]:
         print(f"profile: {ms:.4f} ms/call x{count} {name[:90]}")
+    print(f"profile: {sum(r[1] for r in rows)} kernel launches per call")
+    return busy / calls
 
 
 def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
@@ -177,6 +200,43 @@ def term_sizes(pred, ids) -> dict[str, float]:
                 "p2 . w_cin": (p2.float() @ w_cin[h1:]).abs().max().item()}
 
 
+def to_device(tree, device):
+    """A copy of a state's tensors (dicts, lists, NamedTuples) on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device, copy=True)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree
+
+
+def adagrad_library_ms(table, ids, grads, lr, eps) -> float:
+    """torch.optim.Adagrad's sparse step on the same update (its sparse path
+    sums duplicates, adds g^2 to the accumulator and divides by sqrt + eps,
+    from an accumulator of 0.1): the yardstick, used nowhere in the port."""
+    keep = ids < table.shape[0]
+    param = torch.nn.Parameter(table.clone())
+    param.grad = torch.sparse_coo_tensor(ids[keep].long()[None], grads[keep].float(),
+                                         size=table.shape, check_invariants=False)
+    opt = torch.optim.Adagrad([param], lr=lr, eps=eps, initial_accumulator_value=0.1)
+    return time_ms(opt.step, iters=10)
+
+
+def check_step(name: str, got: torch.Tensor, want: torch.Tensor, before: torch.Tensor) -> float:
+    """GPU step vs CPU step of one tensor: max |got - want| within
+    STEP_REL_TOL of the CPU step's largest change. Returns the error."""
+    got, want, before = got.detach().cpu().float(), want.float(), before.float()
+    err = (got - want).abs().max().item()
+    change = (want - before).abs().max().item()
+    check(change > 0 and err <= STEP_REL_TOL * change,
+          f"{name}: GPU step within {STEP_REL_TOL} of the CPU step's change "
+          f"(err {err:.6g}, change {change:.6g})")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -184,10 +244,16 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from recmodels_tpu_torch.data import SyntheticSource
     from recmodels_tpu_torch.embedding.gather import gather_rows, gather_rows_reference
+    from recmodels_tpu_torch.embedding.optim import slot_sorted_ids
+    from recmodels_tpu_torch.embedding.update import (
+        sorted_adagrad_update, sorted_adagrad_update_reference,
+    )
     from recmodels_tpu_torch.models import build_model
     from recmodels_tpu_torch.ops.cuda import build
     from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
-        cin2_forward, cin2_forward_reference, split_fused_rows, split_fused_rows_reference,
+        cin2_backward, cin2_backward_reference, cin2_forward, cin2_forward_reference,
+        split_fused_rows, split_fused_rows_backward, split_fused_rows_backward_reference,
+        split_fused_rows_reference,
     )
     from recmodels_tpu_torch.serve import export_model, load_predictor
     from recmodels_tpu_torch.train.engine import Engine
@@ -224,7 +290,7 @@ def main() -> int:
     m = schema.n_slots
 
     # -------------------------------------------------------------- kernels
-    print("== kernels (flagship serving shapes)")
+    print("== kernels (flagship shapes)")
     report = {}
 
     # 1. gather: 26 x 1e5 ids (2,600,960 rows of 17 f32), batch-order ids
@@ -292,7 +358,94 @@ def main() -> int:
         plain_ms=time_ms(lambda: cin2_forward_reference(x02, w1, w2, DIM), iters=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
     )
-    del table, outs, refs, x02
+
+    # 4. split_fused_rows_backward: g_dm [16384, 16, 26] bf16, g_ws [16384] f32
+    g_dm = torch.randn((BATCH, DIM, m), generator=gen, device=dev).to(torch.bfloat16)
+    g_ws = torch.randn((BATCH,), generator=gen, device=dev)
+    got = split_fused_rows_backward(g_dm, g_ws)
+    check(torch.equal(got, split_fused_rows_backward_reference(g_dm, g_ws)),
+          "split_fused_rows_backward exact")
+    b_ms, b_by = bound_ms(g_dm.numel() * 2 + g_ws.numel() * 4 + got.numel() * 2, 0.0)
+    report["split_fused_rows_backward"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/split_fused.cu",
+        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:939", max_abs_err=0.0, tol=0.0,
+        ms=time_ms(lambda: split_fused_rows_backward(g_dm, g_ws)),
+        plain_ms=time_ms(lambda: split_fused_rows_backward_reference(g_dm, g_ws)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
+    del g_dm, g_ws, got
+
+    # 5. cin2_backward on the forward's x0, x1, Q and pool grads N(0, 1)
+    x1, q = outs[0], outs[3]
+    g1p = torch.randn((BATCH, h1), generator=gen, device=dev).to(torch.bfloat16)
+    g2p = torch.randn((BATCH, h2), generator=gen, device=dev).to(torch.bfloat16)
+    del outs, refs
+    bwd = cin2_backward(x02, x1, w1, w2, q, g1p, g2p, DIM)
+    ref = cin2_backward_reference(x02, x1, w1, w2, q, g1p, g2p, DIM)
+    errs = []
+    for name, o, r in zip(("gx0", "gw1", "gw2"), bwd, ref):
+        err, scale = rel_err(o, r)
+        print(f"cin2_backward {name}: max err {err:.6g}, max |ref| {scale:.6g}, "
+              f"tol {BF16_REL_TOL * scale:.6g}")
+        check(err <= BF16_REL_TOL * scale, f"cin2_backward {name} within {BF16_REL_TOL} of max |ref|")
+        errs.append((err, BF16_REL_TOL * scale))
+    check(all(torch.equal(a, b) for a, b in zip(bwd, cin2_backward(x02, x1, w1, w2, q, g1p, g2p, DIM))),
+          "cin2_backward repeats bit for bit")
+    del ref
+    rows_ = BATCH * DIM
+    macs = (2 * rows_ * m * m * h1 + 2 * BATCH * h2 * m * h1 + 2 * rows_ * m * h1
+            + 2 * rows_ * m * m)
+    nbytes = (x02.numel() + x1.numel() + w1.numel() + w2.numel() + q.numel() + g1p.numel()
+              + g2p.numel() + sum(t.numel() for t in bwd)) * 2
+    b_ms, b_by = bound_ms(nbytes, 2 * macs)
+    report["cin2_backward"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/cin2_bwd.cu",
+        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:658",
+        max_abs_err=max(e for e, _ in errs), tol=max(t for _, t in errs),
+        ms=time_ms(lambda: cin2_backward(x02, x1, w1, w2, q, g1p, g2p, DIM)),
+        plain_ms=time_ms(lambda: cin2_backward_reference(x02, x1, w1, w2, q, g1p, g2p, DIM), iters=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
+    del bwd, x1, q, g1p, g2p, x02
+
+    # 6. sorted_adagrad_update: the batch's sorted stream (425,984 ids) into
+    # the 2,600,960 x 17 table, bf16 grads N(0, 0.01); then a dim-1 table
+    sorted_ids, _, _ = slot_sorted_ids(gids)
+    n = sorted_ids.numel()
+    lr, eps = 1e-2, 1e-8
+    update = {}
+    for label, d1 in (("", DIM + 1), ("dim1_", 1)):
+        shape = (rows, d1) if d1 > 1 else (rows,)
+        upd_table = table.clone() if d1 > 1 else table[:, -1].contiguous()
+        upd_acc = torch.full(shape, 0.1, device=dev) + torch.rand(shape, generator=gen, device=dev)
+        grads = (torch.randn((n, *shape[1:]), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+        t_cpu, a_cpu = upd_table.cpu(), upd_acc.cpu()
+        sorted_adagrad_update_reference(t_cpu, a_cpu, sorted_ids.cpu(), grads.cpu(), lr, eps)
+        sorted_adagrad_update(upd_table, upd_acc, sorted_ids, grads, lr, eps)
+        torch.cuda.synchronize()
+        err = max((upd_table.cpu() - t_cpu).abs().max().item(), (upd_acc.cpu() - a_cpu).abs().max().item())
+        check(err == 0.0, f"sorted_adagrad_update {label or 'd17 '}bit-exact against the CPU plain version ({err})")
+        touched = torch.unique(sorted_ids).numel()
+        b_ms, b_by = bound_ms(n * 4 + grads.numel() * 2 + touched * d1 * 4 * 4, 0.0)
+        update.update({
+            f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+            f"{label}ms": time_ms(lambda: sorted_adagrad_update(upd_table, upd_acc, sorted_ids, grads, lr, eps)),
+            f"{label}plain_ms": time_ms(lambda: sorted_adagrad_update_reference(
+                upd_table, upd_acc, sorted_ids, grads, lr, eps), iters=5),
+            f"{label}library_ms": adagrad_library_ms(upd_table, sorted_ids, grads, lr, eps),
+        })
+        del upd_table, upd_acc, grads, t_cpu, a_cpu
+    report["sorted_adagrad_update"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/adagrad_update.cu",
+        replaces="recmodels_tpu/embedding/pallas_update.py:427",
+        also_replaces="recmodels_tpu/embedding/pallas_update.py:296 (the dim1_ keys)",
+        tol=0.0, **update,
+    )
+    print(f"sorted_adagrad_update dim-1 [{rows}]: max err {update['dim1_max_abs_err']:.6g}; kernel "
+          f"{update['dim1_ms']:.4f} ms, plain {update['dim1_plain_ms']:.4f} ms, library "
+          f"{update['dim1_library_ms']:.4f} ms, bound {update['dim1_bound_ms']:.4f} ms "
+          f"({update['dim1_bound_by']}) on {card}")
+    del table
     for name, r in report.items():
         print(f"{name}: max err {r['max_abs_err']:.6g} (tol {r['tol']:.6g}); "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
@@ -349,11 +502,15 @@ def main() -> int:
         with torch.inference_mode():
             profile(lambda: pred.engine.logits(pred.state, dense, ids))
 
+    del pred
+    launches = training_phase(engine, schema, card, gen)
+
     kernel_rows = [
         {"name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         **{k: v for k, v in r.items() if k.startswith("dim1_") or k == "also_replaces"}}
         for name, r in report.items()
     ]
     print(json.dumps({"kernels": kernel_rows}))
@@ -361,6 +518,113 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
+
+
+def training_phase(engine, schema, card: str, gen: torch.Generator) -> dict[str, int]:
+    """Train full-width bf16 xDeepFM on the card; returns each kernel's
+    launches over the TRAIN_STEPS steps (the counts are set to 0 just
+    before them and read just after)."""
+    from recmodels_tpu_torch.data import SyntheticSource
+    from recmodels_tpu_torch.embedding.gather import gather_rows
+    from recmodels_tpu_torch.embedding.update import sorted_adagrad_update
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
+        cin2_backward, cin2_forward, split_fused_rows, split_fused_rows_backward,
+    )
+
+    print("== training (full-width bf16 xDeepFM, Adam 1e-3 + sparse Adagrad 1e-2)")
+    dev = torch.device("cuda")
+    kernels = (gather_rows, split_fused_rows, cin2_forward, sorted_adagrad_update,
+               split_fused_rows_backward, cin2_backward)
+    src = iter(SyntheticSource(schema, batch_size=BATCH, seed=11))
+    batches = []
+    for _ in range(TRAIN_STEPS):
+        b = next(src)
+        batches.append(tuple(torch.as_tensor(a, device=dev) for a in (b.dense, b.ids, b.labels)))
+    state = engine.init(seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for dense, ids, labels in batches:
+        state, metrics = engine.train_step(state, dense, ids, labels)
+        losses.append(metrics["loss"])
+    losses = torch.stack(losses).cpu()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"launches over {TRAIN_STEPS} steps: {launches}")
+    for name, count in launches.items():
+        check(count >= TRAIN_STEPS, f"{name} launched on every training step")
+    print("losses: " + " ".join(f"{v:.5f}" for v in losses.tolist()))
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    print(f"loss: mean of the first 5 steps {first:.6f}, of the last 5 {last:.6f} "
+          f"({TRAIN_STEPS} steps in {wall:.3f} s, first steps included)")
+    check(bool(torch.isfinite(losses).all()), "finite losses")
+    check(last < first, "the loss falls over the steps")
+
+    # one step from a live state on the card and on the CPU plain path
+    liven(state, gen)
+    dense, ids, labels = (t[:TRAIN_CHECK_BATCH] for t in batches[0])
+    cpu_state = to_device(state, "cpu")
+    before = to_device(state, "cpu")
+    cpu_in = [t.cpu() for t in (dense, ids, labels)]
+    with torch.no_grad():
+        max_logit = engine.logits(cpu_state, cpu_in[0], cpu_in[1]).abs().max().item()
+    state, gm = engine.train_step(state, dense, ids, labels)
+    cpu_state, cm = engine.train_step(cpu_state, *cpu_in)
+    loss_err = abs(gm["loss"].item() - cm["loss"].item())
+    loss_tol = LOGIT_REL_TOL * max_logit  # BCE is 1-Lipschitz in each logit
+    print(f"GPU vs CPU step at {TRAIN_CHECK_BATCH}: loss {gm['loss'].item():.6f} vs "
+          f"{cm['loss'].item():.6f} (err {loss_err:.6g}, tol {loss_tol:.6g})")
+    check(loss_err <= loss_tol, "GPU loss matches the CPU step")
+    errs = {}
+    for name, i in (("mu", "mu"), ("nu", "nu")):
+        for j, (g, c, b) in enumerate(zip(state.dense_opt[i], cpu_state.dense_opt[i], before.dense_opt[i])):
+            errs[f"{name}/{j}"] = check_step(f"Adam {name} leaf {j}", g, c, b)
+    # the dense grads are held through the moments above. Adam's step
+    # m/(sqrt(v) + eps) is near lr * sign(g) where this step's grads outgrow
+    # the history (as after liven), so grads that agree to 2^-8 can give
+    # params a sizeable share of a step apart: the params are not compared.
+    (gname,) = state.emb_params["emb"]
+    table_b = before.emb_params["emb"][gname]
+    acc_b = before.emb_opt["emb"][gname]["acc"]
+    gpu_t, gpu_a = state.emb_params["emb"][gname].cpu(), state.emb_opt["emb"][gname]["acc"].cpu()
+    cpu_t, cpu_a = cpu_state.emb_params["emb"][gname], cpu_state.emb_opt["emb"][gname]["acc"]
+    touched = torch.zeros(table_b.shape[0], dtype=torch.bool)
+    touched[engine.collections["emb"].group_row_ids(cpu_in[1])[gname].reshape(-1).long()] = True
+    # the fused wide column's grads outgrow the embedding columns': each part
+    # is held to its own largest change
+    for part, cols in (("embedding columns", slice(0, -1)), ("wide column", slice(-1, None))):
+        for name, gpu, cpu, b in (("table", gpu_t, cpu_t, table_b), ("acc", gpu_a, cpu_a, acc_b)):
+            errs[f"{name}/{part}"] = check_step(f"touched {name} rows, {part}", gpu[touched, cols],
+                                                cpu[touched, cols], b[touched, cols])
+    check(torch.equal(gpu_t[~touched], table_b[~touched]) and torch.equal(cpu_t[~touched], table_b[~touched])
+          and torch.equal(gpu_a[~touched], acc_b[~touched]), "untouched rows bit-identical")
+    print(f"GPU vs CPU step: {int(touched.sum())} touched rows; largest errors: table "
+          f"{max(v for k, v in errs.items() if k.startswith('table')):.6g}, acc "
+          f"{max(v for k, v in errs.items() if k.startswith('acc')):.6g}, Adam mu "
+          f"{max(v for k, v in errs.items() if k.startswith('mu')):.6g}, Adam nu "
+          f"{max(v for k, v in errs.items() if k.startswith('nu')):.6g}; untouched rows bit-identical")
+    del cpu_state, before
+
+    dense, ids, labels = batches[-1]
+    step_ms = time_ms(lambda: engine.train_step(state, dense, ids, labels), iters=10)
+    t_host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.train_step(state, dense, ids, labels)
+        torch.cuda.synchronize()
+        t_host.append(time.perf_counter() - t0)
+    host_ms = float(np.median(t_host)) * 1e3
+    print(f"Engine.train_step at {BATCH}: {step_ms:.4f} ms per step (CUDA events, 10 back-to-back steps), "
+          f"{BATCH / step_ms * 1e3:.0f} examples/s on {card}")
+    print(f"Engine.train_step at {BATCH} one at a time (host clock to synchronize): {host_ms:.4f} ms "
+          f"median of 5, {BATCH / host_ms * 1e3:.0f} examples/s on {card}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    busy = profile(lambda: engine.train_step(state, dense, ids, labels), top=20)
+    print(f"Engine.train_step at {BATCH}: {busy:.4f} ms of kernel time per step (profiler), "
+          f"{BATCH / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -106,7 +106,8 @@ class EmbeddingCollection:
 
     def combine(self, rows: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Per-group rows -> [B, n_slots, max_dim], zero-padded. A single
-        group is returned as it is."""
+        group is returned as it is. Differentiable: autograd's transpose is
+        ``split_grad``."""
         if len(self.groups) == 1:
             return rows[self.groups[0].name]
         some = next(iter(rows.values()))
@@ -116,3 +117,8 @@ class EmbeddingCollection:
         for g in self.groups:
             out[:, list(g.slot_indices), : g.dim] = rows[g.name]
         return out
+
+    def split_grad(self, emb_grad: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """[B, n_slots, max_dim] cotangent -> per-group [B, n_g, dim], the
+        transpose of ``combine``."""
+        return {g.name: emb_grad[:, list(g.slot_indices), : g.dim] for g in self.groups}

@@ -44,12 +44,41 @@ def mlp_apply(layers: list[dict], x: torch.Tensor, final_linear: bool,
     return h.float()
 
 
-def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` summed in f32 for bf16 or f32 operands. A bf16
-    ``torch.matmul`` would round the product to bf16 before the bias add. On
-    the card cuBLAS returns the f32 sum of the bf16 tensor-core products; the
-    CPU has no such product, so it widens the operands to f32 (exactly) and
-    multiplies in f32, which is the same sum in another order."""
-    if a.dtype == torch.float32 or a.device.type == "cpu":
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 matrices summed in f32. On the card cuBLAS
+    returns the f32 sum of the bf16 tensor-core products; the CPU has no
+    such product, so it widens the operands to f32 (exactly) and multiplies
+    in f32, which is the same sum in another order."""
+    if a.device.type == "cpu":
         return a.float() @ b.float()
     return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class ProductF32(torch.autograd.Function):
+    """bf16 ``a @ b`` -> f32, with the transpose rule JAX gives a
+    ``preferred_element_type=float32`` product: each operand's grad is the
+    f32 sum of the cotangent against the other operand, rounded to bf16. The
+    backward rounds the cotangent to bf16 first so that both of its products
+    are bf16 products too; on the MLP's path that cast is exact, because
+    every layer's output is rounded to bf16 and so is its cotangent."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        ga = _mm_f32(g, b.t()).to(torch.bfloat16) if ctx.needs_input_grad[0] else None
+        gb = _mm_f32(a.t(), g).to(torch.bfloat16) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` summed in f32 for bf16 or f32 operands. A bf16
+    ``torch.matmul`` would round the product to bf16 before the bias add."""
+    if a.dtype == torch.float32:
+        return a @ b.float()
+    return ProductF32.apply(a, b)

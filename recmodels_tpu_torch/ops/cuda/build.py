@@ -35,6 +35,7 @@ LOG_NAME = "build.log"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # device, table, ids, out, n, d1, out_bf16, stream
     "rm_gather_rows": [_I, _P, _P, _P, _L, _I, _I, _P],
@@ -42,6 +43,18 @@ _SIGNATURES = {
     "rm_split_fused_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     # device, x0, w1, w2, x1, p1, p2, q, b, d, m, h1, h2, stream
     "rm_cin2_forward": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device, g_dm, g_ws, out, b, m, d, is_bf16, stream
+    "rm_split_fused_rows_backward": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # device, x0, x1, w1, w2, q, g1p, g2p, gx0, gw1, gw2, scratch, b, d, m, h1, h2, stream
+    "rm_cin2_backward": [_I] + [_P] * 11 + [_I] * 5 + [_P],
+    # device, table, acc, ids, grads, n, rows, d, grads_bf16, lr, eps, stream
+    "rm_adagrad_update": [_I, _P, _P, _P, _P, _L, _L, _I, _I, _F, _F, _P],
+}
+# functions that return something other than a CUDA error code
+_RESTYPES = {
+    # b, d, m, h1, h2 -> scratch bytes of rm_cin2_backward, or -1
+    "rm_cin2_backward_scratch": ([_I] * 5, _L),
+    "rm_error_string": ([_I], ctypes.c_char_p),
 }
 
 
@@ -113,8 +126,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.rm_error_string.argtypes = [ctypes.c_int]
-    lib.rm_error_string.restype = ctypes.c_char_p
+    for name, (argtypes, restype) in _RESTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
 
 

@@ -21,7 +21,7 @@ from recmodels_tpu_torch.ops.cuda import interactions_cuda
 
 _KERNELS: Dict[str, Callable] = {
     "cin_stack_dm_flat": interactions_cuda.cin_stack_dm_flat,
-    "split_fused_rows": interactions_cuda.split_fused_rows,
+    "split_fused_rows": interactions_cuda.split_fused_rows_op,
 }
 
 # ops that run only on the CPU until their TPU kernels are ported

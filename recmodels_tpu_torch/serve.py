@@ -16,7 +16,7 @@ Usage:
 from __future__ import annotations
 
 import os
-from typing import Any, Iterator, Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -24,26 +24,7 @@ import torch
 from recmodels_tpu_torch.models import build_model
 from recmodels_tpu_torch.train.engine import Engine, TrainState, resolve_device
 from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
-
-
-def _leaves(tree) -> Iterator[torch.Tensor]:
-    """Leaves in JAX's flatten order: dict keys sorted, lists in order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _unflatten(template, leaves: Iterator):
-    if isinstance(template, dict):
-        return {k: _unflatten(template[k], leaves) for k in sorted(template)}
-    if isinstance(template, (list, tuple)):
-        return [_unflatten(v, leaves) for v in template]
-    return next(leaves)
+from recmodels_tpu_torch.utils.tree import leaves, unflatten
 
 
 def treedef_str(tree) -> str:
@@ -65,7 +46,7 @@ def export_model(out_dir: str, cfg: TrainConfig, engine: Engine, state: TrainSta
     os.makedirs(out_dir, exist_ok=True)
     arrays = {
         f"dense/{i}": np.asarray(t.detach().cpu(), np.float32)
-        for i, t in enumerate(_leaves(state.dense_params))
+        for i, t in enumerate(leaves(state.dense_params))
     }
     for name, coll in engine.collections.items():
         for g in coll.groups:
@@ -88,14 +69,14 @@ def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
     engine's model."""
     device = resolve_device(device)
     template = engine.model.init_dense(torch.Generator().manual_seed(0), "cpu")
-    want = [tuple(t.shape) for t in _leaves(template)]
+    want = [tuple(t.shape) for t in leaves(template)]
     got = [tuple(np.shape(a)) for a in dense_leaves]
     if got != want:
         raise ValueError(
             f"artifact/model structure mismatch:\n  artifact leaves {got}\n  model leaves    {want}"
         )
     tensors = (torch.tensor(np.asarray(a, np.float32), device=device) for a in dense_leaves)
-    dense_params = _unflatten(template, tensors)
+    dense_params = unflatten(template, tensors)
     emb_params: dict[str, dict[str, torch.Tensor]] = {}
     for name, coll in engine.collections.items():
         emb_params[name] = {}
@@ -107,6 +88,44 @@ def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
                 raise ValueError(f"artifact/model structure mismatch: {key} {t.shape}, expected {shape}")
             emb_params[name][g.name] = torch.tensor(t, device=device)
     return TrainState(step=0, dense_params=dense_params, emb_params=emb_params)
+
+
+def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.ndarray],
+                         adam: tuple, emb_tables: Mapping[str, np.ndarray],
+                         emb_acc: Mapping[str, np.ndarray], device="cuda") -> TrainState:
+    """The port's training state from a JAX ``TrainState`` of an engine with
+    dense Adam and sparse Adagrad, as numpy arrays: ``step``, the dense
+    leaves (as for ``params_from_jax``), ``adam`` = (count, mu leaves, nu
+    leaves) of optax's ``ScaleByAdamState``, and per group the table and the
+    Adagrad ``acc``, both keyed ``emb/<collection>/<group>``.
+
+    Raises ``ValueError`` unless every shape matches this engine's model."""
+    if engine.dense_optimizer != "adam" or engine.sparse_optimizer != "adagrad":
+        raise ValueError("train_state_from_jax takes an engine with dense Adam and sparse Adagrad")
+    state = params_from_jax(engine, dense_leaves, emb_tables, device)
+    count, mu, nu = adam
+    params = list(leaves(state.dense_params))
+    moments = []
+    for name, arrays in (("mu", mu), ("nu", nu)):
+        if [tuple(np.shape(a)) for a in arrays] != [tuple(p.shape) for p in params]:
+            raise ValueError(f"artifact/model structure mismatch: Adam {name} leaves")
+        moments.append([torch.tensor(np.asarray(a, np.float32), device=p.device)
+                        for a, p in zip(arrays, params)])
+    emb_opt: dict[str, dict[str, Any]] = {}
+    for name, coll in engine.collections.items():
+        emb_opt[name] = {}
+        for g in coll.groups:
+            key = f"emb/{name}/{g.name}"
+            acc = np.asarray(emb_acc[key], np.float32)
+            table = state.emb_params[name][g.name]
+            if acc.shape != tuple(table.shape):
+                raise ValueError(f"artifact/model structure mismatch: {key} acc {acc.shape}")
+            emb_opt[name][g.name] = {"acc": torch.tensor(acc, device=table.device)}
+    return state._replace(
+        step=int(step),
+        dense_opt={"count": int(count), "mu": moments[0], "nu": moments[1]},
+        emb_opt=emb_opt,
+    )
 
 
 class Predictor:

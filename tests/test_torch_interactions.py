@@ -7,9 +7,16 @@
   in bf16, against the f32 einsum oracle. JAX has no CPU path for its fused
   CIN kernel (``_cin2_supported`` is false in interpret mode), so the oracle
   stands in for it;
+* the backward: ``cin2_backward_reference`` against ``jax.vjp`` of JAX's
+  ``cin_stack_dm_flat`` (f32 tightly; bf16 by the repo's rule against the
+  f32 grads), ``split_fused_rows_backward_reference`` against ``jax.vjp`` of
+  JAX's ``split_fused_rows`` exactly, and the ``autograd.Function``s
+  (``Cin2``, ``SplitFusedRows``, the MLP's ``ProductF32``) against
+  ``torch.autograd`` through the plain ops;
 * dispatch: what runs for a CPU tensor and what raises for other devices.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +24,7 @@ import torch
 
 from recmodels_tpu.ops import dispatch as jdispatch
 from recmodels_tpu.ops import interactions as J
+from recmodels_tpu_torch.nn.mlp import ProductF32
 from recmodels_tpu_torch.ops import interactions as T
 from recmodels_tpu_torch.ops.cuda import interactions_cuda as K
 from recmodels_tpu_torch.ops.dispatch import get_op
@@ -161,6 +169,132 @@ def test_cin2_reference_bf16_within_rule_of_f32_oracle(cin_inputs, shape):
     _close_rule(_np(pools), np.asarray(jpools.astype(jnp.float32)))
 
 
+# ------------------------------------------------------------- backward
+def _jax_cin_vjp(x_dm, w1, w2, g1p, g2p):
+    """jax.vjp of JAX's cin_stack_dm_flat in f32: (gx_dm, gw1, gw2)."""
+    _, vjp = jax.vjp(lambda x, a, b: J.cin_stack_dm_flat(x, [a, b]),
+                     *(jnp.asarray(t) for t in (x_dm, w1, w2)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(np.concatenate([g1p, g2p], 1)))]
+
+
+def _pool_grads(b, h1, h2, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, h1)).astype(np.float32), rng.normal(size=(b, h2)).astype(np.float32))
+
+
+def _port_cin_bwd(x_dm, w1, w2, g1p, g2p, dtype):
+    b, d, m = x_dm.shape
+    x02, w1t, w2t = (torch.from_numpy(a).to(dtype) for a in (x_dm.reshape(b * d, m), w1, w2))
+    x1, _, _, q = K.cin2_forward_reference(x02, w1t, w2t, d, want_x1=True, want_q=True)
+    before = K.cin2_backward.launches
+    outs = K.cin2_backward(x02, x1, w1t, w2t, q, torch.from_numpy(g1p).to(dtype),
+                           torch.from_numpy(g2p).to(dtype), d)
+    assert K.cin2_backward.launches == before  # the CPU takes the plain version
+    assert all(o.dtype == dtype for o in outs)
+    gx0, gw1, gw2 = outs
+    return gx0.reshape(b, d, m), gw1, gw2
+
+
+@pytest.mark.parametrize("shape", [(16, 8, 26, 16, 16), (4, 16, 26, 128, 128), (3, 5, 7, 16, 32)])
+def test_cin2_backward_reference_f32_matches_jax_vjp(cin_inputs, shape):
+    b, d, m, h1, h2 = shape
+    x_dm, w1, w2 = cin_inputs(b, d, m, h1, h2, seed=5)
+    g1p, g2p = _pool_grads(b, h1, h2, 6)
+    want = _jax_cin_vjp(x_dm, w1, w2, g1p, g2p)
+    got = _port_cin_bwd(x_dm, w1, w2, g1p, g2p, torch.float32)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=F32_TOL, atol=F32_TOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("shape", [(16, 8, 26, 16, 16), (4, 16, 26, 128, 128), (3, 5, 7, 16, 32)])
+def test_cin2_backward_reference_bf16_within_rule_of_f32_vjp(cin_inputs, shape):
+    """bf16 rounds t1p, gx1, gp, the pairs and the products the kernel
+    rounds; the f32 oracle is jax.vjp on the same bf16-valued inputs."""
+    b, d, m, h1, h2 = shape
+    x_dm, w1, w2 = cin_inputs(b, d, m, h1, h2, seed=7)
+    g1p, g2p = _pool_grads(b, h1, h2, 8)
+    as_bf16 = [_np(torch.from_numpy(a).to(torch.bfloat16)) for a in (x_dm, w1, w2, g1p, g2p)]
+    want = _jax_cin_vjp(*as_bf16)
+    got = _port_cin_bwd(*as_bf16, torch.bfloat16)
+    for g, w in zip(got, want):
+        _close_rule(_np(g), w)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_split_fused_rows_backward_reference_matches_jax_vjp(dtype):
+    rng = np.random.default_rng(9)
+    b, m, d = 37, 26, 8
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
+    full = jnp.asarray(rng.normal(size=(b, m, d + 1)), jdt)
+    g_dm = jnp.asarray(rng.normal(size=(b, d, m)), jdt)
+    g_ws = jnp.asarray(rng.normal(size=(b,)), jnp.float32)
+    _, vjp = jax.vjp(lambda f: J.split_fused_rows(f, d), full)
+    (want,) = vjp((g_dm, g_ws))
+    tg_dm = torch.tensor(np.asarray(g_dm.astype(jnp.float32))).to(tdt)
+    before = K.split_fused_rows_backward.launches
+    got = K.split_fused_rows_backward(tg_dm, torch.tensor(np.asarray(g_ws)))
+    assert K.split_fused_rows_backward.launches == before
+    assert got.dtype == tdt and got.shape == (b, m, d + 1)
+    np.testing.assert_array_equal(_np(got), np.asarray(want.astype(jnp.float32)))
+
+
+def test_split_fused_rows_function_matches_autograd_of_plain_ops():
+    rng = np.random.default_rng(10)
+    full = torch.tensor(rng.normal(size=(9, 26, 17)), dtype=torch.float32).to(torch.bfloat16)
+    g_dm = torch.tensor(rng.normal(size=(9, 16, 26)), dtype=torch.float32).to(torch.bfloat16)
+    g_ws = torch.tensor(rng.normal(size=(9,)), dtype=torch.float32)
+    grads = []
+    for fn in (K.SplitFusedRows.apply, K.split_fused_rows_reference, get_op("split_fused_rows")):
+        x = full.clone().requires_grad_(True)
+        x_dm, ws = fn(x, 16)
+        grads.append(torch.autograd.grad((x_dm.float() * g_dm.float()).sum() + (ws * g_ws).sum(), x)[0])
+    assert grads[0].dtype == torch.bfloat16
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[2], grads[1])
+
+
+def test_cin2_function_matches_autograd_of_plain_ops(cin_inputs):
+    """``Cin2`` in f32 on the CPU (pool grads that bf16 holds, so its bf16
+    cast changes nothing) against autograd through the plain per-layer
+    ops; in bf16, ``cin_stack_dm_flat`` goes through it."""
+    b, d, m, h1, h2 = 5, 8, 26, 16, 32
+    x_dm, w1, w2 = cin_inputs(b, d, m, h1, h2, seed=11)
+    g = torch.from_numpy(np.concatenate(_pool_grads(b, h1, h2, 12), 1)).to(torch.bfloat16).float()
+    grads = []
+    for path in ("function", "plain"):
+        x, a, c = (torch.from_numpy(t).requires_grad_(True) for t in (x_dm, w1, w2))
+        if path == "function":
+            pools = torch.cat(K.Cin2.apply(x.reshape(b * d, m), a, c, d), 1)
+        else:
+            pools = T.cin_stack_dm_flat(x, [a, c])
+        grads.append(torch.autograd.grad((pools * g).sum(), (x, a, c)))
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=F32_TOL,
+                                   atol=F32_TOL * want.abs().max().item())
+    x = torch.from_numpy(x_dm).to(torch.bfloat16).requires_grad_(True)
+    ws = [torch.from_numpy(w).to(torch.bfloat16) for w in (w1, w2)]
+    pools = get_op("cin_stack_dm_flat")(x, ws)
+    assert pools.grad_fn is not None and "Cin2" in pools.grad_fn.next_functions[0][0].name()
+
+
+def test_product_function_matches_autograd_of_widened_product():
+    """The MLP's bf16 product: grads are f32 sums rounded to bf16 (JAX's
+    transpose rule), for a cotangent that bf16 holds (every MLP layer's
+    output rounds to bf16)."""
+    rng = np.random.default_rng(13)
+    a0 = torch.tensor(rng.normal(size=(6, 5)), dtype=torch.float32).to(torch.bfloat16)
+    b0 = torch.tensor(rng.normal(size=(5, 4)), dtype=torch.float32).to(torch.bfloat16)
+    g = torch.tensor(rng.normal(size=(6, 4)), dtype=torch.float32).to(torch.bfloat16).float()
+    grads = []
+    for fn in (ProductF32.apply, lambda x, y: x.float() @ y.float()):
+        a, b = a0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        out = fn(a, b)
+        assert out.dtype == torch.float32
+        grads.append(torch.autograd.grad((out * g).sum(), (a, b)))
+    for got, want in zip(*grads):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
 # ------------------------------------------------------------------ dispatch
 def test_dispatch_names_are_the_jax_packages():
     for name in ("cin_layer", "cin_stack", "cin_stack_dm", "cin_stack_flat",
@@ -193,3 +327,8 @@ def test_kernel_entries_reject_devices_without_a_kernel():
         K.split_fused_rows(x, 4)
     with pytest.raises(ValueError, match="no kernel"):
         K.cin2_forward(x.reshape(6, 5), x.reshape(6, 5), x.reshape(6, 5), 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        K.split_fused_rows_backward(x, torch.empty((2,), device="meta"))
+    y = x.reshape(6, 5)
+    with pytest.raises(ValueError, match="no kernel"):
+        K.cin2_backward(y, y, y, y, y, y, y, 3)

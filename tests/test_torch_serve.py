@@ -25,6 +25,7 @@ from recmodels_tpu_torch.models import build_model
 from recmodels_tpu_torch.serve import export_model, load_predictor, params_from_jax, treedef_str
 from recmodels_tpu_torch.train.engine import Engine
 from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
+from recmodels_tpu_torch.utils.tree import leaves
 
 SIZES = (1, 7, 64, 100)
 # f32: the same math in another summation order
@@ -110,6 +111,31 @@ def test_port_artifact_loads_in_jax(trained, tmp_path):
     jpred = jload(out, min_bucket=max(SIZES))
     b = trained["batch"]
     np.testing.assert_array_equal(jpred.predict_logits(b.dense, b.ids), trained["want"])
+
+
+def test_serving_state_without_optimizer_states_round_trips(trained, tmp_path):
+    """A serving state leaves ``dense_opt`` and ``emb_opt`` None; it exports
+    and loads in both packages, and a training state (with both optimizer
+    states) exports the very same artifact, so the format is unchanged."""
+    pred = load_predictor(trained["art"], device="cpu")
+    assert pred.state.dense_opt is None and pred.state.emb_opt is None
+    out = str(tmp_path / "serving")
+    export_model(out, TrainConfig(**_cfg(trained["bf16"])), pred.engine, pred.state)
+    back = load_predictor(out, device="cpu")
+    assert back.state.dense_opt is None and back.state.emb_opt is None
+    b = trained["batch"]
+    np.testing.assert_array_equal(back.predict_logits(b.dense, b.ids), pred.predict_logits(b.dense, b.ids))
+    np.testing.assert_array_equal(jload(out, min_bucket=max(SIZES)).predict_logits(b.dense, b.ids),
+                                  trained["want"])
+    training = pred.state._replace(
+        dense_opt=pred.engine.dense_tx.init(list(leaves(pred.state.dense_params))),
+        emb_opt=pred.engine.tables.init_opt(pred.state.emb_params))
+    out2 = str(tmp_path / "training")
+    export_model(out2, TrainConfig(**_cfg(trained["bf16"])), pred.engine, training)
+    with np.load(os.path.join(out, "params.npz")) as x, np.load(os.path.join(out2, "params.npz")) as y:
+        assert sorted(x.files) == sorted(y.files)
+        for k in x.files:
+            np.testing.assert_array_equal(x[k], y[k])
 
 
 def test_treedef_string_is_jaxs(trained):

@@ -16,7 +16,11 @@ Phases, each on its own lines:
                table of as many rows); its time, the plain version's, a single
                PyTorch call's where one computes the same function, and its
                bound (the larger of bytes over the memory rate and operations
-               over the peak rate, from the H100 SXM data sheet);
+               over the peak rate, from the H100 SXM data sheet); then the
+               kernels of the slice-3 path: lazy Adam (on a 2,600,960 x 16
+               table and on a dim-1 table, bit-exact), one generic CIN layer
+               forward (layer-1 and layer-2 shapes, bf16 and f32) and
+               backward (layer-2 shape), and the field-matrix transpose;
   4. serving:  full-width bf16 xDeepFM (26 x 1e5 ids, dim 16, CIN(128,128),
                DNN(400,400)) initialised from a seed (with weights under which
                each kernel's output moves the logits), exported, loaded with
@@ -32,8 +36,21 @@ Phases, each on its own lines:
                Adam moments, which hold the dense grads, the touched rows of
                the table and acc, untouched rows bit for bit); the step's device time,
                examples/s and profile;
-  6. a JSON line listing the kernels (launches from the training run), then
-     the card line again, then the result line {"ok": true, "device": {...}}.
+  6. training, slice 3: bf16 xDeepFM with CIN(128,128,128), the wide column
+               in its own dim-1 table (fuse_wide=False) and lazy Adam on both
+               tables (lr 1e-2), 30 steps at 16,384: the gather, the transpose,
+               the CIN layer forward and backward and the Adam update must
+               launch on every step, the loss must be finite and fall; one step
+               from live weights at 1,024 examples must match the CPU plain
+               path's step (loss, dense Adam moments, each table's m and v on
+               touched rows; the table moves by the Adam step of its own
+               moments, bit for bit; untouched rows bit for bit); the step's
+               device time, kernel time and profile; then one dense-Adam
+               ("adam_dense") table update on the card, run twice from one
+               state (identical bits) and held against the CPU;
+  7. a JSON line listing the kernels (launches from the run of each kernel's
+     path), then the card line again, then the result line
+     {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero before the result line.
 It also exits non-zero when no CUDA device is present, and when it stands
@@ -54,14 +71,17 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data sheet, dense: device memory rate and bf16 tensor-core rate
+# H100 SXM data sheet, dense: device memory rate, bf16 tensor-core rate and
+# the f32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 BATCH = 16_384
 VOCAB = 100_000
 DIM = 16
 CIN = (128, 128)
+CIN3 = (128, 128, 128)
 HIDDEN = (400, 400)
 SEED = 0
 # kernel vs plain on bf16 outputs: both sum in f32 in different orders and then
@@ -86,6 +106,13 @@ TRAIN_CHECK_BATCH = 1024
 # of each tensor, or part of the table (the repo's bf16 rule,
 # tests/test_tpu_kernels.py), bounds it.
 STEP_REL_TOL = 0.03
+# f32 CIN layer, kernel vs plain: the same f32 sums (Hk * m terms) in another
+# order; TF32 is off on both sides
+F32_LAYER_REL_TOL = 1e-4
+# dense Adam, card vs CPU: the duplicate sums in the same stream order, the
+# f32 square root correctly rounded on the card and within an ulp on the
+# CPU: a few f32 ulps of each change
+DENSE_ADAM_REL_TOL = 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -149,9 +176,10 @@ def profile(fn, calls: int = 3, top: int = 12) -> float:
     return busy / calls
 
 
-def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float = 0.0,
+             peak_flop_per_s: float = PEAK_BF16_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -162,15 +190,22 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 
 def liven(state, gen: torch.Generator) -> None:
-    """Give every kernel of the serving path a visible share of the logits,
-    in place. ``Engine.init`` leaves the fused wide column, ``w_dense`` and
+    """Give every kernel of the path a visible share of the logits, in
+    place. ``Engine.init`` leaves the first-order column, ``w_dense`` and
     the bias at zero, and its N(0, 0.05) rows leave the second CIN pool near
     1e-3 of a logit: a wrong ``wide_sum`` or p2 would still pass the
-    GPU-vs-CPU check. Rows N(0, 0.5), a wide column N(0, 0.2) and a drawn
+    GPU-vs-CPU check. Rows N(0, 0.5), a first-order column (the fused
+    table's last, or the dim-1 ``wide`` table) N(0, 0.2) and a drawn
     ``w_dense`` and bias fix that; ``term_sizes`` checks it."""
+    wide = state.emb_params.get("wide", {})
     for table in state.emb_params["emb"].values():
-        table[:, :-1] *= 10.0
-        table[:, -1] = torch.randn(table.shape[0], generator=gen, device=table.device) * 0.2
+        if wide:
+            table *= 10.0
+        else:
+            table[:, :-1] *= 10.0
+            table[:, -1] = torch.randn(table.shape[0], generator=gen, device=table.device) * 0.2
+    for table in wide.values():
+        table.copy_(torch.randn(table.shape, generator=gen, device=table.device) * 0.2)
     dp = state.dense_params
     dev = dp["w_dense"].device
     dp["w_dense"] = torch.randn(dp["w_dense"].shape, generator=gen, device=dev) * 0.1
@@ -237,6 +272,160 @@ def check_step(name: str, got: torch.Tensor, want: torch.Tensor, before: torch.T
     return err
 
 
+def adam_library_ms(table, ids, grads, lr) -> float:
+    """torch.optim.SparseAdam's step on the same update (it sums duplicates
+    and updates the moments of the touched rows only, lazy Adam's rule):
+    the yardstick, used nowhere in the port."""
+    keep = ids < table.shape[0]
+    param = torch.nn.Parameter(table.clone())
+    param.grad = torch.sparse_coo_tensor(ids[keep].long()[None], grads[keep].float(),
+                                         size=table.shape, check_invariants=False)
+    opt = torch.optim.SparseAdam([param], lr=lr)
+    return time_ms(opt.step, iters=10)
+
+
+def adam_step_of(before_table, m, v, lr: float, step: int) -> torch.Tensor:
+    """The table after lazy Adam's step from its new moments m and v (on the
+    CPU, in the update's order of operations and f32 constants)."""
+    from recmodels_tpu_torch.embedding.update import adam_constants, bias_correction
+
+    c = adam_constants(lr, bias_correction(0.9, step + 1), bias_correction(0.999, step + 1),
+                       0.9, 0.999, 1e-8)
+    den = torch.sqrt((v / c["bc2"]).double()).float() + c["eps"]
+    return before_table + (-c["lr"] * (m / c["bc1"])) / den
+
+
+def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) -> None:
+    """The kernels of the slice-3 path against their plain versions at its
+    shapes; adds their rows to ``report``."""
+    from recmodels_tpu_torch.embedding.optim import slot_sorted_ids
+    from recmodels_tpu_torch.embedding.update import (
+        bias_correction, sorted_adam_update, sorted_adam_update_reference,
+    )
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
+        cin_layer_backward, cin_layer_backward_reference, cin_layer_forward,
+        cin_layer_forward_reference, transpose_minor2, transpose_minor2_reference,
+    )
+
+    dev = torch.device("cuda")
+    coll = engine3.collections["emb"]
+    (grp,) = coll.groups
+    rows, m = grp.alloc_rows, engine3.model.schema.n_slots
+
+    # 7. sorted_adam_update: the batch's sorted stream (425,984 ids) into the
+    # 2,600,960 x 16 table, then a dim-1 table; bf16 grads N(0, 0.01), step 30
+    sorted_ids, _, _ = slot_sorted_ids(coll.group_row_ids(ids)[grp.name])
+    n = sorted_ids.numel()
+    touched = torch.unique(sorted_ids).numel()
+    step = 30
+    hyper = dict(lr=1e-2, bc1=bias_correction(0.9, step + 1), bc2=bias_correction(0.999, step + 1),
+                 b1=0.9, b2=0.999, eps=1e-8)
+    update = {}
+    for label, d in (("", DIM), ("dim1_", 1)):
+        shape = (rows, d) if d > 1 else (rows,)
+        table = torch.randn(shape, generator=gen, device=dev) * 0.05
+        mom = torch.randn(shape, generator=gen, device=dev) * 1e-3
+        vel = mom * mom * 10.0 + 1e-10  # a history: sqrt(v) outgrows |m|, as Adam's moments do
+        grads = (torch.randn((n, *shape[1:]), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+        cpu = [t.cpu() for t in (table, mom, vel)]
+        sorted_adam_update_reference(*cpu, sorted_ids.cpu(), grads.cpu(), **hyper)
+        sorted_adam_update(table, mom, vel, sorted_ids, grads, **hyper)
+        torch.cuda.synchronize()
+        err = max((a.cpu() - b).abs().max().item() for a, b in zip((table, mom, vel), cpu))
+        check(err == 0.0, f"sorted_adam_update {label or 'd16 '}bit-exact against the CPU plain version ({err})")
+        b_ms, b_by = bound_ms(n * 4 + grads.numel() * 2 + touched * d * 4 * 6)
+        update.update({
+            f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+            f"{label}ms": time_ms(lambda: sorted_adam_update(table, mom, vel, sorted_ids, grads, **hyper)),
+            f"{label}plain_ms": time_ms(lambda: sorted_adam_update_reference(
+                table, mom, vel, sorted_ids, grads, **hyper), iters=5),
+            f"{label}library_ms": adam_library_ms(table, sorted_ids, grads, hyper["lr"]),
+        })
+        del table, mom, vel, grads, cpu
+    report["sorted_adam_update"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/adam_update.cu",
+        replaces="recmodels_tpu/embedding/pallas_update.py:559", tol=0.0, **update,
+    )
+
+    # 9. cin_layer_forward: x0 [262144, 26] N(0, 1) and the model's initial
+    # CIN weights; layer 1 (Hk = 26) and layer 2 (Hk = 128, its input layer
+    # 1's output), in bf16 and f32
+    x02 = torch.randn((BATCH * DIM, m), generator=gen, device=dev).to(torch.bfloat16)
+    w1, w2 = (w.to(torch.bfloat16) for w in engine3.model.init_dense(gen, dev)["cin_w"][:2])
+    xk2 = cin_layer_forward(x02, x02, w1)
+    fwd = {}
+    for label, (xk, x0, w) in (("", (xk2, x02, w2)), ("l1_", (x02, x02, w1)),
+                               ("f32_", (xk2.float(), x02.float(), w2.float())),
+                               ("l1_f32_", (x02.float(), x02.float(), w1.float()))):
+        f32 = xk.dtype == torch.float32
+        got = cin_layer_forward(xk, x0, w)
+        err, scale = rel_err(got, cin_layer_forward_reference(xk, x0, w))
+        tol = (F32_LAYER_REL_TOL if f32 else BF16_REL_TOL) * scale
+        print(f"cin_layer_forward {label or 'l2_'}[{xk.shape[0]}, {xk.shape[1]}]: max err {err:.6g}, "
+              f"max |ref| {scale:.6g}, tol {tol:.6g}")
+        check(err <= tol, f"cin_layer_forward {label or 'l2_'}within tolerance of the plain version")
+        r, hk = xk.shape
+        hn = w.shape[1] // m
+        b_ms, b_by = bound_ms((xk.numel() + x0.numel() + w.numel() + got.numel()) * xk.element_size(),
+                              2 * r * hk * m * hn, PEAK_F32_FLOP_PER_S if f32 else PEAK_BF16_FLOP_PER_S)
+        w3 = w.reshape(hk, m, hn)
+        fwd.update({
+            f"{label}max_abs_err": err, f"{label}tol": tol, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+            f"{label}ms": time_ms(lambda: cin_layer_forward(xk, x0, w), iters=10),
+            f"{label}plain_ms": time_ms(lambda: cin_layer_forward_reference(xk, x0, w), iters=3),
+            f"{label}library_ms": time_ms(lambda: torch.einsum("rh,hin,ri->rn", xk, w3, x0), iters=3),
+        })
+        del got
+    report["cin_layer_forward"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/cin_layer.cu",
+        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:234",
+        shapes="unprefixed keys: layer 2 bf16 [262144, 128] x [128, 26*128]; l1_: layer 1 "
+               "[262144, 26] x [26, 26*128]; f32_ and l1_f32_: the same in f32", **fwd,
+    )
+
+    # 10. cin_layer_backward at layer 2: the output's cotangent N(0, 1)
+    gy = torch.randn((BATCH * DIM, w2.shape[1] // m), generator=gen, device=dev).to(torch.bfloat16)
+    outs = cin_layer_backward(xk2, x02, w2, gy)
+    refs = cin_layer_backward_reference(xk2, x02, w2, gy)
+    errs = []
+    for name, o, r in zip(("gxk", "gx0", "gw"), outs, refs):
+        err, scale = rel_err(o, r)
+        print(f"cin_layer_backward {name}: max err {err:.6g}, max |ref| {scale:.6g}, "
+              f"tol {BF16_REL_TOL * scale:.6g}")
+        check(err <= BF16_REL_TOL * scale, f"cin_layer_backward {name} within {BF16_REL_TOL} of max |ref|")
+        errs.append((err, BF16_REL_TOL * scale))
+    check(all(torch.equal(a, b) for a, b in zip(outs, cin_layer_backward(xk2, x02, w2, gy))),
+          "cin_layer_backward repeats bit for bit")
+    del refs
+    r, hk = xk2.shape
+    hn = w2.shape[1] // m
+    nbytes = (xk2.numel() + x02.numel() + w2.numel() + gy.numel() + sum(t.numel() for t in outs)) * 2
+    b_ms, b_by = bound_ms(nbytes, 4 * r * hk * m * hn)
+    report["cin_layer_backward"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/cin_layer_bwd.cu",
+        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:379",
+        max_abs_err=max(e for e, _ in errs), tol=max(t for _, t in errs),
+        ms=time_ms(lambda: cin_layer_backward(xk2, x02, w2, gy), iters=10),
+        plain_ms=time_ms(lambda: cin_layer_backward_reference(xk2, x02, w2, gy), iters=3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
+    del outs, gy, xk2, x02
+
+    # 11. transpose_minor2 on the field matrix [16384, 26, 16] bf16
+    x = torch.randn((BATCH, m, DIM), generator=gen, device=dev).to(torch.bfloat16)
+    got = transpose_minor2(x)
+    check(torch.equal(got, transpose_minor2_reference(x)), "transpose_minor2 exact")
+    b_ms, b_by = bound_ms(2 * x.numel() * 2)
+    report["transpose_minor2"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/transpose.cu",
+        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:180", max_abs_err=0.0, tol=0.0,
+        ms=time_ms(lambda: transpose_minor2(x)),
+        plain_ms=time_ms(lambda: transpose_minor2_reference(x)),
+        library_ms=time_ms(lambda: x.transpose(1, 2).contiguous()),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -290,7 +479,7 @@ def main() -> int:
     m = schema.n_slots
 
     # -------------------------------------------------------------- kernels
-    print("== kernels (flagship shapes)")
+    print("== kernels (flagship shapes; the slice-3 path's after the first six)")
     report = {}
 
     # 1. gather: 26 x 1e5 ids (2,600,960 rows of 17 f32), batch-order ids
@@ -441,16 +630,23 @@ def main() -> int:
         also_replaces="recmodels_tpu/embedding/pallas_update.py:296 (the dim1_ keys)",
         tol=0.0, **update,
     )
-    print(f"sorted_adagrad_update dim-1 [{rows}]: max err {update['dim1_max_abs_err']:.6g}; kernel "
-          f"{update['dim1_ms']:.4f} ms, plain {update['dim1_plain_ms']:.4f} ms, library "
-          f"{update['dim1_library_ms']:.4f} ms, bound {update['dim1_bound_ms']:.4f} ms "
-          f"({update['dim1_bound_by']}) on {card}")
     del table
+    cfg3 = TrainConfig(model="xdeepfm", bf16=True, vocab_size=VOCAB, embed_dim=DIM,
+                       cin_sizes=CIN3, hidden=HIDDEN, batch_size=BATCH, seed=SEED)
+    engine3 = Engine(build_model(cfg3.model, schema, **cfg3.model_kwargs()), dense_lr=1e-3,
+                     emb_lr=1e-2, sparse_optimizer="adam", fuse_wide=False)
+    slice3_kernels(report, engine3, ids, card, gen)
     for name, r in report.items():
         print(f"{name}: max err {r['max_abs_err']:.6g} (tol {r['tol']:.6g}); "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
               f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
+        for pre in sorted({k[: -len("plain_ms")] for k in r if k.endswith("plain_ms")} - {""}):
+            lib = r[pre + "library_ms"]
+            print(f"{name} {pre[:-1]}: max err {r[pre + 'max_abs_err']:.6g}; kernel {r[pre + 'ms']:.4f} ms, "
+                  f"plain {r[pre + 'plain_ms']:.4f} ms, library "
+                  f"{'-' if lib is None else format(lib, '.4f') + ' ms'}, bound "
+                  f"{r[pre + 'bound_ms']:.4f} ms ({r[pre + 'bound_by']}) on {card}")
 
     # -------------------------------------------------------------- serving
     print("== serving (full-width bf16 xDeepFM)")
@@ -504,13 +700,17 @@ def main() -> int:
 
     del pred
     launches = training_phase(engine, schema, card, gen)
+    launches3 = training3_phase(engine3, schema, card, gen)
+    adam_dense_check(engine3, ids, card, gen)
 
+    main_keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
     kernel_rows = [
-        {"name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
-         "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"],
-         **{k: v for k, v in r.items() if k.startswith("dim1_") or k == "also_replaces"}}
+        {"name": name, **{k: r[k] for k in main_keys[:3]},
+         "launches": launches[name] if name in launches else launches3[name],
+         **{k: r[k] for k in main_keys[3:]},
+         "launches_slice3": launches3.get(name, 0),
+         **{k: v for k, v in r.items() if k not in main_keys and k != "tol"}}
         for name, r in report.items()
     ]
     print(json.dumps({"kernels": kernel_rows}))
@@ -625,6 +825,154 @@ def training_phase(engine, schema, card: str, gen: torch.Generator) -> dict[str,
     print(f"Engine.train_step at {BATCH}: {busy:.4f} ms of kernel time per step (profiler), "
           f"{BATCH / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
     return launches
+
+
+def training3_phase(engine3, schema, card: str, gen: torch.Generator) -> dict[str, int]:
+    """Train the slice-3 path on the card; returns each kernel's launches
+    over the TRAIN_STEPS steps (the counts are set to 0 just before them and
+    read just after)."""
+    from recmodels_tpu_torch.data import SyntheticSource
+    from recmodels_tpu_torch.embedding.gather import gather_rows
+    from recmodels_tpu_torch.embedding.update import sorted_adam_update
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
+        cin_layer_backward, cin_layer_forward, transpose_minor2,
+    )
+
+    print("== training, slice 3 (bf16 xDeepFM, CIN(128,128,128), unfused wide table, "
+          "Adam 1e-3 + lazy Adam 1e-2)")
+    dev = torch.device("cuda")
+    kernels = (gather_rows, transpose_minor2, cin_layer_forward, cin_layer_backward, sorted_adam_update)
+    src = iter(SyntheticSource(schema, batch_size=BATCH, seed=13))
+    batches = []
+    for _ in range(TRAIN_STEPS):
+        b = next(src)
+        batches.append(tuple(torch.as_tensor(a, device=dev) for a in (b.dense, b.ids, b.labels)))
+    state = engine3.init(seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for dense, ids, labels in batches:
+        state, metrics = engine3.train_step(state, dense, ids, labels)
+        losses.append(metrics["loss"])
+    losses = torch.stack(losses).cpu()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"launches over {TRAIN_STEPS} steps: {launches}")
+    for name, count in launches.items():
+        check(count >= TRAIN_STEPS, f"{name} launched on every training step")
+    print("losses: " + " ".join(f"{v:.5f}" for v in losses.tolist()))
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    print(f"loss: mean of the first 5 steps {first:.6f}, of the last 5 {last:.6f} "
+          f"({TRAIN_STEPS} steps in {wall:.3f} s, first steps included)")
+    check(bool(torch.isfinite(losses).all()), "finite losses")
+    check(last < first, "the loss falls over the steps")
+
+    # one step from a live state on the card and on the CPU plain path
+    liven(state, gen)
+    dense, ids, labels = (t[:TRAIN_CHECK_BATCH] for t in batches[0])
+    cpu_state = to_device(state, "cpu")
+    before = to_device(state, "cpu")
+    cpu_in = [t.cpu() for t in (dense, ids, labels)]
+    with torch.no_grad():
+        max_logit = engine3.logits(cpu_state, cpu_in[0], cpu_in[1]).abs().max().item()
+    state, gm = engine3.train_step(state, dense, ids, labels)
+    cpu_state, cm = engine3.train_step(cpu_state, *cpu_in)
+    loss_err = abs(gm["loss"].item() - cm["loss"].item())
+    loss_tol = LOGIT_REL_TOL * max_logit  # BCE is 1-Lipschitz in each logit
+    print(f"GPU vs CPU step at {TRAIN_CHECK_BATCH}: loss {gm['loss'].item():.6f} vs "
+          f"{cm['loss'].item():.6f} (err {loss_err:.6g}, tol {loss_tol:.6g})")
+    check(loss_err <= loss_tol, "GPU loss matches the CPU step")
+    errs = {}
+    for name in ("mu", "nu"):
+        for j, (g, c, b) in enumerate(zip(state.dense_opt[name], cpu_state.dense_opt[name],
+                                          before.dense_opt[name])):
+            errs[f"{name}/{j}"] = check_step(f"Adam {name} leaf {j}", g, c, b)
+    # each table's moments carry its grads and are held to the CPU step; the
+    # table moves by the Adam step of the card's own moments (lazy Adam
+    # normalises the grad, so a grad within bf16 rounding of 0 moves an
+    # element by most of a step either way: the table is not compared
+    # element by element)
+    for coll_name, coll in engine3.collections.items():
+        (grp,) = coll.groups
+        touched = torch.zeros(grp.alloc_rows, dtype=torch.bool)
+        touched[coll.group_row_ids(cpu_in[1])[grp.name].reshape(-1).long()] = True
+        gpu = [state.emb_params[coll_name][grp.name].cpu()] + [
+            state.emb_opt[coll_name][grp.name][k].cpu() for k in ("m", "v")]
+        cpu = [cpu_state.emb_params[coll_name][grp.name]] + [
+            cpu_state.emb_opt[coll_name][grp.name][k] for k in ("m", "v")]
+        old = [before.emb_params[coll_name][grp.name]] + [
+            before.emb_opt[coll_name][grp.name][k] for k in ("m", "v")]
+        for k, name in ((1, "m"), (2, "v")):
+            errs[f"{coll_name}/{name}"] = check_step(f"{coll_name} table's {name}, touched rows",
+                                                     gpu[k][touched], cpu[k][touched], old[k][touched])
+        want = adam_step_of(old[0][touched], gpu[1][touched], gpu[2][touched], engine3.emb_lr, before.step)
+        check(torch.equal(gpu[0][touched], want),
+              f"{coll_name} table moved by the Adam step of its moments, bit for bit")
+        check(all(torch.equal(a[~touched], o[~touched]) and torch.equal(c[~touched], o[~touched])
+                  for a, c, o in zip(gpu, cpu, old)), f"{coll_name}: untouched rows bit-identical")
+        print(f"{coll_name} table: {int(touched.sum())} touched rows; largest errors m "
+              f"{errs[f'{coll_name}/m']:.6g}, v {errs[f'{coll_name}/v']:.6g}; the table's step is its "
+              f"moments' Adam step; untouched rows of table, m and v bit-identical")
+    print(f"GPU vs CPU step: Adam mu {max(v for k, v in errs.items() if k.startswith('mu')):.6g}, "
+          f"nu {max(v for k, v in errs.items() if k.startswith('nu')):.6g}")
+    del cpu_state, before
+
+    dense, ids, labels = batches[-1]
+    step_ms = time_ms(lambda: engine3.train_step(state, dense, ids, labels), iters=10)
+    print(f"Engine.train_step (slice 3) at {BATCH}: {step_ms:.4f} ms per step (CUDA events, 10 "
+          f"back-to-back steps), {BATCH / step_ms * 1e3:.0f} examples/s on {card}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    busy = profile(lambda: engine3.train_step(state, dense, ids, labels), top=24)
+    print(f"Engine.train_step (slice 3) at {BATCH}: {busy:.4f} ms of kernel time per step (profiler), "
+          f"{BATCH / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
+    return launches
+
+
+def adam_dense_check(engine3, ids, card: str, gen: torch.Generator) -> None:
+    """One dense-Adam table update (``"adam_dense"``: plain PyTorch ops, as
+    the JAX package's XLA route) on the card, twice from one state, and the
+    same update on the CPU."""
+    from recmodels_tpu_torch.embedding.optim import apply_updates, get_sparse_optimizer
+
+    print("== dense Adam (adam_dense) on the 2,600,960 x 16 table")
+    dev = torch.device("cuda")
+    opt = get_sparse_optimizer("adam_dense")
+    coll = engine3.collections["emb"]
+    (grp,) = coll.groups
+    gids = coll.group_row_ids(ids)[grp.name]
+    shape = (grp.alloc_rows, DIM)
+    mom = torch.randn(shape, generator=gen, device=dev) * 1e-3
+    start = [torch.randn(shape, generator=gen, device=dev) * 0.05, mom, mom * mom * 10.0 + 1e-10]
+    grads = (torch.randn((gids.numel(), DIM), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+    step, lr = 30, 1e-2
+
+    def run(device):
+        t, m, v = (x.to(device, copy=True) for x in start)
+        apply_updates(opt, t, {"m": m, "v": v}, gids.to(device), grads.to(device), step, lr)
+        return t, m, v
+
+    runs = [run(dev), run(dev)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)), "adam_dense on the card repeats bit for bit")
+    cpu = run("cpu")
+    untouched = torch.ones(shape[0], dtype=torch.bool)
+    untouched[gids.reshape(-1).long().cpu()] = False
+    for name, got, want, old in zip(("table", "m", "v"), runs[0], cpu, start):
+        got, old = got.cpu(), old.cpu()
+        err = (got - want).abs().max().item()
+        change = (want - old).abs().max().item()
+        check(err <= DENSE_ADAM_REL_TOL * change,
+              f"adam_dense {name} on the card within {DENSE_ADAM_REL_TOL} of the CPU's change "
+              f"(err {err:.6g}, change {change:.6g})")
+        check(not torch.equal(got[untouched], old[untouched]), f"adam_dense {name}: untouched rows move")
+        print(f"adam_dense {name}: max err {err:.6g} against a largest change of {change:.6g}")
+    t, m, v = runs[0]
+    ms = time_ms(lambda: apply_updates(opt, t, {"m": m, "v": v}, gids, grads, step, lr), iters=10)
+    print(f"adam_dense update of the 2,600,960 x 16 table from {gids.numel()} ids: {ms:.4f} ms on {card} "
+          f"(index_put_ accumulate: two runs bit-identical)")
 
 
 if __name__ == "__main__":

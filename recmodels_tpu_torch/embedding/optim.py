@@ -1,18 +1,24 @@
 """Sparse row-wise embedding optimizers (port of
 ``recmodels_tpu/embedding/optim.py``; its docstring has the design).
 
-Gradients touch only the rows of this step's ids, so the update runs on the
-id stream: sort the ids (a stable batched per-slot sort keeps duplicates in
-ascending-example order), permute the grad rows to match, and hand both to
-the sorted Adagrad update (``embedding/update.py``: the CUDA kernel on the
-card, its plain version on the CPU), which sums duplicates in stream order
-and updates the table and its accumulator in place. Adagrad's sparse update
-equals a dense Adagrad step: untouched rows keep their bits.
+Gradients touch only the rows of this step's ids, so Adagrad and lazy Adam
+run on the id stream: sort the ids (a stable batched per-slot sort keeps
+duplicates in ascending-example order), permute the grad rows to match, and
+hand both to the sorted update (``embedding/update.py``: the CUDA kernel on
+the card, its plain version on the CPU), which sums duplicates in stream
+order and updates the table and its state in place.
 
-Lazy Adam (``"adam"``) and dense Adam (``"adam_dense"``) arrive with their
-kernel in a later slice, and with them the routes of the JAX package's
-``apply_updates`` for optimizers without a sorted-stream kernel (the dense
-full-table update and the ``dedup_segment_sum`` + sparse apply).
+* ``"adagrad"``: Adagrad's sparse update equals a dense Adagrad step:
+  untouched rows keep their bits.
+* ``"adam"``: lazy Adam. The moments of touched rows (ids in the stream,
+  whatever their grads sum to) decay and update; untouched rows keep their
+  bits. The bias corrections use the global step, as in the JAX package.
+* ``"adam_dense"``: dense Adam over the whole table, the JAX package's
+  dense route: a dense f32 grad of the table's shape, then Adam on every
+  row, so untouched rows decay too. The JAX package runs it in XLA with no
+  kernel of its own, so plain PyTorch ops serve it on the card as well; the
+  duplicate sum is ``index_put_(accumulate=True)``, which sums each id's
+  grads in stream order on both devices, so two runs give the same bits.
 """
 
 from __future__ import annotations
@@ -22,12 +28,7 @@ from typing import Callable, Dict
 
 import torch
 
-from recmodels_tpu_torch.embedding.update import sorted_adagrad_update
-
-_ADAM_LATER = (
-    "sparse optimizer {!r} is not ported yet: lazy and dense Adam come with the "
-    "sorted_adam_update_packed kernel, ROADMAP.md queue 2 #7"
-)
+from recmodels_tpu_torch.embedding.update import bias_correction, sorted_adagrad_update, sorted_adam_update
 
 
 def slot_sorted_ids(ids_2d: torch.Tensor):
@@ -84,23 +85,49 @@ def dedup_segment_sum(gids: torch.Tensor, grads: torch.Tensor, num_rows: int):
 @dataclasses.dataclass(frozen=True)
 class SparseOptimizer:
     """Sparse optimizer over one stacked table, updated in place by
-    ``apply_updates``. init(num_rows, dim, device) -> state dict."""
+    ``apply_updates``. init(num_rows, dim, device) -> state dict; ``hyper``
+    holds its hyperparameters (eps; b1, b2 for Adam)."""
 
     name: str
     init: Callable[..., Dict[str, torch.Tensor]]
-    eps: float
+    hyper: Dict[str, float]
 
 
-def apply_updates(opt: SparseOptimizer, table, state, ids_2d, grads_flat, lr):
-    """One group's Adagrad update, in place on ``table`` and ``state``: the
-    per-slot sort, the grad rows permuted to match, and the sorted-stream
-    update (the CUDA kernel on the card).
+def _adam_dense_update(table, state, ids_flat, grads_flat, step: int, lr: float, h) -> None:
+    """Dense Adam over the full table, in place, in the JAX package's order
+    of operations (``optim.dense_adam``)."""
+    b1, b2, eps = h["b1"], h["b2"], h["eps"]
+    g = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+    g.index_put_((ids_flat.long(),), grads_flat.float(), accumulate=True)
+    m, v = state["m"], state["v"]
+    m.copy_(b1 * m + (1.0 - b1) * g)
+    v.copy_(b2 * v + (1.0 - b2) * g * g)
+    m_hat = m / bias_correction(b1, step + 1)
+    v_hat = v / bias_correction(b2, step + 1)
+    table.sub_(lr * m_hat / (torch.sqrt(v_hat) + eps))
+
+
+def apply_updates(opt: SparseOptimizer, table, state, ids_2d, grads_flat, step: int, lr: float):
+    """One group's update, in place on ``table`` and ``state``; returns both.
 
     ``ids_2d``: the [B, n_g] global row ids; ``grads_flat``: their grad rows
-    in b-major order, [B*n_g, dim] ([B*n_g] for a dim-1 table)."""
+    in b-major order, [B*n_g, dim] ([B*n_g] for a dim-1 table); ``step``:
+    the global step before this update (Adam's bias corrections use
+    t = step + 1). Adagrad and lazy Adam take the per-slot sort, the grad
+    permute and the sorted-stream update (the CUDA kernels on the card);
+    dense Adam takes the dense route."""
+    h = opt.hyper
+    if opt.name == "adam_dense":
+        _adam_dense_update(table, state, ids_2d.reshape(-1), grads_flat, step, lr, h)
+        return table, state
     sorted_ids, order, _ = slot_sorted_ids(ids_2d)
     grads_sorted = torch.index_select(grads_flat, 0, order.long())
-    sorted_adagrad_update(table, state["acc"], sorted_ids, grads_sorted, lr, opt.eps)
+    if opt.name == "adam":
+        sorted_adam_update(table, state["m"], state["v"], sorted_ids, grads_sorted, lr,
+                           bias_correction(h["b1"], step + 1), bias_correction(h["b2"], step + 1),
+                           h["b1"], h["b2"], h["eps"])
+    else:
+        sorted_adagrad_update(table, state["acc"], sorted_ids, grads_sorted, lr, h["eps"])
     return table, state
 
 
@@ -111,12 +138,31 @@ def sparse_adagrad(eps: float = 1e-8, initial_accumulator: float = 0.1) -> Spars
         shape = (num_rows,) if dim == 1 else (num_rows, dim)
         return {"acc": torch.full(shape, initial_accumulator, dtype=torch.float32, device=device)}
 
-    return SparseOptimizer("adagrad", init, eps)
+    return SparseOptimizer("adagrad", init, {"eps": eps})
+
+
+def _moments_init(num_rows: int, dim: int, device="cpu") -> Dict[str, torch.Tensor]:
+    shape = (num_rows,) if dim == 1 else (num_rows, dim)
+    return {"m": torch.zeros(shape, dtype=torch.float32, device=device),
+            "v": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+
+def sparse_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> SparseOptimizer:
+    """Lazy Adam: moment updates and decay on touched rows only."""
+    return SparseOptimizer("adam", _moments_init, {"b1": b1, "b2": b2, "eps": eps})
+
+
+def dense_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> SparseOptimizer:
+    """Dense Adam over the full table every step: the moments of untouched
+    rows decay too."""
+    return SparseOptimizer("adam_dense", _moments_init, {"b1": b1, "b2": b2, "eps": eps})
 
 
 def get_sparse_optimizer(name: str, **kwargs) -> SparseOptimizer:
     if name == "adagrad":
         return sparse_adagrad(**kwargs)
-    if name in ("adam", "adam_dense"):
-        raise NotImplementedError(_ADAM_LATER.format(name))
+    if name == "adam":
+        return sparse_adam(**kwargs)
+    if name == "adam_dense":
+        return dense_adam(**kwargs)
     raise ValueError(f"unknown sparse optimizer: {name}")

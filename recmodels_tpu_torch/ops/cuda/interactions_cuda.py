@@ -1,8 +1,7 @@
 """CUDA kernels for the xDeepFM forward and backward, and their plain PyTorch
 versions.
 
-Counterpart of ``recmodels_tpu/ops/pallas/interactions_tpu.py`` for the
-serving and training slices:
+Counterpart of ``recmodels_tpu/ops/pallas/interactions_tpu.py``:
 
 * ``split_fused_rows`` -> ``csrc/split_fused.cu`` (the TPU's
   ``_split_fused_fwd_impl``), its backward ``split_fused_rows_backward`` in
@@ -10,11 +9,18 @@ serving and training slices:
 * ``cin2_forward`` -> ``csrc/cin2.cu`` (``_cin2_fwd_call``) and
   ``cin2_backward`` -> ``csrc/cin2_bwd.cu`` (``_cin2_bwd_call``), joined by
   ``Cin2`` and reached through ``cin_stack_dm_flat`` for a 2-layer CIN in
-  bf16.
+  bf16;
+* ``cin_layer_forward`` -> ``csrc/cin_layer.cu`` (``_cin_forward_2d``) and
+  ``cin_layer_backward`` -> ``csrc/cin_layer_bwd.cu`` (``_cin_bwd_pallas``),
+  joined by ``CinLayer2d``: every other CIN, one layer at a time;
+* ``transpose_minor2`` -> ``csrc/transpose.cu`` (``_transpose_minor2``),
+  its own backward in ``TransposeMinor2``.
 
 Each entry point chooses by the device of the tensor it is given: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or raises.
-The ``autograd.Function``s mirror the JAX package's custom VJPs.
+The ``autograd.Function``s mirror the JAX package's custom VJPs, and the CIN
+ops at the end follow ``interactions_tpu.py``'s (``cin_layer`` ...
+``cin_stack_dm_flat``).
 """
 
 from __future__ import annotations
@@ -25,11 +31,7 @@ from recmodels_tpu_torch.ops import interactions
 from recmodels_tpu_torch.ops.cuda import build
 from recmodels_tpu_torch.ops.cuda.launch import cuda_device, device_and_stream, require
 
-_NO_KERNEL = (
-    "no CUDA kernel yet for this CIN configuration (only 2 layers in bf16): "
-    "see ROADMAP.md, queue 2, the generic CIN layer kernels "
-    "(interactions_tpu.py::_cin_forward_2d and _cin_bwd_pallas)"
-)
+FLOAT_DTYPES = (torch.bfloat16, torch.float32)
 
 
 # ------------------------------------------------------- fused-row fanout
@@ -290,19 +292,251 @@ class Cin2(torch.autograd.Function):
         return gx0, gw1, gw2, None
 
 
+# ------------------------------------------------------- transpose_minor2
+def transpose_minor2_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version: [B, a, b] -> [B, b, a], contiguous."""
+    return x.transpose(1, 2).contiguous()
+
+
+def transpose_minor2(x: torch.Tensor) -> torch.Tensor:
+    """[B, a, b] -> [B, b, a] (bf16 or f32), contiguous."""
+    if x.device.type == "cpu":
+        return transpose_minor2_reference(x)
+    dev_t = cuda_device(x, "transpose_minor2")
+    require("transpose_minor2 x", x, FLOAT_DTYPES, 3, dev_t, align=x.element_size())
+    bsz, a, b = x.shape
+    out = torch.empty((bsz, b, a), dtype=x.dtype, device=dev_t)
+    dev, stream = device_and_stream(dev_t)
+    err = build.library().rm_transpose_minor2(dev, x.data_ptr(), out.data_ptr(), bsz, a, b,
+                                              x.element_size(), stream)
+    build.check(err, "transpose_minor2")
+    transpose_minor2.launches += 1
+    return out
+
+
+transpose_minor2.launches = 0  # kernel launches since the count was last set to 0
+
+
+class TransposeMinor2(torch.autograd.Function):
+    """``transpose_minor2`` whose backward is the same kernel on the
+    cotangent (the JAX package's VJP, ``interactions_tpu.py`` 201-210)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor):
+        return transpose_minor2(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return transpose_minor2(g.contiguous())
+
+
+def transpose_minor2_op(x: torch.Tensor) -> torch.Tensor:
+    """The transpose as the CIN ops call it: through ``TransposeMinor2``
+    when grads are wanted, else the forward alone."""
+    x = x.contiguous()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return TransposeMinor2.apply(x)
+    return transpose_minor2(x)
+
+
+# ------------------------------------------------------- generic CIN layer
+def _layer_shapes(xk2: torch.Tensor, x02: torch.Tensor, w2: torch.Tensor, what: str):
+    rows, hk = xk2.shape
+    m = x02.shape[1]
+    hn = w2.shape[1] // m
+    if x02.shape[0] != rows or w2.shape != (hk, m * hn) or hn < 1:
+        raise ValueError(f"{what}: xk {tuple(xk2.shape)}, x0 {tuple(x02.shape)} and "
+                         f"w2 {tuple(w2.shape)} do not fit together")
+    return rows, hk, m, hn
+
+
+def cin_layer_forward_reference(xk2: torch.Tensor, x02: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Plain version of one CIN layer on rows r = (b, d): xk2 [R, Hk], x02
+    [R, m], flat w2 [Hk, m*Hn] -> [R, Hn] in xk2's dtype. t = xk @ w2 and
+    the fold over i in f32, one cast at the end (``_cin_forward_2d``)."""
+    rows, hk, m, hn = _layer_shapes(xk2, x02, w2, "cin_layer_forward")
+    t = torch.einsum("rh,hin->rin", xk2.float(), w2.float().reshape(hk, m, hn))
+    return torch.einsum("rin,ri->rn", t, x02.float()).to(xk2.dtype)
+
+
+def cin_layer_forward(xk2: torch.Tensor, x02: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """One CIN layer: same arguments and result as
+    ``cin_layer_forward_reference``; bf16 or f32, any sizes."""
+    if xk2.device.type == "cpu":
+        return cin_layer_forward_reference(xk2, x02, w2)
+    dev_t = cuda_device(xk2, "cin_layer_forward")
+    rows, hk, m, hn = _layer_shapes(xk2, x02, w2, "cin_layer_forward")
+    dt = xk2.dtype
+    for what, t in (("xk", xk2), ("x0", x02), ("w2", w2)):
+        require(f"cin_layer_forward {what}", t, FLOAT_DTYPES, 2, dev_t, align=t.element_size())
+        if t.dtype != dt:
+            raise TypeError(f"cin_layer_forward: {what} is {t.dtype}, xk is {dt}")
+    out = torch.empty((rows, hn), dtype=dt, device=dev_t)
+    dev, stream = device_and_stream(dev_t)
+    err = build.library().rm_cin_layer_forward(
+        dev, xk2.data_ptr(), x02.data_ptr(), w2.data_ptr(), out.data_ptr(), rows, hk, m, hn,
+        int(dt == torch.bfloat16), stream,
+    )
+    build.check(err, "cin_layer_forward")
+    cin_layer_forward.launches += 1
+    return out
+
+
+cin_layer_forward.launches = 0  # kernel launches since the count was last set to 0
+
+
+def cin_layer_backward_reference(xk2, x02, w2, g):
+    """Plain version of the layer's backward kernel, with its rounding
+    points (``csrc/cin_layer_bwd.cu`` has the formulas): the forward's xk2
+    [R, Hk], x02 [R, m], w2 [Hk, m*Hn] and the output's cotangent g [R, Hn]
+    -> (gxk [R, Hk] and gx0 [R, m] in xk2's dtype, gw [Hk, m*Hn] in w2's)."""
+    rows, hk, m, hn = _layer_shapes(xk2, x02, w2, "cin_layer_backward")
+    dt = xk2.dtype
+
+    def rnd(t):  # a rounding point of the kernel
+        return t.to(dt).float()
+
+    xk, x0 = xk2.float(), x02.float()
+    t1 = rnd(torch.einsum("rn,hin->rih", g.float(), w2.float().reshape(hk, m, hn)))
+    gxk = torch.einsum("rih,ri->rh", t1, x0).to(dt)
+    gx0 = rnd(t1 * xk[:, None, :]).sum(-1).to(dt)
+    z = rnd(xk[:, None, :] * x0[:, :, None])  # [R, m, Hk]
+    gw = torch.einsum("rih,rn->hin", z, g.float()).reshape(hk, m * hn)
+    return gxk, gx0, gw.to(w2.dtype)
+
+
+def cin_layer_backward(xk2, x02, w2, g):
+    """The layer's backward kernel on bf16 tensors: same arguments and
+    results as ``cin_layer_backward_reference``; any R, Hk and Hn, m up to
+    182."""
+    if xk2.device.type == "cpu":
+        return cin_layer_backward_reference(xk2, x02, w2, g)
+    dev_t = cuda_device(xk2, "cin_layer_backward")
+    rows, hk, m, hn = _layer_shapes(xk2, x02, w2, "cin_layer_backward")
+    bf16 = (torch.bfloat16,)
+    for what, t in (("xk", xk2), ("x0", x02), ("w2", w2), ("g", g)):
+        require(f"cin_layer_backward {what}", t, bf16, 2, dev_t, align=2)
+    if g.shape != (rows, hn):
+        raise ValueError(f"cin_layer_backward: g {tuple(g.shape)}, expected {(rows, hn)}")
+    lib = build.library()
+    scratch_bytes = lib.rm_cin_layer_backward_scratch(rows, hk, m, hn)
+    if scratch_bytes < 0:
+        raise NotImplementedError(f"cin_layer_backward kernel: rows={rows}, m={m}; it takes m <= 182")
+    gxk = torch.empty((rows, hk), dtype=torch.bfloat16, device=dev_t)
+    gx0 = torch.empty((rows, m), dtype=torch.bfloat16, device=dev_t)
+    gw = torch.empty((hk, m * hn), dtype=torch.bfloat16, device=dev_t)
+    scratch = torch.empty((max(scratch_bytes, 1),), dtype=torch.uint8, device=dev_t)
+    dev, stream = device_and_stream(dev_t)
+    err = lib.rm_cin_layer_backward(
+        dev, g.data_ptr(), xk2.data_ptr(), x02.data_ptr(), w2.data_ptr(), gxk.data_ptr(),
+        gx0.data_ptr(), gw.data_ptr(), scratch.data_ptr(), rows, hk, m, hn, stream,
+    )
+    build.check(err, "cin_layer_backward")
+    cin_layer_backward.launches += 1
+    return gxk, gx0, gw
+
+
+cin_layer_backward.launches = 0  # kernel launches since the count was last set to 0
+
+BWD_ROWS = 512  # the JAX package's BWD_TR: its kernel takes whole 512-row tiles
+
+
+def takes_backward_kernel(xk2: torch.Tensor, x02: torch.Tensor, w2: torch.Tensor) -> bool:
+    """The JAX package's condition for ``_cin_bwd_pallas``
+    (``interactions_tpu.py`` 433-436): aligned bf16 layers. Every other
+    layer (layer 1, where Hk = m; f32) takes its einsum formulation."""
+    rows, hk = xk2.shape
+    m = x02.shape[1]
+    hn = w2.shape[1] // m
+    return (xk2.dtype == torch.bfloat16 and hk % 128 == 0 and hn % 128 == 0 and m <= 128
+            and rows % BWD_ROWS == 0)
+
+
+def cin_layer_backward_einsum(xk2, x02, w2, g):
+    """The JAX package's einsum backward (``interactions_tpu.py`` 445-449)
+    in the layer's dtype, each contraction in two steps so that no
+    [R, Hk, Hn] intermediate forms: (gxk, gx0, gw)."""
+    rows, hk, m, hn = _layer_shapes(xk2, x02, w2, "cin_layer_backward_einsum")
+    w3 = w2.reshape(hk, m, hn)
+    u = torch.einsum("rn,hin->rhi", g, w3)
+    gxk = torch.einsum("rhi,ri->rh", u, x02)
+    gx0 = torch.einsum("rhi,rh->ri", u, xk2)
+    z = torch.einsum("rh,ri->rhi", xk2, x02)
+    gw = torch.einsum("rhi,rn->hin", z, g)
+    return gxk, gx0, gw.reshape(hk, m * hn).to(w2.dtype)
+
+
+class CinLayer2d(torch.autograd.Function):
+    """One CIN layer with the JAX package's custom VJP (``_cin_layer_2d``):
+    the forward kernel saves xk2, x02 and w2; the backward takes the
+    backward kernel where JAX takes its Pallas kernel, else the einsums."""
+
+    @staticmethod
+    def forward(ctx, xk2: torch.Tensor, x02: torch.Tensor, w2: torch.Tensor):
+        ctx.save_for_backward(xk2, x02, w2)
+        return cin_layer_forward(xk2, x02, w2)
+
+    @staticmethod
+    def backward(ctx, g):
+        xk2, x02, w2 = ctx.saved_tensors
+        g = g.to(xk2.dtype).contiguous()
+        if takes_backward_kernel(xk2, x02, w2):
+            return cin_layer_backward(xk2, x02, w2, g)
+        return cin_layer_backward_einsum(xk2, x02, w2, g)
+
+
+def cin_layer_2d(xk2: torch.Tensor, x02: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """One layer as the CIN ops call it: through ``CinLayer2d`` when grads
+    are wanted, else the forward kernel alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xk2, x02, w2)):
+        return CinLayer2d.apply(xk2, x02, w2)
+    return cin_layer_forward(xk2, x02, w2)
+
+
+# ------------------------------------------------------------------ CIN ops
 def cin_stack_dm_flat(x0_dm: torch.Tensor, w2s) -> torch.Tensor:
     """CIN pools [B, sum(H)] from a D-major field matrix [B, D, m] and flat
-    weights. Two layers in bf16 take ``cin2_forward``, through ``Cin2`` when
-    grads are wanted; other configurations run the plain ops on the CPU and
-    have no CUDA kernel yet."""
+    weights [H_k, m*H_next]. Two layers in bf16 take the fused kernels
+    (``Cin2``); every other CIN runs layer by layer (``CinLayer2d``), each
+    layer's pool the sum over D in the activation dtype."""
     b, d, m = x0_dm.shape
-    if len(w2s) != 2 or x0_dm.dtype != torch.bfloat16:
-        if x0_dm.device.type == "cpu":
-            return interactions.cin_stack_dm_flat(x0_dm, w2s)
-        raise NotImplementedError(_NO_KERNEL)
     x02 = x0_dm.reshape(b * d, m)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x02, *w2s)):
-        p1, p2 = Cin2.apply(x02, w2s[0], w2s[1], d)
-    else:
-        _, p1, p2, _ = cin2_forward(x02, w2s[0], w2s[1], d)
-    return torch.cat([p1, p2], dim=1)
+    if len(w2s) == 2 and x0_dm.dtype == torch.bfloat16:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x02, *w2s)):
+            p1, p2 = Cin2.apply(x02, w2s[0], w2s[1], d)
+        else:
+            _, p1, p2, _ = cin2_forward(x02, w2s[0], w2s[1], d)
+        return torch.cat([p1, p2], dim=1)
+    xk2 = x02
+    pools = []
+    for w2 in w2s:
+        xk2 = cin_layer_2d(xk2, x02, w2)
+        pools.append(xk2.reshape(b, d, -1).sum(dim=1))
+    return torch.cat(pools, dim=1)
+
+
+def cin_stack_flat(x0: torch.Tensor, w2s) -> torch.Tensor:
+    """``cin_stack_dm_flat`` from an H-major field matrix x0 [B, m, D]."""
+    return cin_stack_dm_flat(transpose_minor2_op(x0), w2s)
+
+
+def cin_stack_dm(x0_dm: torch.Tensor, ws) -> torch.Tensor:
+    """``cin_stack_dm_flat`` with 3-D weights [H_next, H_k, m], flattened
+    at the call."""
+    return cin_stack_dm_flat(x0_dm, [interactions.flatten_cin_w(w) for w in ws])
+
+
+def cin_stack(x0: torch.Tensor, ws) -> torch.Tensor:
+    """The whole CIN from x0 [B, m, D] and 3-D weights: pools [B, sum(H)]."""
+    return cin_stack_dm(transpose_minor2_op(x0), ws)
+
+
+def cin_layer(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One layer in the H-major layout: xk [B, H_k, D], x0 [B, m, D], w
+    [H_next, H_k, m] -> [B, H_next, D]."""
+    b, hk, d = xk.shape
+    m = x0.shape[1]
+    xk2 = transpose_minor2_op(xk).reshape(b * d, hk)
+    x02 = transpose_minor2_op(x0).reshape(b * d, m)
+    out2 = cin_layer_2d(xk2, x02, interactions.flatten_cin_w(w))
+    return transpose_minor2_op(out2.reshape(b, d, w.shape[0]))

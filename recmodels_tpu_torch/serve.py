@@ -92,16 +92,27 @@ def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
 
 def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.ndarray],
                          adam: tuple, emb_tables: Mapping[str, np.ndarray],
-                         emb_acc: Mapping[str, np.ndarray], device="cuda") -> TrainState:
+                         emb_acc: Mapping[str, np.ndarray] | None = None, device="cuda", *,
+                         emb_opt: Mapping[str, Mapping[str, np.ndarray]] | None = None) -> TrainState:
     """The port's training state from a JAX ``TrainState`` of an engine with
-    dense Adam and sparse Adagrad, as numpy arrays: ``step``, the dense
-    leaves (as for ``params_from_jax``), ``adam`` = (count, mu leaves, nu
-    leaves) of optax's ``ScaleByAdamState``, and per group the table and the
-    Adagrad ``acc``, both keyed ``emb/<collection>/<group>``.
+    dense Adam, as numpy arrays: ``step``, the dense leaves (as for
+    ``params_from_jax``), ``adam`` = (count, mu leaves, nu leaves) of optax's
+    ``ScaleByAdamState``, the tables keyed ``emb/<collection>/<group>``, and
+    per group the sparse optimizer's state under the same keys: ``emb_opt``
+    maps each key to the group's state dict ({"acc": ...} for Adagrad,
+    {"m": ..., "v": ...} for lazy or dense Adam); ``emb_acc`` = {key: acc}
+    says the same for Adagrad.
 
-    Raises ``ValueError`` unless every shape matches this engine's model."""
-    if engine.dense_optimizer != "adam" or engine.sparse_optimizer != "adagrad":
-        raise ValueError("train_state_from_jax takes an engine with dense Adam and sparse Adagrad")
+    Raises ``ValueError`` unless the dense optimizer is Adam, the state
+    names are the engine's sparse optimizer's, and every shape matches this
+    engine's model."""
+    if engine.dense_optimizer != "adam":
+        raise ValueError("train_state_from_jax takes an engine with dense Adam")
+    if (emb_acc is None) == (emb_opt is None):
+        raise ValueError("train_state_from_jax takes one of emb_opt and emb_acc")
+    if emb_acc is not None:
+        emb_opt = {key: {"acc": acc} for key, acc in emb_acc.items()}
+    names = sorted(engine.sparse_opt.init(1, 1))
     state = params_from_jax(engine, dense_leaves, emb_tables, device)
     count, mu, nu = adam
     params = list(leaves(state.dense_params))
@@ -111,20 +122,29 @@ def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.nd
             raise ValueError(f"artifact/model structure mismatch: Adam {name} leaves")
         moments.append([torch.tensor(np.asarray(a, np.float32), device=p.device)
                         for a, p in zip(arrays, params)])
-    emb_opt: dict[str, dict[str, Any]] = {}
+    out: dict[str, dict[str, Any]] = {}
     for name, coll in engine.collections.items():
-        emb_opt[name] = {}
+        out[name] = {}
         for g in coll.groups:
             key = f"emb/{name}/{g.name}"
-            acc = np.asarray(emb_acc[key], np.float32)
+            group_state = emb_opt.get(key, {})
+            if sorted(group_state) != names:
+                raise ValueError(
+                    f"artifact/model structure mismatch: {key} optimizer state {sorted(group_state)}, "
+                    f"the engine's {engine.sparse_optimizer!r} keeps {names}"
+                )
             table = state.emb_params[name][g.name]
-            if acc.shape != tuple(table.shape):
-                raise ValueError(f"artifact/model structure mismatch: {key} acc {acc.shape}")
-            emb_opt[name][g.name] = {"acc": torch.tensor(acc, device=table.device)}
+            tensors = {}
+            for k, a in group_state.items():
+                a = np.asarray(a, np.float32)
+                if a.shape != tuple(table.shape):
+                    raise ValueError(f"artifact/model structure mismatch: {key} {k} {a.shape}")
+                tensors[k] = torch.tensor(a, device=table.device)
+            out[name][g.name] = tensors
     return state._replace(
         step=int(step),
         dense_opt={"count": int(count), "mu": moments[0], "nu": moments[1]},
-        emb_opt=emb_opt,
+        emb_opt=out,
     )
 
 

@@ -2,10 +2,12 @@
 
 Port of ``recmodels_tpu/train/engine.py`` for single-device serving and
 training: ``LocalTables`` (single-device tables, their gather and their
-sparse update) and ``Engine`` (the wide-column fusion, ``init``, ``logits``,
-``train_step`` and ``train_scan``). As in the JAX package, the loss is
+sparse update: Adagrad, lazy Adam or dense Adam) and ``Engine`` (the
+wide-column fusion, ``fuse_wide``, ``init``, ``logits``, ``train_step`` and
+``train_scan``). As in the JAX package, the loss is
 differentiated with respect to the gathered rows (O(batch) memory), and the
-sparse optimizer applies the row grads to the touched rows only.
+sparse optimizer applies the row grads to the touched rows only (dense Adam:
+to every row).
 
 State is updated in place: ``train_step`` changes the tensors of the state
 it is given (the table and its accumulator alone are 354 MB at full width)
@@ -88,9 +90,10 @@ class LocalTables:
             out[name] = res
         return out
 
-    def apply_grads(self, emb_params, emb_opt, gids, grad_rows, lr):
+    def apply_grads(self, emb_params, emb_opt, gids, grad_rows, step, lr):
         """Apply the row grads {coll: {group: [B, n_g, dim]}} to the tables
-        and their optimizer states, in place; returns both."""
+        and their optimizer states, in place; returns both. ``step`` is the
+        global step before this update (Adam's bias corrections)."""
         for name, coll in self.collections.items():
             for g in coll.groups:
                 ids_2d = gids[name][g.name]
@@ -98,7 +101,7 @@ class LocalTables:
                 # dim-1 tables are 1-D [rows]; their grads flatten to [N]
                 gr_flat = gr.reshape(-1) if g.dim == 1 else gr.reshape(-1, g.dim)
                 apply_updates(self.sparse_opt, emb_params[name][g.name], emb_opt[name][g.name],
-                              ids_2d, gr_flat, lr)
+                              ids_2d, gr_flat, step, lr)
         return emb_params, emb_opt
 
 
@@ -110,13 +113,15 @@ class Engine:
     Models that want both a dim-1 'wide' collection and a uniform-dim 'emb'
     collection over the same vocab layout get one table of dim D+1 whose
     last column is the first-order weight (the JAX package's default layout,
-    and its artifacts')."""
+    and its artifacts'), unless ``fuse_wide`` is False: then the wide
+    column keeps its own dim-1 table and the model runs ``apply``."""
 
     model: CTRModel
     dense_optimizer: str = "adam"
     sparse_optimizer: str = "adagrad"
     dense_lr: float = 1e-3
     emb_lr: float = 1e-2
+    fuse_wide: bool = True
 
     def __post_init__(self):
         # f32 products (dense @ w_dense, p @ w_cin, the widened MLP) stay
@@ -124,7 +129,8 @@ class Engine:
         torch.backends.cuda.matmul.allow_tf32 = False
         schemas = self.model.embedding_schemas()
         self._fused_wide = (
-            set(schemas) >= {"wide", "emb"}
+            self.fuse_wide
+            and set(schemas) >= {"wide", "emb"}
             and schemas["emb"].uniform_dim
             and schemas["wide"].vocab_sizes == schemas["emb"].vocab_sizes
             and all(s.embed_dim == 1 for s in schemas["wide"].slots)
@@ -229,7 +235,8 @@ class Engine:
         g_rows = {c: {g: next(g_rows_flat) for g in r} for c, r in rows.items()}
         with torch.no_grad():
             dense_opt = self.dense_tx.update(params, list(g_dense), state.dense_opt, self.dense_lr)
-            self.tables.apply_grads(state.emb_params, state.emb_opt, gids, g_rows, self.emb_lr)
+            self.tables.apply_grads(state.emb_params, state.emb_opt, gids, g_rows, state.step,
+                                    self.emb_lr)
         new_state = state._replace(step=state.step + 1, dense_opt=dense_opt)
         return new_state, {"loss": loss.detach(), "overflow": 0}
 

@@ -24,8 +24,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List
 
-import numpy as np
 import torch
+
+from recmodels_tpu_torch.embedding.update import bias_correction
 
 Tensors = List[torch.Tensor]
 
@@ -37,11 +38,6 @@ class DenseOptimizer:
     name: str
     init: Callable[[Tensors], dict]
     update: Callable[[Tensors, Tensors, dict, float], dict]
-
-
-def _bias_correction(decay: float, count: int) -> float:
-    """1 - decay^count in f32 (optax: ``1 - decay**count`` on an f32 decay)."""
-    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
 def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -56,8 +52,8 @@ def adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2),
                                 torch._foreach_mul(state["nu"], b2))
         count = state["count"] + 1
-        mu_hat = torch._foreach_div(mu, _bias_correction(b1, count))
-        nu_hat = torch._foreach_div(nu, _bias_correction(b2, count))
+        mu_hat = torch._foreach_div(mu, bias_correction(b1, count))
+        nu_hat = torch._foreach_div(nu, bias_correction(b2, count))
         if eps_root:
             torch._foreach_add_(nu_hat, eps_root)
         den = torch._foreach_sqrt(nu_hat)

@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from recmodels_tpu_torch.embedding.gather import gather_rows, gather_rows_reference
-from recmodels_tpu_torch.embedding.update import sorted_adagrad_update, sorted_adagrad_update_reference
+from recmodels_tpu_torch.embedding.update import (
+    bias_correction, sorted_adagrad_update, sorted_adagrad_update_reference, sorted_adam_update,
+    sorted_adam_update_reference,
+)
 from recmodels_tpu_torch.nn.mlp import ProductF32
 from recmodels_tpu_torch.ops.cuda import interactions_cuda as K
 
@@ -21,6 +24,8 @@ pytestmark = pytest.mark.cuda
 # bf16 results summed in f32 in another order may round one bf16 step apart
 # (2^-8 relative); 1% of the largest magnitude covers that with margin
 BF16_REL_TOL = 1e-2
+# f32 CIN layer: the same f32 sums (up to Hk * m terms) in another order
+F32_REL_TOL = 1e-4
 
 
 @pytest.fixture
@@ -86,11 +91,23 @@ def test_cin2_forward_kernel(cuda, b, d, m, h1, h2):
     assert torch.equal(p1, outs[1]) and torch.equal(p2, outs[2])
 
 
-def test_cin_stack_dm_flat_has_no_f32_kernel(cuda):
-    x = torch.zeros((2, 16, 26), device=cuda)
-    w = [torch.zeros((26, 26 * 16), device=cuda), torch.zeros((16, 26 * 16), device=cuda)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.cin_stack_dm_flat(x, w)
+def test_cin_stack_dm_flat_f32_runs_the_layer_kernel(cuda):
+    """An f32 CIN (no fused kernel) runs layer by layer through the generic
+    layer kernel, forward and backward (the einsum backward: f32)."""
+    g = _gen(cuda, 6)
+    x = torch.randn((3, 16, 26), generator=g, device=cuda)
+    w = [torch.randn((26, 26 * 16), generator=g, device=cuda) * 0.1,
+         torch.randn((16, 26 * 16), generator=g, device=cuda) * 0.1]
+    before = K.cin_layer_forward.launches
+    xr = x.clone().requires_grad_(True)
+    pools = K.cin_stack_dm_flat(xr, w)
+    assert K.cin_layer_forward.launches == before + 2 and pools.shape == (3, 32)
+    want = K.interactions.cin_stack_dm_flat(x, w)
+    torch.testing.assert_close(pools, want, rtol=F32_REL_TOL, atol=F32_REL_TOL * want.abs().max().item())
+    (gx,) = torch.autograd.grad(pools.sum(), xr)
+    xp = x.clone().requires_grad_(True)
+    (gp,) = torch.autograd.grad(K.interactions.cin_stack_dm_flat(xp, w).sum(), xp)
+    torch.testing.assert_close(gx, gp, rtol=F32_REL_TOL, atol=F32_REL_TOL * gp.abs().max().item())
 
 
 @pytest.mark.parametrize("b", [1, 17, 300])
@@ -190,3 +207,124 @@ def test_product_function_on_the_card(cuda):
                                rtol=2 ** -7, atol=1e-5)
     torch.testing.assert_close(gw.float(), (a.detach().float().t() @ cot).to(torch.bfloat16).float(),
                                rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,dim,n,hot", [
+    (5000, 16, 3001, 0.0),
+    (5000, 17, 3001, 0.6),   # a run of ~1,800 duplicates
+    (2000, 1, 4000, 0.3),    # a dim-1 table
+    (300, 5, 20000, 0.9),    # nearly every position a duplicate
+])
+@pytest.mark.parametrize("grad_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("step", [0, 5])
+def test_adam_update_kernel_is_bit_exact(cuda, rows, dim, n, hot, grad_dtype, step):
+    """Lazy Adam against the plain version on the CPU (the same f32
+    constants, runs summed in stream order, every operation rounded the same
+    way): bit for bit. An id whose grads sum to exactly 0 still decays its
+    moments; rows outside the stream keep their bits."""
+    table, acc, ids, grads = _stream(cuda, rows, dim, n, hot, grad_dtype, seed=7)
+    m = acc - 0.6
+    v = acc * 0.01
+    # the first id's run: grads summing to exactly 0 (x and -x, or zeros)
+    x = grads[0].clone()
+    grads[ids == ids[0]] = 0
+    if ids[1] == ids[0]:
+        grads[0], grads[1] = x, -x
+    hyper = dict(lr=1e-2, bc1=bias_correction(0.9, step + 1), bc2=bias_correction(0.999, step + 1),
+                 b1=0.9, b2=0.999, eps=1e-8)
+    cpu = [t.cpu() for t in (table, m, v)]
+    sorted_adam_update_reference(*cpu, ids.cpu(), grads.cpu(), **hyper)
+    t0, m0 = table.clone(), m.clone()
+    before = sorted_adam_update.launches
+    sorted_adam_update(table, m, v, ids, grads, **hyper)
+    torch.cuda.synchronize()
+    assert sorted_adam_update.launches == before + 1
+    for got, want in zip((table, m, v), cpu):
+        assert torch.equal(got.cpu(), want)
+    zero_run = ids[0].long()
+    assert not torch.equal(m[zero_run], m0[zero_run])  # decayed: 0.9 * m
+    touched = torch.zeros(rows, dtype=torch.bool, device=cuda)
+    touched[ids[ids < rows].long()] = True
+    assert torch.equal(table[~touched], t0[~touched]) and torch.equal(m[~touched], m0[~touched])
+
+
+def _layer_inputs(cuda, rows, hk, m, hn, dtype, seed):
+    g = _gen(cuda, seed)
+    xk2 = torch.randn((rows, hk), generator=g, device=cuda).to(dtype)
+    x02 = torch.randn((rows, m), generator=g, device=cuda).to(dtype)
+    w2 = (torch.randn((hk, m * hn), generator=g, device=cuda) * (2.0 / (hk * m)) ** 0.5).to(dtype)
+    return xk2, x02, w2
+
+
+@pytest.mark.parametrize("rows,hk,m,hn", [
+    (1000, 26, 26, 128),   # layer 1 at the training widths, ragged rows
+    (700, 128, 26, 128),   # layers 2 and 3
+    (77, 37, 5, 20),       # nothing aligned
+    (300, 200, 3, 130),    # two k-chunks and two column blocks
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cin_layer_forward_kernel(cuda, rows, hk, m, hn, dtype):
+    xk2, x02, w2 = _layer_inputs(cuda, rows, hk, m, hn, dtype, 8)
+    before = K.cin_layer_forward.launches
+    got = K.cin_layer_forward(xk2, x02, w2)
+    torch.cuda.synchronize()
+    assert K.cin_layer_forward.launches == before + 1
+    want = K.cin_layer_forward_reference(xk2, x02, w2)
+    assert got.shape == (rows, hn) and got.dtype == dtype
+    tol = BF16_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("rows,hk,m,hn", [
+    (512, 128, 26, 128),    # one 512-row tile of the JAX kernel
+    (5000, 128, 4, 128),    # ragged rows, two gw slices
+    (300, 40, 7, 24),       # nothing aligned
+    (600, 136, 5, 200),     # two h blocks and two k-chunks
+])
+def test_cin_layer_backward_kernel(cuda, rows, hk, m, hn):
+    xk2, x02, w2 = _layer_inputs(cuda, rows, hk, m, hn, torch.bfloat16, 9)
+    gy = torch.randn((rows, hn), generator=_gen(cuda, 10), device=cuda).to(torch.bfloat16)
+    before = K.cin_layer_backward.launches
+    outs = K.cin_layer_backward(xk2, x02, w2, gy)
+    torch.cuda.synchronize()
+    assert K.cin_layer_backward.launches == before + 1
+    refs = K.cin_layer_backward_reference(xk2, x02, w2, gy)
+    for got, want in zip(outs, refs):
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BF16_REL_TOL * want.float().abs().max().item()
+    again = K.cin_layer_backward(xk2, x02, w2, gy)
+    assert all(torch.equal(x, y) for x, y in zip(outs, again))  # no atomics: runs repeat
+
+
+@pytest.mark.parametrize("shape", [(16384, 26, 16), (3, 5, 7), (1, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_transpose_minor2_kernel_is_exact(cuda, shape, dtype):
+    x = torch.randn(shape, generator=_gen(cuda, 11), device=cuda).to(dtype)
+    before = K.transpose_minor2.launches
+    got = K.transpose_minor2(x)
+    torch.cuda.synchronize()
+    assert K.transpose_minor2.launches == before + 1
+    assert torch.equal(got, K.transpose_minor2_reference(x))
+
+
+@pytest.mark.parametrize("hk,kernel", [(26, False), (128, True)])
+def test_cin_layer_function_on_the_card(cuda, hk, kernel):
+    """``CinLayer2d`` forward and backward against autograd through the
+    plain forward on the card: the aligned bf16 layer takes the backward
+    kernel, layer 1 (Hk = m = 26) the einsums."""
+    rows, m, hn = 1024, 26, 128
+    xk2, x02, w2 = _layer_inputs(cuda, rows, hk, m, hn, torch.bfloat16, 12)
+    cot = torch.randn((rows, hn), generator=_gen(cuda, 13), device=cuda).to(torch.bfloat16)
+    grads = []
+    for fn in (K.CinLayer2d.apply, K.cin_layer_forward_reference):
+        ins = [t.clone().requires_grad_(True) for t in (xk2, x02, w2)]
+        before = K.cin_layer_backward.launches
+        out = fn(*ins)
+        grads.append(torch.autograd.grad((out.float() * cot.float()).sum(), ins))
+        if fn is K.CinLayer2d.apply:
+            assert K.cin_layer_backward.launches == before + int(kernel)
+    for got, want in zip(*grads):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 0.03 * want.float().abs().max().item()  # the repo's bf16 rule

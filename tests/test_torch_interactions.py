@@ -13,6 +13,12 @@
   JAX's ``split_fused_rows`` exactly, and the ``autograd.Function``s
   (``Cin2``, ``SplitFusedRows``, the MLP's ``ProductF32``) against
   ``torch.autograd`` through the plain ops;
+* the generic CIN layer: ``cin_layer_forward_reference`` against JAX's
+  ``_cin_forward_2d`` and ``cin_layer_backward_reference`` against its
+  ``_cin_bwd_pallas``, both in interpret mode; ``CinLayer2d`` (backward
+  kernel or einsums, by JAX's condition) and ``TransposeMinor2`` against
+  ``torch.autograd`` through the plain ops; 3-layer ``cin_stack_dm_flat``
+  and ``cin_stack_flat`` and their grads against the JAX ops;
 * dispatch: what runs for a CPU tensor and what raises for other devices.
 """
 
@@ -24,6 +30,7 @@ import torch
 
 from recmodels_tpu.ops import dispatch as jdispatch
 from recmodels_tpu.ops import interactions as J
+from recmodels_tpu.ops.pallas import interactions_tpu as JT
 from recmodels_tpu_torch.nn.mlp import ProductF32
 from recmodels_tpu_torch.ops import interactions as T
 from recmodels_tpu_torch.ops.cuda import interactions_cuda as K
@@ -307,18 +314,24 @@ def test_dispatch_names_are_the_jax_packages():
 
 @pytest.mark.parametrize("name", ["cin_layer", "cin_stack", "cin_stack_dm", "cin_stack_flat"])
 def test_ops_without_a_kernel_raise_off_the_cpu(name):
+    """Every CIN op now reaches kernel entries: on a device with no kernel
+    (meta) the first of them raises, naming it."""
     x = torch.empty((2, 3, 4), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_op(name)(x, [])
+    w = torch.empty((5, 3, 3), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        get_op(name)(x, x, w) if name == "cin_layer" else get_op(name)(x, [w])
 
 
 def test_cin_stack_dm_flat_without_a_kernel_raises_off_the_cpu():
+    """f32 and 3-layer bf16 CINs run layer by layer, so off the CPU they
+    reach the layer kernel's entry, which raises on meta tensors."""
     x = torch.empty((2, 4, 3), device="meta")
-    w = [torch.empty((3, 3 * 16), device="meta")] * 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_op("cin_stack_dm_flat")(x, w)  # f32: only bf16 has a kernel
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_op("cin_stack_dm_flat")(x.to(torch.bfloat16), w[:1] * 3)  # 3 layers
+    w = [torch.empty((3, 3 * 16), device="meta"), torch.empty((16, 3 * 16), device="meta")]
+    with pytest.raises(ValueError, match="cin_layer_forward: no kernel"):
+        get_op("cin_stack_dm_flat")(x, w)  # f32
+    wb = [t.to(torch.bfloat16) for t in w]
+    with pytest.raises(ValueError, match="cin_layer_forward: no kernel"):
+        get_op("cin_stack_dm_flat")(x.to(torch.bfloat16), wb + wb[1:])  # 3 layers
 
 
 def test_kernel_entries_reject_devices_without_a_kernel():
@@ -332,3 +345,140 @@ def test_kernel_entries_reject_devices_without_a_kernel():
     y = x.reshape(6, 5)
     with pytest.raises(ValueError, match="no kernel"):
         K.cin2_backward(y, y, y, y, y, y, y, 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        K.transpose_minor2(x)
+    with pytest.raises(ValueError, match="no kernel"):
+        K.cin_layer_forward(y, y, y)
+    with pytest.raises(ValueError, match="no kernel"):
+        K.cin_layer_backward(y, y, y, y)
+
+
+# ------------------------------------------------------- generic CIN layer
+def _layer(rows, hk, m, hn, seed):
+    rng = np.random.default_rng(seed)
+    xk = rng.normal(size=(rows, hk)).astype(np.float32)
+    x0 = rng.normal(size=(rows, m)).astype(np.float32)
+    w2 = (rng.normal(size=(hk, m * hn)) * np.sqrt(2.0 / (hk * m))).astype(np.float32)
+    return xk, x0, w2
+
+
+def _both(arrays, dtype):
+    """The same values as JAX and as torch arrays, in ``dtype``."""
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
+    js = [jnp.asarray(a, jdt) for a in arrays]
+    return js, [torch.tensor(np.asarray(j.astype(jnp.float32))).to(tdt) for j in js]
+
+
+def _max_err_within(got, want, frac):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert np.max(np.abs(got - want)) <= frac * np.max(np.abs(want)), (np.max(np.abs(got - want)),
+                                                                        np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("shape", [(512, 26, 26, 128), (512, 128, 26, 128), (300, 12, 5, 24)])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_cin_layer_forward_reference_matches_jax(monkeypatch, shape, dtype):
+    """JAX's ``_cin_forward_2d`` in interpret mode (its Pallas kernel for
+    rows % 256 == 0, its einsum branch for the ragged case). Both sum t and
+    the fold in f32 and cast once: f32 to rounding order (1e-4 of the
+    largest value), bf16 one bf16 step of the largest value (2^-7)."""
+    monkeypatch.setattr(JT, "_INTERPRET", True)
+    js, ts = _both(_layer(*shape, seed=20), dtype)
+    want = JT._cin_forward_2d(*js)
+    before = K.cin_layer_forward.launches
+    got = K.cin_layer_forward(*ts)
+    assert K.cin_layer_forward.launches == before and got.dtype == ts[0].dtype
+    _max_err_within(_np(got), want.astype(jnp.float32), 2 ** -7 if dtype == "bf16" else F32_TOL)
+
+
+@pytest.mark.parametrize("m", [26, 7])
+def test_cin_layer_backward_reference_matches_jax_kernel(monkeypatch, m):
+    """JAX's ``_cin_bwd_pallas`` in interpret mode at rows 512, Hk = Hn =
+    128, bf16: the same rounding points (t1, q, z in bf16; every sum f32) in
+    other summation orders, so a t1 value may round one bf16 step apart: 1%
+    of the largest magnitude of each cotangent."""
+    monkeypatch.setattr(JT, "_INTERPRET", True)
+    rows, hk, hn = 512, 128, 128
+    xk, x0, w2 = _layer(rows, hk, m, hn, seed=21)
+    g = np.random.default_rng(22).normal(size=(rows, hn)).astype(np.float32)
+    js, ts = _both((xk, x0, w2, g), "bf16")
+    want = JT._cin_bwd_pallas(*js)
+    got = K.cin_layer_backward(*ts)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and tuple(a.shape) == b.shape
+        _max_err_within(_np(a), b.astype(jnp.float32), 0.01)
+
+
+@pytest.mark.parametrize("case", ["layer1_bf16", "aligned_bf16", "aligned_f32", "ragged_bf16"])
+def test_cin_layer_function_matches_autograd_of_plain_ops(case):
+    """``CinLayer2d`` against autograd through the plain forward. The
+    backward takes the kernel exactly where JAX takes ``_cin_bwd_pallas``
+    (aligned bf16 layers of rows % 512 == 0); layer 1 (Hk = m), f32 and
+    ragged rows take the einsums. f32 to rounding order; bf16 by the repo's
+    rule (3% of the largest value): both round the cotangents at other
+    points than the f32 autograd does."""
+    rows, hk, m, hn, dtype, kernel = {
+        "layer1_bf16": (512, 26, 26, 128, "bf16", False),
+        "aligned_bf16": (512, 128, 26, 128, "bf16", True),
+        "aligned_f32": (512, 128, 26, 128, "f32", False),
+        "ragged_bf16": (500, 128, 26, 128, "bf16", False),
+    }[case]
+    _, ts = _both(_layer(rows, hk, m, hn, seed=23), dtype)
+    cot = torch.from_numpy(np.random.default_rng(24).normal(size=(rows, hn)).astype(np.float32))
+    cot = cot.to(ts[0].dtype).float()
+    assert K.takes_backward_kernel(*ts) == kernel
+    grads = []
+    for fn in (K.CinLayer2d.apply, K.cin_layer_forward_reference):
+        ins = [t.clone().requires_grad_(True) for t in ts]
+        grads.append(torch.autograd.grad((fn(*ins).float() * cot).sum(), ins))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        _max_err_within(_np(got), _np(want), 0.03 if dtype == "bf16" else F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_transpose_minor2_function_matches_jax_and_autograd(dtype):
+    rng = np.random.default_rng(25)
+    (jx,), (tx,) = _both([rng.normal(size=(9, 26, 16))], dtype)
+    cot = torch.tensor(rng.normal(size=(9, 16, 26)), dtype=torch.float32).to(tx.dtype)
+    got = K.transpose_minor2(tx)
+    assert got.is_contiguous() and torch.equal(got.float(), torch.tensor(np.asarray(
+        JT.transpose_minor2(jx).astype(jnp.float32))))
+    grads = []
+    for fn in (K.TransposeMinor2.apply, lambda x: x.transpose(1, 2)):
+        x = tx.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad((fn(x).float() * cot.float()).sum(), x)[0])
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("op", ["cin_stack_dm_flat", "cin_stack_flat"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_three_layer_cin_matches_jax(monkeypatch, op, dtype):
+    """CIN(128, 128, 128) on 512 rows (b = 32, d = 16, m = 10) against the
+    JAX ops in interpret mode, the pools and their grads w.r.t. the field
+    matrix and the three weights. JAX runs its layer kernels there (the
+    backward kernel on layers 2 and 3, the einsums on layer 1), the port
+    their plain versions. f32 to rounding order (1e-4 of the largest
+    value); bf16 by the repo's rule (3%): the layers' bf16 outputs may round
+    one step apart and carry that into the next layer."""
+    monkeypatch.setattr(JT, "_INTERPRET", True)
+    b, d, m, hs = 32, 16, 10, (128, 128, 128)
+    rng = np.random.default_rng(26)
+    x = rng.normal(size=(b, d, m) if op == "cin_stack_dm_flat" else (b, m, d)).astype(np.float32)
+    ws, h = [], m
+    for hn in hs:
+        ws.append((rng.normal(size=(h, m * hn)) * np.sqrt(2.0 / (h * m))).astype(np.float32))
+        h = hn
+    cot = rng.normal(size=(b, sum(hs))).astype(np.float32)
+    js, ts = _both([x, *ws, cot], dtype)
+    jout, vjp = jax.vjp(lambda *a: getattr(JT, op)(a[0], list(a[1:])), *js[:-1])
+    jgrads = vjp(js[-1])
+    ins = [t.clone().requires_grad_(True) for t in ts[:-1]]
+    out = get_op(op)(ins[0], ins[1:])
+    assert out.dtype == ins[0].dtype and tuple(out.shape) == jout.shape
+    tgrads = torch.autograd.grad((out.float() * ts[-1].float()).sum(), ins)
+    frac = 0.03 if dtype == "bf16" else F32_TOL
+    _max_err_within(_np(out.detach()), jout.astype(jnp.float32), frac)
+    for got, want in zip(tgrads, jgrads):
+        assert got.dtype == ins[0].dtype
+        _max_err_within(_np(got), want.astype(jnp.float32), frac)

@@ -7,6 +7,11 @@
   ``pallas_update.sorted_adagrad_update_packed`` (and, for a dim-1 table,
   ``sorted_adagrad_update``) run in interpret mode;
 * ``apply_updates`` (sort, permute, sorted update) against JAX's;
+* lazy Adam's plain version against JAX's ``sparse_adam().apply`` (dedup +
+  apply) and against the TPU kernel ``sorted_adam_update_packed`` in
+  interpret mode, a touched id whose grads sum to exactly 0 included (it
+  must decay); ``apply_updates`` for ``"adam"`` and ``"adam_dense"`` against
+  JAX's (dense Adam decays the untouched rows too);
 * the dense Adam, Adagrad and SGD against optax over a few steps.
 """
 
@@ -20,7 +25,7 @@ import torch
 from recmodels_tpu.embedding import optim as J
 from recmodels_tpu.embedding import pallas_gather, pallas_update
 from recmodels_tpu_torch.embedding import optim as T
-from recmodels_tpu_torch.embedding.update import sorted_adagrad_update
+from recmodels_tpu_torch.embedding.update import bias_correction, sorted_adagrad_update, sorted_adam_update
 from recmodels_tpu_torch.train import optim as TO
 
 # the TPU kernel's own tolerances against sparse Adagrad
@@ -30,6 +35,10 @@ TABLE_TOL = dict(rtol=1e-4, atol=1e-6)
 ACC_TOL = dict(rtol=3e-4, atol=1e-5)
 # f32 elementwise optimizer math in another association or with FMA: ulps
 F32_TOL = dict(rtol=1e-6, atol=1e-7)
+# the TPU Adam kernel's own tolerance against sparse_adam
+# (tests/test_pallas_update.py): duplicate sums in another order
+ADAM_KERNEL_TOL = dict(rtol=2e-5, atol=1e-6)
+B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 def _ids_2d(b=40, vocab=(7, 50, 3, 200), seed=0):
@@ -173,7 +182,7 @@ def test_apply_updates_matches_jax(dim):
     t = torch.tensor(table.reshape(shape))
     st = opt.init(rows_alloc, dim)
     g = torch.from_numpy(grads.reshape(-1) if dim == 1 else grads)
-    t2, st2 = T.apply_updates(opt, t, st, torch.from_numpy(ids), g, lr)
+    t2, st2 = T.apply_updates(opt, t, st, torch.from_numpy(ids), g, 0, lr)
     assert t2 is t and st2["acc"] is st["acc"] and st["acc"].shape == shape  # in place
     jt, jst = J.apply_updates(J.sparse_adagrad(), jnp.asarray(table.reshape(shape)),
                               J.sparse_adagrad().init(rows_alloc, dim), jnp.asarray(ids.reshape(-1)),
@@ -187,8 +196,134 @@ def test_apply_updates_matches_jax(dim):
 
 @pytest.mark.parametrize("name", ["adam", "adam_dense"])
 def test_sparse_adam_is_not_ported_yet(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 #7"):
-        T.get_sparse_optimizer(name)
+    """Named for the time before lazy and dense Adam were ported: now
+    ``get_sparse_optimizer`` returns them, with their hyperparameters and
+    the JAX package's zero moments."""
+    opt = T.get_sparse_optimizer(name, b1=0.8)
+    jopt = J.get_sparse_optimizer(name, b1=0.8)
+    assert opt.name == jopt.name == name
+    assert opt.hyper == {"b1": 0.8, "b2": B2, "eps": EPS}
+    for dim, shape in ((4, (10, 4)), (1, (10,))):
+        st = opt.init(10, dim)
+        assert sorted(st) == sorted(jopt.init(10, dim)) == ["m", "v"]
+        assert all(t.shape == shape and t.dtype == torch.float32 and not t.any() for t in st.values())
+
+
+# ------------------------------------------------------------- lazy Adam
+def _adam_stream(dim, bf16_grads, seed=11):
+    """``_stream`` with moments, and one id (rows - 10, outside the random
+    ids) touched twice with grads x and -x: its sum is exactly 0."""
+    table, _, ids, grads = _stream(dim=dim, seed=seed, bf16_grads=bf16_grads)
+    rows = table.shape[0]
+    rng = np.random.default_rng(seed + 1)
+    m = (rng.normal(size=table.shape) * 0.1).astype(np.float32)
+    v = (np.abs(rng.normal(size=table.shape)) * 0.01).astype(np.float32)
+    ids = np.concatenate([ids[:-2], [rows - 10, rows - 10], ids[-2:]]).astype(np.int32)
+    x = grads[:1]
+    grads = np.concatenate([grads[:-2], x, -x, grads[-2:]])
+    return table, m, v, ids, grads
+
+
+def _port_adam(table, m, v, ids, grads, lr, step, bf16_grads):
+    t, mm, vv = (torch.tensor(a) for a in (table, m, v))
+    g = torch.tensor(grads)
+    if bf16_grads:
+        g = g.to(torch.bfloat16)
+    before = sorted_adam_update.launches
+    sorted_adam_update(t, mm, vv, torch.tensor(ids), g, lr, bias_correction(B1, step + 1),
+                       bias_correction(B2, step + 1), B1, B2, EPS)
+    assert sorted_adam_update.launches == before  # the CPU takes the plain version
+    return t.numpy(), mm.numpy(), vv.numpy()
+
+
+def _check_lazy(got, start, ids):
+    """Untouched rows keep their bits; the zero-sum id's moments decay."""
+    rows = start[0].shape[0]
+    untouched = np.setdiff1d(np.arange(rows), ids)
+    z = rows - 10
+    for g, s0 in zip(got, start):
+        np.testing.assert_array_equal(g[untouched], s0[untouched])
+    np.testing.assert_array_equal(got[1][z], np.float32(B1) * start[1][z])
+    np.testing.assert_array_equal(got[2][z], np.float32(B2) * start[2][z])
+
+
+@pytest.mark.parametrize("step", [0, 5])
+@pytest.mark.parametrize("grad_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dim", [16, 17, 1])
+def test_sorted_adam_reference_matches_sparse_adam(dim, grad_dtype, step):
+    bf16 = grad_dtype == "bf16"
+    table, m, v, ids, grads = _adam_stream(dim, bf16)
+    lr = 0.01
+    uids, gsum, _ = J.dedup_segment_sum(jnp.asarray(ids), jnp.asarray(grads), table.shape[0])
+    jt, jst = J.sparse_adam(B1, B2, EPS).apply(
+        jnp.asarray(table), {"m": jnp.asarray(m), "v": jnp.asarray(v)}, uids, gsum, jnp.asarray(step), lr)
+    got = _port_adam(table, m, v, ids, grads, lr, step, bf16)
+    for g, w in zip(got, (jt, jst["m"], jst["v"])):
+        np.testing.assert_allclose(g, np.asarray(w), **F32_TOL)
+    _check_lazy(got, (table, m, v), ids)
+
+
+@pytest.mark.parametrize("grad_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dim", [16, 17])
+def test_sorted_adam_reference_matches_packed_tpu_kernel(monkeypatch, dim, grad_dtype):
+    """The TPU lazy-Adam kernel in interpret mode on its packed layout: the
+    raw sorted stream with duplicates, the zero-sum id and sentinels."""
+    monkeypatch.setattr(pallas_update, "_INTERPRET", True)
+    bf16 = grad_dtype == "bf16"
+    table, m, v, ids, grads = _adam_stream(dim, bf16, seed=13)
+    lr, step = 0.01, 3
+    jg = jnp.asarray(grads, jnp.bfloat16 if bf16 else jnp.float32)
+    outs = jax.jit(lambda t, a, b: pallas_update.sorted_adam_update_packed(
+        t, a, b, jnp.asarray(ids), jg, lr, jnp.asarray(step), B1, B2, EPS))(
+        *(pallas_gather.pack(jnp.asarray(x)) for x in (table, m, v)))
+    got = _port_adam(table, m, v, ids, grads, lr, step, bf16)
+    for g, w in zip(got, outs):
+        np.testing.assert_allclose(g, np.asarray(pallas_gather.unpack(w, dim)), **ADAM_KERNEL_TOL)
+    _check_lazy(got, (table, m, v), ids)
+
+
+@pytest.mark.parametrize("name", ["adam", "adam_dense"])
+@pytest.mark.parametrize("dim", [9, 17, 1])
+def test_apply_updates_adam_matches_jax(dim, name):
+    """The port's routes in place against the JAX package's apply_updates on
+    the CPU from one mid-training state (moments not zero) at step 3: lazy
+    Adam (sort, permute, sorted update) keeps the untouched rows' bits, dense
+    Adam (dense grad, full-table Adam) decays them."""
+    ids, _ = _ids_2d(b=50)
+    rows_alloc, lr, step = 1024, 0.01, 3
+    rng = np.random.default_rng(17)
+    shape = (rows_alloc,) if dim == 1 else (rows_alloc, dim)
+    table = rng.normal(size=shape).astype(np.float32)
+    m = (rng.normal(size=shape) * 0.1).astype(np.float32)
+    v = (np.abs(rng.normal(size=shape)) * 0.01).astype(np.float32)
+    grads = rng.normal(size=(ids.size, *shape[1:])).astype(np.float32)
+    opt = T.get_sparse_optimizer(name)
+    t, st = torch.tensor(table), {"m": torch.tensor(m), "v": torch.tensor(v)}
+    st_in = dict(st)
+    t2, st2 = T.apply_updates(opt, t, st, torch.from_numpy(ids), torch.from_numpy(grads), step, lr)
+    assert t2 is t and st2 is st and all(st[k] is st_in[k] for k in st)  # in place
+    jt, jst = J.apply_updates(J.get_sparse_optimizer(name), jnp.asarray(table),
+                              {"m": jnp.asarray(m), "v": jnp.asarray(v)}, jnp.asarray(ids.reshape(-1)),
+                              jnp.asarray(grads), jnp.asarray(step), lr)
+    got = (t.numpy(), st["m"].numpy(), st["v"].numpy())
+    for g, w in zip(got, (jt, jst["m"], jst["v"])):
+        np.testing.assert_allclose(g, np.asarray(w), **F32_TOL)
+    untouched = np.setdiff1d(np.arange(rows_alloc), ids)
+    assert untouched.size > 0
+    if name == "adam":
+        for g, s0 in zip(got, (table, m, v)):
+            np.testing.assert_array_equal(g[untouched], s0[untouched])
+    else:  # the dense route decays every row: a zero grad still moves m, v and the table
+        np.testing.assert_allclose(got[1][untouched], np.float32(B1) * m[untouched], **F32_TOL)
+        np.testing.assert_allclose(got[2][untouched], np.float32(B2) * v[untouched], **F32_TOL)
+        assert np.all(got[0][untouched] != table[untouched])
+
+
+def test_adam_kernel_entry_rejects_devices_without_a_kernel():
+    t = torch.empty((4, 3), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        sorted_adam_update(t, t, t, torch.empty((2,), dtype=torch.int32, device="meta"),
+                           torch.empty((2, 3), device="meta"), 0.1, 0.1, 0.001, B1, B2, EPS)
 
 
 # ---------------------------------------------------------- dense optimizers

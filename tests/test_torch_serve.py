@@ -22,7 +22,9 @@ from recmodels_tpu.train.engine import Engine as JEngine
 from recmodels_tpu.train.loop import build_schema as jbuild_schema
 from recmodels_tpu.utils.config import TrainConfig as JConfig
 from recmodels_tpu_torch.models import build_model
-from recmodels_tpu_torch.serve import export_model, load_predictor, params_from_jax, treedef_str
+from recmodels_tpu_torch.serve import (
+    export_model, load_predictor, params_from_jax, train_state_from_jax, treedef_str,
+)
 from recmodels_tpu_torch.train.engine import Engine
 from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
 from recmodels_tpu_torch.utils.tree import leaves
@@ -222,3 +224,31 @@ def test_engine_init_follows_jax_layout():
 def test_unported_models_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model("deepfm", build_schema(TrainConfig(vocab_size=500)))
+
+
+def test_train_state_from_jax_carries_any_sparse_optimizer_state():
+    """Lazy Adam's m and v come across per group under the table's key; a
+    state of another optimizer, a wrong shape, or both forms at once raise."""
+    cfg = TrainConfig(**_cfg(True))
+    eng = Engine(build_model("xdeepfm", build_schema(cfg), **cfg.model_kwargs()),
+                 sparse_optimizer="adam", fuse_wide=False)
+    st = eng.init(seed=0, device="cpu")
+    dense = [t.numpy() for t in leaves(st.dense_params)]
+    adam = (3, [np.zeros_like(d) for d in dense], [np.ones_like(d) for d in dense])
+    tables = {f"emb/{c}/{g}": t.numpy() for c, gs in st.emb_params.items() for g, t in gs.items()}
+    assert sorted(tables) == ["emb/emb/d8", "emb/wide/d1"]
+    opt = {k: {"m": np.full_like(t, 0.5), "v": np.full_like(t, 0.25)} for k, t in tables.items()}
+    got = train_state_from_jax(eng, 7, dense, adam, tables, device="cpu", emb_opt=opt)
+    assert got.step == 7 and got.dense_opt["count"] == 3
+    for c, g in (("emb", "d8"), ("wide", "d1")):
+        s = got.emb_opt[c][g]
+        assert sorted(s) == ["m", "v"] and s["m"].shape == st.emb_params[c][g].shape
+        assert torch.all(s["m"] == 0.5) and torch.all(s["v"] == 0.25)
+    with pytest.raises(ValueError, match=r"keeps \['m', 'v'\]"):
+        train_state_from_jax(eng, 7, dense, adam, tables, emb_acc=tables, device="cpu")
+    bad = {k: dict(v) for k, v in opt.items()}
+    bad["emb/wide/d1"]["v"] = np.zeros((3,), np.float32)
+    with pytest.raises(ValueError, match="structure mismatch"):
+        train_state_from_jax(eng, 7, dense, adam, tables, device="cpu", emb_opt=bad)
+    with pytest.raises(ValueError, match="one of emb_opt and emb_acc"):
+        train_state_from_jax(eng, 7, dense, adam, tables, emb_acc=tables, device="cpu", emb_opt=opt)

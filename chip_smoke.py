@@ -21,6 +21,10 @@ Phases, each on its own lines:
                table and on a dim-1 table, bit-exact), one generic CIN layer
                forward (layer-1 and layer-2 shapes, bf16 and f32) and
                backward (layer-2 shape), and the field-matrix transpose;
+               then those of slice 4: the FM term on the stride-17 view of
+               gathered rows (DeepFM's [16384, 26, 16] bf16, FM's [8192, 26,
+               16] f32) and the DCN cross stack (x0 [16384, 429], 3 layers,
+               bf16 and f32);
   4. serving:  full-width bf16 xDeepFM (26 x 1e5 ids, dim 16, CIN(128,128),
                DNN(400,400)) initialised from a seed (with weights under which
                each kernel's output moves the logits), exported, loaded with
@@ -48,7 +52,14 @@ Phases, each on its own lines:
                device time, kernel time and profile; then one dense-Adam
                ("adam_dense") table update on the card, run twice from one
                state (identical bits) and held against the CPU;
-  7. a JSON line listing the kernels (launches from the run of each kernel's
+  7. slice 4, for each of full-width bf16 DeepFM (DNN(400,400,400)), bf16
+               DCN (3 cross layers over x0 of 429, DNN(512,256)) and f32 FM
+               (26 x 1e5 ids, dim 16, the engine's defaults: dense Adam lr
+               1e-3, sparse Adagrad lr 1e-2): serving as in 4 (requests of
+               1, 1,000 and the batch, 16,384 or FM's 8,192; the FM term, or
+               the cross layers' own share (x_L - x0) . w_out, must move the
+               logits), then training as in 5, 30 steps at the same batch;
+  8. a JSON line listing the kernels (launches from the run of each kernel's
      path), then the card line again, then the result line
      {"ok": true, "device": {...}}.
 
@@ -83,6 +94,12 @@ DIM = 16
 CIN = (128, 128)
 CIN3 = (128, 128, 128)
 HIDDEN = (400, 400)
+# slice 4, bench.py:39-54: DeepFM DNN(400,400,400); DCN 3 cross layers and
+# DNN(512,256); FM in f32 at its own batch
+DEEPFM_HIDDEN = (400, 400, 400)
+DCN_HIDDEN = (512, 256)
+N_CROSS = 3
+FM_BATCH = 8192
 SEED = 0
 # kernel vs plain on bf16 outputs: both sum in f32 in different orders and then
 # round to bf16, so a value may land one bf16 step (2^-8 relative) apart; p2
@@ -98,6 +115,12 @@ LOGIT_REL_TOL = 1e-2
 TERM_MIN_TOLS = 10.0
 # f32 sums of 26 values in another order: a few f32 ulps
 F32_REL_TOL = 1e-5
+# DCN cross stack, kernel vs plain in bf16, per element as a share of
+# dcn_cross_stack_scale: a t that rounds one bf16 step (2^-8 of itself)
+# apart moves x0 * t by that, and the next layer's t by that times x0 . w
+# (about N(0, 1)); eight steps leave room for |x0 . w| up to about 6 and a
+# flip in each elementwise rounding (the kernel-order check below is exact)
+DCN_BF16_REL_TOL = 2.0 ** -5
 TRAIN_STEPS = 30
 TRAIN_CHECK_BATCH = 1024
 # GPU step vs CPU step from one state: the grads pass through the same bf16
@@ -176,6 +199,47 @@ def profile(fn, calls: int = 3, top: int = 12) -> float:
     return busy / calls
 
 
+def cold_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` with a cold L2, for kernels shorter than
+    the host's time to launch them (where CUDA events over back-to-back
+    calls measure the host). Before each call the card writes a 2 GiB
+    buffer: that evicts the 50 MB L2 and keeps the card busy (about 0.7 ms)
+    while the host queues the call, so the events around it time its
+    kernels alone."""
+    flush = torch.empty(2**29, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    for start, end in pairs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / iters
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time per call of the kernels ``fn`` launches over back-to-back
+    calls, from torch.profiler: with the L2 as the previous call left it."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            dev_us = getattr(e, "self_device_time_total", None)
+            total_us += e.self_cuda_time_total if dev_us is None else dev_us
+    return total_us / 1e3 / calls
+
+
 def bound_ms(nbytes: float, flops: float = 0.0,
              peak_flop_per_s: float = PEAK_BF16_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -189,30 +253,37 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return (got - want).abs().max().item(), want.abs().max().item()
 
 
-def liven(state, gen: torch.Generator) -> None:
+def liven(state, gen: torch.Generator, rows_scale: float = 10.0) -> None:
     """Give every kernel of the path a visible share of the logits, in
-    place. ``Engine.init`` leaves the first-order column, ``w_dense`` and
-    the bias at zero, and its N(0, 0.05) rows leave the second CIN pool near
-    1e-3 of a logit: a wrong ``wide_sum`` or p2 would still pass the
-    GPU-vs-CPU check. Rows N(0, 0.5), a first-order column (the fused
-    table's last, or the dim-1 ``wide`` table) N(0, 0.2) and a drawn
-    ``w_dense`` and bias fix that; ``term_sizes`` checks it."""
+    place. ``Engine.init`` leaves the first-order column, ``w_dense``, the
+    bias and DCN's cross biases at zero, and its N(0, 0.05) rows leave the
+    second CIN pool near 1e-3 of a logit: a wrong ``wide_sum`` or p2 would
+    still pass the GPU-vs-CPU check. Rows scaled by ``rows_scale`` (N(0,
+    0.5) at 10), a first-order column (the fused table's last, of DIM + 1,
+    or the dim-1 ``wide`` table) N(0, 0.2) and a drawn ``w_dense``, bias and
+    cross bias fix that; ``term_sizes``, ``fm_term_sizes`` and
+    ``cross_term_sizes`` check it. The FM term grows with the square of the
+    rows: FM and DeepFM take 3 (N(0, 0.15)), which keeps their logits within
+    a few units, where the sigmoid does not saturate."""
     wide = state.emb_params.get("wide", {})
     for table in state.emb_params["emb"].values():
-        if wide:
-            table *= 10.0
+        if wide or table.shape[1] != DIM + 1:  # no fused first-order column
+            table *= rows_scale
         else:
-            table[:, :-1] *= 10.0
+            table[:, :-1] *= rows_scale
             table[:, -1] = torch.randn(table.shape[0], generator=gen, device=table.device) * 0.2
     for table in wide.values():
         table.copy_(torch.randn(table.shape, generator=gen, device=table.device) * 0.2)
     dp = state.dense_params
-    dev = dp["w_dense"].device
-    dp["w_dense"] = torch.randn(dp["w_dense"].shape, generator=gen, device=dev) * 0.1
+    dev = dp["bias"].device
+    if "w_dense" in dp:
+        dp["w_dense"] = torch.randn(dp["w_dense"].shape, generator=gen, device=dev) * 0.1
+    if "cross" in dp:
+        dp["cross"]["b"] = torch.randn(dp["cross"]["b"].shape, generator=gen, device=dev) * 0.1
     dp["bias"] = torch.randn((), generator=gen, device=dev) * 0.1
 
 
-def term_sizes(pred, ids) -> dict[str, float]:
+def term_sizes(pred, dense, ids) -> dict[str, float]:
     """Largest |contribution| to a logit of ``wide_sum``, p1 . w_cin and
     p2 . w_cin over the examples given, through the predictor's own wrappers
     (the plain versions for a CPU predictor)."""
@@ -233,6 +304,45 @@ def term_sizes(pred, ids) -> dict[str, float]:
         return {"wide_sum": ws.abs().max().item(),
                 "p1 . w_cin": (p1.float() @ w_cin[:h1]).abs().max().item(),
                 "p2 . w_cin": (p2.float() @ w_cin[h1:]).abs().max().item()}
+
+
+def fm_term_sizes(pred, dense, ids) -> dict[str, float]:
+    """Largest |FM term| (DeepFM, FM) over the examples given: the fused
+    rows gathered in the model's dtype and the term of their view
+    ``full[..., :DIM]``, through the predictor's own wrappers."""
+    from recmodels_tpu_torch.embedding.gather import gather_rows
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import fm_pairwise_forward
+
+    eng, st = pred.engine, pred.state
+    coll = eng.collections["emb"]
+    (g,) = coll.groups
+    with torch.inference_mode():
+        gids = coll.group_row_ids(torch.as_tensor(ids, device=pred.device))[g.name]
+        full = gather_rows(st.emb_params["emb"][g.name], gids,
+                           getattr(eng.model, "compute_dtype", torch.float32))
+        return {"FM term": fm_pairwise_forward(full[..., : g.dim - 1]).abs().max().item()}
+
+
+def cross_term_sizes(pred, dense, ids) -> dict[str, float]:
+    """Largest |(x_L - x0) . w_out[:d]| (DCN) over the examples given: what
+    the cross layers add to a logit beyond passing x0 through, through the
+    predictor's own wrappers."""
+    from recmodels_tpu_torch.embedding.gather import gather_rows
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import dcn_cross_stack_forward
+
+    eng, st = pred.engine, pred.state
+    coll = eng.collections["emb"]
+    (g,) = coll.groups
+    dt = eng.model.compute_dtype
+    dp = st.dense_params
+    with torch.inference_mode():
+        ids_t = torch.as_tensor(ids, device=pred.device)
+        rows = gather_rows(st.emb_params["emb"][g.name], coll.group_row_ids(ids_t)[g.name], dt)
+        x0 = torch.cat([rows.reshape(rows.shape[0], -1),
+                        torch.as_tensor(dense, device=pred.device).to(dt)], dim=1)
+        xl = dcn_cross_stack_forward(x0, dp["cross"]["w"].to(dt), dp["cross"]["b"].to(dt))
+        part = (xl.float() - x0.float()) @ dp["w_out"][: x0.shape[1]]
+        return {"(x_L - x0) . w_out": part.abs().max().item()}
 
 
 def to_device(tree, device):
@@ -426,6 +536,111 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
     )
 
 
+def slice4_kernels(report: dict, card: str, gen: torch.Generator) -> None:
+    """The kernels of the slice-4 paths against their plain versions at
+    their shapes; adds their rows to ``report``."""
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
+        dcn_cross_stack_forward, dcn_cross_stack_forward_reference, dcn_cross_stack_in_kernel_order,
+        dcn_cross_stack_scale, fm_pairwise_forward, fm_pairwise_forward_reference,
+    )
+
+    dev = torch.device("cuda")
+    m = 26
+
+    # 12. fm_pairwise on the stride-17 view full[..., :16] of gathered rows
+    # N(0, 1): DeepFM's [16384, 26, 17] bf16 and FM's [8192, 26, 17] f32.
+    # The term cancels, so each example is held to a share of
+    # ||sum e||^2 + sum ||e||^2: 1% in bf16, F32_REL_TOL in f32
+    fm = {}
+    for label, b, dtype, rel in (("", BATCH, torch.bfloat16, BF16_REL_TOL),
+                                 ("f32_", FM_BATCH, torch.float32, F32_REL_TOL)):
+        full = torch.randn((b, m, DIM + 1), generator=gen, device=dev).to(dtype)
+        emb = full[..., :DIM]
+        got = fm_pairwise_forward(emb)
+        want = fm_pairwise_forward_reference(emb)
+        e = emb.double()
+        scale = (e.sum(1) ** 2).sum(1) + (e ** 2).sum((1, 2))
+        err_ex = (got.double() - want.double()).abs()
+        worst = (err_ex / scale).max().item()
+        print(f"fm_pairwise {label or 'bf16_'}[{b}, {m}, {DIM}] view of [{b}, {m}, {DIM + 1}]: max err "
+              f"{err_ex.max().item():.6g}, largest share of the scale {worst:.3g}, tol {rel}")
+        check(got.shape == (b,) and got.dtype == dtype and worst <= rel,
+              f"fm_pairwise {label or 'bf16 '}within {rel} of each example's scale")
+        esize = emb.element_size()
+        b_ms, b_by = bound_ms(emb.numel() * esize + b * esize, 3 * emb.numel(), PEAK_F32_FLOP_PER_S)
+        fm.update({
+            f"{label}max_abs_err": err_ex.max().item(), f"{label}tol": rel, f"{label}max_rel_err": worst,
+            f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+            f"{label}ms": cold_ms(lambda: fm_pairwise_forward(emb)),
+            f"{label}plain_ms": cold_ms(lambda: fm_pairwise_forward_reference(emb)),
+            f"{label}library_ms": None,
+            f"{label}warm_ms": device_ms(lambda: fm_pairwise_forward(emb)),
+            f"{label}event_ms": time_ms(lambda: fm_pairwise_forward(emb)),
+        })
+        del full, emb, got, want, e
+    report["fm_pairwise_forward"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/fm_pairwise.cu",
+        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:53",
+        shapes="unprefixed keys: DeepFM, the [16384, 26, 16] bf16 view of [16384, 26, 17] rows; "
+               "f32_: FM, the [8192, 26, 16] f32 view of [8192, 26, 17] rows; tol is a share of "
+               "each example's ||sum e||^2 + sum ||e||^2; ms and plain_ms: cold L2 (cold_ms), "
+               "warm_ms: back-to-back calls by torch.profiler, event_ms: back-to-back calls by "
+               "CUDA events (the host's launch time: the kernel is shorter)", **fm,
+    )
+
+    # 13. dcn_cross_stack: DCN's x0 [16384, 429] N(0, 1), w N(0, 1/sqrt(429))
+    # (the model's init) and a bias N(0, 0.1) of 3 layers, bf16 and f32. Each
+    # element is held to a share of dcn_cross_stack_scale (x_L is
+    # heavy-tailed, so a share of max |x_L| would let its largest values set
+    # the limit for all), and in bf16 the kernel must give the plain version
+    # summed in its own order bit for bit: a rounding point missed or moved
+    # shows there however small it is
+    d = m * DIM + 13
+    dcn = {}
+    for label, dtype, rel in (("", torch.bfloat16, DCN_BF16_REL_TOL), ("f32_", torch.float32, F32_REL_TOL)):
+        x0 = torch.randn((BATCH, d), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((N_CROSS, d), generator=gen, device=dev) / d ** 0.5).to(dtype)
+        bias = (torch.randn((N_CROSS, d), generator=gen, device=dev) * 0.1).to(dtype)
+        got = dcn_cross_stack_forward(x0, w, bias)
+        err_el = (got.double() - dcn_cross_stack_forward_reference(x0, w, bias).double()).abs()
+        scale = dcn_cross_stack_scale(x0, w, bias)
+        worst = (err_el / scale).max().item()
+        err = err_el.max().item()
+        print(f"dcn_cross_stack {label or 'bf16_'}[{BATCH}, {d}], L = {N_CROSS}: max err {err:.6g}, "
+              f"largest share of the element's scale {worst:.3g}, tol {rel}")
+        check(got.shape == x0.shape and got.dtype == dtype and worst <= rel,
+              f"dcn_cross_stack {label or 'bf16 '}within {rel} of each element's scale")
+        if dtype == torch.bfloat16:
+            in_order = dcn_cross_stack_in_kernel_order(x0, w, bias)
+            print(f"dcn_cross_stack bf16: {int((got != in_order).sum())} of {got.numel()} elements differ "
+                  "from the plain version summed in the kernel's order")
+            check(torch.equal(got, in_order), "dcn_cross_stack bf16 bit for bit the plain version "
+                  "summed in the kernel's order")
+            del in_order
+        check(torch.equal(got, dcn_cross_stack_forward(x0, w, bias)), "dcn_cross_stack repeats bit for bit")
+        esize = x0.element_size()
+        b_ms, b_by = bound_ms((2 * x0.numel() + w.numel() + bias.numel()) * esize,
+                              5 * N_CROSS * x0.numel(), PEAK_F32_FLOP_PER_S)
+        dcn.update({
+            f"{label}max_abs_err": err, f"{label}tol": rel, f"{label}max_rel_err": worst,
+            f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+            f"{label}ms": cold_ms(lambda: dcn_cross_stack_forward(x0, w, bias)),
+            f"{label}plain_ms": cold_ms(lambda: dcn_cross_stack_forward_reference(x0, w, bias)),
+            f"{label}library_ms": None,
+            f"{label}warm_ms": device_ms(lambda: dcn_cross_stack_forward(x0, w, bias)),
+            f"{label}event_ms": time_ms(lambda: dcn_cross_stack_forward(x0, w, bias)),
+        })
+        del x0, w, bias, got, err_el, scale
+    report["dcn_cross_stack_forward"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/dcn_cross.cu",
+        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:98",
+        shapes=f"unprefixed keys: x0 [16384, {d}] bf16, w and b [3, {d}]; f32_: the same in f32; tol is "
+               "a share of each element's dcn_cross_stack_scale; ms and plain_ms: cold L2 (cold_ms), "
+               "warm_ms: back-to-back calls by torch.profiler, event_ms: back-to-back calls by CUDA "
+               "events", **dcn,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -441,10 +656,9 @@ def main() -> int:
     from recmodels_tpu_torch.ops.cuda import build
     from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
         cin2_backward, cin2_backward_reference, cin2_forward, cin2_forward_reference,
-        split_fused_rows, split_fused_rows_backward, split_fused_rows_backward_reference,
-        split_fused_rows_reference,
+        dcn_cross_stack_forward, fm_pairwise_forward, split_fused_rows, split_fused_rows_backward,
+        split_fused_rows_backward_reference, split_fused_rows_reference,
     )
-    from recmodels_tpu_torch.serve import export_model, load_predictor
     from recmodels_tpu_torch.train.engine import Engine
     from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
 
@@ -473,13 +687,12 @@ def main() -> int:
     engine = Engine(build_model(cfg.model, schema, **cfg.model_kwargs()))
     batch = next(iter(SyntheticSource(schema, batch_size=BATCH, seed=7)))
     ids = torch.as_tensor(batch.ids, device=dev)
-    dense = torch.as_tensor(batch.dense, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = engine.collections["emb"].groups[0].alloc_rows
     m = schema.n_slots
 
     # -------------------------------------------------------------- kernels
-    print("== kernels (flagship shapes; the slice-3 path's after the first six)")
+    print("== kernels (flagship shapes; the slice-3 paths' after the first six, then slice 4's)")
     report = {}
 
     # 1. gather: 26 x 1e5 ids (2,600,960 rows of 17 f32), batch-order ids
@@ -636,6 +849,7 @@ def main() -> int:
     engine3 = Engine(build_model(cfg3.model, schema, **cfg3.model_kwargs()), dense_lr=1e-3,
                      emb_lr=1e-2, sparse_optimizer="adam", fuse_wide=False)
     slice3_kernels(report, engine3, ids, card, gen)
+    slice4_kernels(report, card, gen)
     for name, r in report.items():
         print(f"{name}: max err {r['max_abs_err']:.6g} (tol {r['tol']:.6g}); "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
@@ -643,16 +857,82 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
         for pre in sorted({k[: -len("plain_ms")] for k in r if k.endswith("plain_ms")} - {""}):
             lib = r[pre + "library_ms"]
-            print(f"{name} {pre[:-1]}: max err {r[pre + 'max_abs_err']:.6g}; kernel {r[pre + 'ms']:.4f} ms, "
+            tol = f" (tol {r[pre + 'tol']:.6g})" if pre + "tol" in r else ""
+            print(f"{name} {pre[:-1]}: max err {r[pre + 'max_abs_err']:.6g}{tol}; kernel {r[pre + 'ms']:.4f} ms, "
                   f"plain {r[pre + 'plain_ms']:.4f} ms, library "
                   f"{'-' if lib is None else format(lib, '.4f') + ' ms'}, bound "
                   f"{r[pre + 'bound_ms']:.4f} ms ({r[pre + 'bound_by']}) on {card}")
 
     # -------------------------------------------------------------- serving
-    print("== serving (full-width bf16 xDeepFM)")
+    serving_phase("full-width bf16 xDeepFM", cfg, engine, (gather_rows, split_fused_rows, cin2_forward),
+                  term_sizes, batch.dense, batch.ids, card, gen)
+    launches = training_phase(
+        "full-width bf16 xDeepFM, Adam 1e-3 + sparse Adagrad 1e-2", engine, schema, BATCH,
+        (gather_rows, split_fused_rows, cin2_forward, sorted_adagrad_update, split_fused_rows_backward,
+         cin2_backward), 11, card, gen)
+    launches3 = training3_phase(engine3, schema, card, gen)
+    adam_dense_check(engine3, ids, card, gen)
+    paths = {"slice2": launches, "slice3": launches3}
+
+    # ------------------------------------------------------------- slice 4
+    slice4 = (
+        ("deepfm", f"full-width bf16 DeepFM, DNN{DEEPFM_HIDDEN}", BATCH, True,
+         dict(hidden=DEEPFM_HIDDEN), fm_pairwise_forward, fm_term_sizes, 17, 3.0),
+        ("dcn", f"full-width bf16 DCN, {N_CROSS} cross layers over 429, DNN{DCN_HIDDEN}", BATCH, True,
+         dict(hidden=DCN_HIDDEN, n_cross=N_CROSS), dcn_cross_stack_forward, cross_term_sizes, 19, 10.0),
+        ("fm", "full-width f32 FM", FM_BATCH, False, {}, fm_pairwise_forward, fm_term_sizes, 23, 3.0),
+    )
+    for model, title, n, bf16, kw, kernel, terms, seed, rows_scale in slice4:
+        cfg4 = TrainConfig(model=model, bf16=bf16, vocab_size=VOCAB, embed_dim=DIM, batch_size=n,
+                           seed=SEED, **kw)
+        engine4 = Engine(build_model(model, schema, **cfg4.model_kwargs()))
+        serving_phase(title, cfg4, engine4, (gather_rows, kernel), terms, batch.dense[:n], batch.ids[:n],
+                      card, gen, rows_scale)
+        paths[model] = training_phase(f"{title}, Adam 1e-3 + sparse Adagrad 1e-2", engine4, schema, n,
+                                      (gather_rows, kernel, sorted_adagrad_update), seed, card, gen,
+                                      rows_scale)
+
+    # each kernel's launches come from the first path in this order that
+    # runs it (slice 2's for the six kernels of the xDeepFM step, DeepFM's
+    # for fm_pairwise_forward, DCN's for dcn_cross_stack_forward); every
+    # path's count is listed beside them
+    main_keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")
+    kernel_rows = []
+    for name, r in report.items():
+        path = next((p for p in paths if paths[p].get(name, 0) > 0), None)
+        check(path is not None, f"{name} launched on a training path")
+        kernel_rows.append(
+            {"name": name, **{k: r[k] for k in main_keys[:3]}, "launches": paths[path][name],
+             **{k: r[k] for k in main_keys[3:]}, "launches_from": path,
+             **{f"launches_{p}": c.get(name, 0) for p, c in paths.items()},
+             **{k: v for k, v in r.items() if k not in main_keys and k != "tol"}})
+    print(json.dumps({"kernels": kernel_rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def serving_phase(title: str, cfg, engine, kernels, terms, dense_np, ids_np, card: str,
+                  gen: torch.Generator, rows_scale: float = 10.0) -> dict[str, int]:
+    """Serve ``cfg``'s model, initialised from SEED and made live, from an
+    exported artifact loaded with load_predictor(device="cuda"): requests of
+    1, 1,000 and the whole batch. Every kernel in ``kernels`` must launch,
+    the logits must be finite, agree across request sizes and match the same
+    artifact served on the CPU at 1,024 examples; each term that
+    ``terms(cpu_predictor, dense, ids)`` reports must move some logit by
+    TERM_MIN_TOLS logit tolerances. Prints the throughput at the batch and a
+    profile; returns the launches over the three requests."""
+    from recmodels_tpu_torch.serve import export_model, load_predictor
+
+    print(f"== serving ({title})")
+    dev = torch.device("cuda")
+    n = ids_np.shape[0]
+    dense = torch.as_tensor(dense_np, device=dev)
+    ids = torch.as_tensor(ids_np, device=dev)
     state = engine.init(seed=SEED, device=dev)
-    liven(state, gen)
-    kernels = (gather_rows, split_fused_rows, cin2_forward)
+    liven(state, gen, rows_scale)
     with tempfile.TemporaryDirectory() as art:
         export_model(art, cfg, engine, state)
         del state
@@ -660,8 +940,8 @@ def main() -> int:
         for k in kernels:
             k.launches = 0
         answers = {}
-        for size in (1, 1000, BATCH):
-            answers[size] = pred.predict_logits(batch.dense[:size], batch.ids[:size])
+        for size in (1, 1000, n):
+            answers[size] = pred.predict_logits(dense_np[:size], ids_np[:size])
             check(answers[size].shape == (size,) and bool(np.all(np.isfinite(answers[size]))),
                   f"{size} finite logits")
         launches = {k.__name__: k.launches for k in kernels}
@@ -669,16 +949,16 @@ def main() -> int:
         for name, count in launches.items():
             check(count > 0, f"{name} launched on the serving path")
         for size in (1, 1000):
-            err, scale = rel_err(torch.as_tensor(answers[size]), torch.as_tensor(answers[BATCH][:size]))
-            check(err <= LOGIT_REL_TOL * scale, f"request of {size} agrees with the batch of {BATCH}")
+            err, scale = rel_err(torch.as_tensor(answers[size]), torch.as_tensor(answers[n][:size]))
+            check(err <= LOGIT_REL_TOL * scale, f"request of {size} agrees with the batch of {n}")
         cpu_pred = load_predictor(art, device="cpu")
-        cpu = cpu_pred.predict_logits(batch.dense[:1024], batch.ids[:1024])
-        err, scale = rel_err(torch.as_tensor(answers[BATCH][:1024]), torch.as_tensor(cpu))
+        cpu = cpu_pred.predict_logits(dense_np[:1024], ids_np[:1024])
+        err, scale = rel_err(torch.as_tensor(answers[n][:1024]), torch.as_tensor(cpu))
         tol = LOGIT_REL_TOL * scale
         print(f"GPU vs CPU logits (1,024 requests): max err {err:.6g}, max |ref| {scale:.6g}, "
               f"tol {tol:.6g}")
         check(err <= tol, "GPU logits match the CPU plain path")
-        for name, size in term_sizes(cpu_pred, batch.ids[:1024]).items():
+        for name, size in terms(cpu_pred, dense_np[:1024], ids_np[:1024]).items():
             print(f"term {name}: max |contribution| {size:.6g} = {size / tol:.1f} x the logit tol")
             check(size >= TERM_MIN_TOLS * tol, f"{name} moves the logits by >= {TERM_MIN_TOLS} tols")
         del cpu_pred
@@ -688,54 +968,31 @@ def main() -> int:
         t_host = []
         for _ in range(5):
             t0 = time.perf_counter()
-            pred.predict_logits(batch.dense, batch.ids)
+            pred.predict_logits(dense_np, ids_np)
             t_host.append(time.perf_counter() - t0)
         predict_ms = float(np.median(t_host)) * 1e3
-        print(f"Engine.logits at {BATCH}: {logits_ms:.4f} ms device time, "
-              f"{BATCH / logits_ms * 1e3:.0f} examples/s on {card}")
-        print(f"predict_logits at {BATCH} (numpy in and out): {predict_ms:.4f} ms median of 5, "
-              f"{BATCH / predict_ms * 1e3:.0f} examples/s on {card}")
+        print(f"Engine.logits at {n} ({title}): {logits_ms:.4f} ms device time, "
+              f"{n / logits_ms * 1e3:.0f} examples/s on {card}")
+        print(f"predict_logits at {n} (numpy in and out): {predict_ms:.4f} ms median of 5, "
+              f"{n / predict_ms * 1e3:.0f} examples/s on {card}")
         with torch.inference_mode():
             profile(lambda: pred.engine.logits(pred.state, dense, ids))
-
-    del pred
-    launches = training_phase(engine, schema, card, gen)
-    launches3 = training3_phase(engine3, schema, card, gen)
-    adam_dense_check(engine3, ids, card, gen)
-
-    main_keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")
-    kernel_rows = [
-        {"name": name, **{k: r[k] for k in main_keys[:3]},
-         "launches": launches[name] if name in launches else launches3[name],
-         **{k: r[k] for k in main_keys[3:]},
-         "launches_slice3": launches3.get(name, 0),
-         **{k: v for k, v in r.items() if k not in main_keys and k != "tol"}}
-        for name, r in report.items()
-    ]
-    print(json.dumps({"kernels": kernel_rows}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
-    return 0
+    return launches
 
 
-def training_phase(engine, schema, card: str, gen: torch.Generator) -> dict[str, int]:
-    """Train full-width bf16 xDeepFM on the card; returns each kernel's
-    launches over the TRAIN_STEPS steps (the counts are set to 0 just
-    before them and read just after)."""
+def training_phase(title: str, engine, schema, batch_size: int, kernels, seed: int, card: str,
+                   gen: torch.Generator, rows_scale: float = 10.0) -> dict[str, int]:
+    """Train ``engine``'s model (one table, sparse Adagrad) on the card for
+    TRAIN_STEPS steps of the synthetic stream (``seed``) at ``batch_size``;
+    every kernel in ``kernels`` must launch on every step and the loss must
+    fall; one step from live weights at TRAIN_CHECK_BATCH must match the CPU
+    plain path's step. Returns each kernel's launches over the TRAIN_STEPS
+    steps (the counts are set to 0 just before them and read just after)."""
     from recmodels_tpu_torch.data import SyntheticSource
-    from recmodels_tpu_torch.embedding.gather import gather_rows
-    from recmodels_tpu_torch.embedding.update import sorted_adagrad_update
-    from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
-        cin2_backward, cin2_forward, split_fused_rows, split_fused_rows_backward,
-    )
 
-    print("== training (full-width bf16 xDeepFM, Adam 1e-3 + sparse Adagrad 1e-2)")
+    print(f"== training ({title})")
     dev = torch.device("cuda")
-    kernels = (gather_rows, split_fused_rows, cin2_forward, sorted_adagrad_update,
-               split_fused_rows_backward, cin2_backward)
-    src = iter(SyntheticSource(schema, batch_size=BATCH, seed=11))
+    src = iter(SyntheticSource(schema, batch_size=batch_size, seed=seed))
     batches = []
     for _ in range(TRAIN_STEPS):
         b = next(src)
@@ -763,7 +1020,7 @@ def training_phase(engine, schema, card: str, gen: torch.Generator) -> dict[str,
     check(last < first, "the loss falls over the steps")
 
     # one step from a live state on the card and on the CPU plain path
-    liven(state, gen)
+    liven(state, gen, rows_scale)
     dense, ids, labels = (t[:TRAIN_CHECK_BATCH] for t in batches[0])
     cpu_state = to_device(state, "cpu")
     before = to_device(state, "cpu")
@@ -794,7 +1051,9 @@ def training_phase(engine, schema, card: str, gen: torch.Generator) -> dict[str,
     touched[engine.collections["emb"].group_row_ids(cpu_in[1])[gname].reshape(-1).long()] = True
     # the fused wide column's grads outgrow the embedding columns': each part
     # is held to its own largest change
-    for part, cols in (("embedding columns", slice(0, -1)), ("wide column", slice(-1, None))):
+    parts = ((("embedding columns", slice(0, -1)), ("wide column", slice(-1, None)))
+             if table_b.shape[1] == DIM + 1 else (("all columns", slice(None)),))
+    for part, cols in parts:
         for name, gpu, cpu, b in (("table", gpu_t, cpu_t, table_b), ("acc", gpu_a, cpu_a, acc_b)):
             errs[f"{name}/{part}"] = check_step(f"touched {name} rows, {part}", gpu[touched, cols],
                                                 cpu[touched, cols], b[touched, cols])
@@ -816,14 +1075,15 @@ def training_phase(engine, schema, card: str, gen: torch.Generator) -> dict[str,
         torch.cuda.synchronize()
         t_host.append(time.perf_counter() - t0)
     host_ms = float(np.median(t_host)) * 1e3
-    print(f"Engine.train_step at {BATCH}: {step_ms:.4f} ms per step (CUDA events, 10 back-to-back steps), "
-          f"{BATCH / step_ms * 1e3:.0f} examples/s on {card}")
-    print(f"Engine.train_step at {BATCH} one at a time (host clock to synchronize): {host_ms:.4f} ms "
-          f"median of 5, {BATCH / host_ms * 1e3:.0f} examples/s on {card}")
+    name = engine.model.name
+    print(f"Engine.train_step ({name}) at {batch_size}: {step_ms:.4f} ms per step (CUDA events, 10 "
+          f"back-to-back steps), {batch_size / step_ms * 1e3:.0f} examples/s on {card}")
+    print(f"Engine.train_step ({name}) at {batch_size} one at a time (host clock to synchronize): "
+          f"{host_ms:.4f} ms median of 5, {batch_size / host_ms * 1e3:.0f} examples/s on {card}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     busy = profile(lambda: engine.train_step(state, dense, ids, labels), top=20)
-    print(f"Engine.train_step at {BATCH}: {busy:.4f} ms of kernel time per step (profiler), "
-          f"{BATCH / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
+    print(f"Engine.train_step ({name}) at {batch_size}: {busy:.4f} ms of kernel time per step "
+          f"(profiler), {batch_size / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
     return launches
 
 

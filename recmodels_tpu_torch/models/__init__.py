@@ -1,13 +1,17 @@
 """Model registry (port of ``recmodels_tpu/models/__init__.py``).
 
-xDeepFM is ported; the other eight models of the JAX zoo are registered by
-name and raise until ROADMAP.md's queue 1, item 9 ports them."""
+xDeepFM, FM, DeepFM and DCN are ported; the other five models of the JAX
+zoo are registered by name and raise until ROADMAP.md's queue 1, item 9
+ports them."""
 
 from recmodels_tpu_torch.models.base import CTRModel, wide_schema
+from recmodels_tpu_torch.models.dcn import DCNModel
+from recmodels_tpu_torch.models.deepfm import DeepFMModel
+from recmodels_tpu_torch.models.fm import FMModel
 from recmodels_tpu_torch.models.xdeepfm import XDeepFMModel
 
-MODEL_REGISTRY = {"xdeepfm": XDeepFMModel}
-NOT_PORTED = ("lr", "fm", "deepfm", "pnn", "dcn", "widedeep", "nfm", "afm")
+MODEL_REGISTRY = {"fm": FMModel, "deepfm": DeepFMModel, "dcn": DCNModel, "xdeepfm": XDeepFMModel}
+NOT_PORTED = ("lr", "pnn", "widedeep", "nfm", "afm")
 
 
 def build_model(name: str, schema, **kwargs) -> CTRModel:
@@ -20,4 +24,5 @@ def build_model(name: str, schema, **kwargs) -> CTRModel:
     return MODEL_REGISTRY[name](schema, **kwargs)
 
 
-__all__ = ["CTRModel", "wide_schema", "XDeepFMModel", "MODEL_REGISTRY", "build_model"]
+__all__ = ["CTRModel", "wide_schema", "FMModel", "DeepFMModel", "DCNModel", "XDeepFMModel",
+           "MODEL_REGISTRY", "build_model"]

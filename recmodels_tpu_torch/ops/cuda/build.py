@@ -58,6 +58,10 @@ _SIGNATURES = {
     "rm_cin_layer_backward": [_I] + [_P] * 8 + [_L, _I, _I, _I, _P],
     # device, x, out, batch, a, b, elem_bytes, stream
     "rm_transpose_minor2": [_I, _P, _P, _L, _I, _I, _I, _P],
+    # device, emb, out, b, f, d, stride_b, stride_f, is_bf16, stream
+    "rm_fm_pairwise": [_I, _P, _P, _I, _I, _I, _L, _L, _I, _P],
+    # device, x0, w, bias, out, b, d, n_layers, is_bf16, stream
+    "rm_dcn_cross_stack": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 # functions that return something other than a CUDA error code
 _RESTYPES = {

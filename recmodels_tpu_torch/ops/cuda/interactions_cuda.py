@@ -1,4 +1,5 @@
-"""CUDA kernels for the xDeepFM forward and backward, and their plain PyTorch
+"""CUDA kernels for the interaction ops (xDeepFM's fanout and CIN, the FM
+term, the DCN cross stack), forward and backward, and their plain PyTorch
 versions.
 
 Counterpart of ``recmodels_tpu/ops/pallas/interactions_tpu.py``:
@@ -14,7 +15,13 @@ Counterpart of ``recmodels_tpu/ops/pallas/interactions_tpu.py``:
   ``cin_layer_backward`` -> ``csrc/cin_layer_bwd.cu`` (``_cin_bwd_pallas``),
   joined by ``CinLayer2d``: every other CIN, one layer at a time;
 * ``transpose_minor2`` -> ``csrc/transpose.cu`` (``_transpose_minor2``),
-  its own backward in ``TransposeMinor2``.
+  its own backward in ``TransposeMinor2``;
+* ``fm_pairwise_forward`` -> ``csrc/fm_pairwise.cu`` (``_fm_forward``) and
+  ``dcn_cross_stack_forward`` -> ``csrc/dcn_cross.cu`` (``_dcn_forward``),
+  joined to their backwards by ``FmPairwise`` and ``DcnCrossStack``. The
+  JAX package has no Pallas backward for either: both backwards are its
+  custom VJPs (``_fm_bwd``, ``_dcn_bwd``) in plain PyTorch ops, on the card
+  too.
 
 Each entry point chooses by the device of the tensor it is given: a CPU
 tensor takes the plain version, a CUDA tensor launches the kernel or raises.
@@ -540,3 +547,193 @@ def cin_layer(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor) -> torch.Tens
     x02 = transpose_minor2_op(x0).reshape(b * d, m)
     out2 = cin_layer_2d(xk2, x02, interactions.flatten_cin_w(w))
     return transpose_minor2_op(out2.reshape(b, d, w.shape[0]))
+
+
+# ------------------------------------------------------------ FM pairwise
+fm_pairwise_forward_reference = interactions.fm_pairwise
+
+
+def fm_pairwise_forward(emb: torch.Tensor) -> torch.Tensor:
+    """The FM second-order term: emb [B, F, D] (bf16 or f32) -> [B] in emb's
+    dtype, the plain version's function and rounding points. On CUDA emb
+    may be any view with unit stride along D (the engine's ``full[..., :D]``
+    of gathered fused rows goes in as it is); the kernel takes its strides."""
+    if emb.device.type == "cpu":
+        return fm_pairwise_forward_reference(emb)
+    dev_t = cuda_device(emb, "fm_pairwise")
+    if emb.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"fm_pairwise emb: dtype {emb.dtype}, expected one of {FLOAT_DTYPES}")
+    if emb.dim() != 3:
+        raise ValueError(f"fm_pairwise emb: shape {tuple(emb.shape)}, expected 3 dimensions")
+    b, f, d = emb.shape
+    if d > 1 and emb.stride(2) != 1:
+        raise ValueError(f"fm_pairwise emb: strides {emb.stride()}, the kernel needs unit stride along D")
+    out = torch.empty((b,), dtype=emb.dtype, device=dev_t)
+    dev, stream = device_and_stream(dev_t)
+    err = build.library().rm_fm_pairwise(
+        dev, emb.data_ptr(), out.data_ptr(), b, f, d, emb.stride(0), emb.stride(1),
+        int(emb.dtype == torch.bfloat16), stream,
+    )
+    build.check(err, "fm_pairwise")
+    fm_pairwise_forward.launches += 1
+    return out
+
+
+fm_pairwise_forward.launches = 0  # kernel launches since the count was last set to 0
+
+
+def fm_pairwise_backward(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_fm_bwd``: d/de_fd = (s_d - e_fd) * g with s = sum_f e_f
+    (rounded to emb's dtype like the forward's s): [B, F, D] in emb's dtype."""
+    s = emb.float().sum(dim=1, keepdim=True).to(emb.dtype)
+    return (s - emb) * g.to(emb.dtype)[:, None, None]
+
+
+class FmPairwise(torch.autograd.Function):
+    """``fm_pairwise_forward`` with JAX's custom VJP (``interactions_tpu.py``
+    69-84): the forward saves emb, the backward is ``fm_pairwise_backward``."""
+
+    @staticmethod
+    def forward(ctx, emb: torch.Tensor):
+        ctx.save_for_backward(emb)
+        return fm_pairwise_forward(emb)
+
+    @staticmethod
+    def backward(ctx, g):
+        (emb,) = ctx.saved_tensors
+        return fm_pairwise_backward(emb, g)
+
+
+def fm_pairwise_op(emb: torch.Tensor) -> torch.Tensor:
+    """The FM term as the models call it: through ``FmPairwise`` when grads
+    are wanted, else the forward alone."""
+    if torch.is_grad_enabled() and emb.requires_grad:
+        return FmPairwise.apply(emb)
+    return fm_pairwise_forward(emb)
+
+
+# -------------------------------------------------------- DCN cross stack
+dcn_cross_stack_forward_reference = interactions.dcn_cross_stack
+
+DCN_MAX_D = 1024  # a lane holds at most 32 of a row's values in registers
+DCN_SMEM_BYTES = 48 * 1024  # w and b of every layer sit in shared memory
+
+
+def dcn_cross_stack_forward(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All L cross layers in one launch: x0 [B, d], w, b [L, d] (one dtype,
+    bf16 or f32) -> x_L [B, d], the plain version's function and rounding
+    points. Any B; on CUDA, d <= ``DCN_MAX_D`` and w and b together within
+    ``DCN_SMEM_BYTES`` (at DCN's d = 429: L <= 28 in bf16, 14 in f32)."""
+    if x0.device.type == "cpu":
+        return dcn_cross_stack_forward_reference(x0, w, b)
+    dev_t = cuda_device(x0, "dcn_cross_stack")
+    for what, t in (("x0", x0), ("w", w), ("b", b)):
+        require(f"dcn_cross_stack {what}", t, FLOAT_DTYPES, 2, dev_t, align=t.element_size())
+        if t.dtype != x0.dtype:
+            raise TypeError(f"dcn_cross_stack: {what} is {t.dtype}, x0 is {x0.dtype}")
+    bsz, d = x0.shape
+    n_layers = w.shape[0]
+    if w.shape[1] != d or b.shape != w.shape:
+        raise ValueError(f"dcn_cross_stack: x0 {tuple(x0.shape)}, w {tuple(w.shape)} and "
+                         f"b {tuple(b.shape)} do not fit together")
+    wb_bytes = 2 * n_layers * d * x0.element_size()
+    if d > DCN_MAX_D or wb_bytes > DCN_SMEM_BYTES:
+        raise ValueError(f"dcn_cross_stack kernel: d={d} and L={n_layers} in {x0.dtype}; it takes "
+                         f"d <= {DCN_MAX_D} and w and b within {DCN_SMEM_BYTES} bytes (these take "
+                         f"{wb_bytes})")
+    out = torch.empty_like(x0)
+    dev, stream = device_and_stream(dev_t)
+    err = build.library().rm_dcn_cross_stack(
+        dev, x0.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, d, n_layers,
+        int(x0.dtype == torch.bfloat16), stream,
+    )
+    build.check(err, "dcn_cross_stack")
+    dcn_cross_stack_forward.launches += 1
+    return out
+
+
+dcn_cross_stack_forward.launches = 0  # kernel launches since the count was last set to 0
+
+
+def dcn_cross_stack_scale(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per element of x_L, the size of what the layers added into it:
+    ``|x0| * (1 + sum_l |t_l|) + sum_l |b_l|`` [B, d] f64, t_l from the
+    plain chain. The checks hold the kernel to a share of it element by
+    element: a t that rounds one step apart moves x0 * t by a step of t, and
+    the next layer's t by that times x0 . w, while x_L itself may cancel or
+    be one of the heavy-tailed products (1 + t_0)(1 + t_1)..."""
+    xl, t_sum = x0, torch.zeros(x0.shape[0], dtype=torch.float64, device=x0.device)
+    for layer in range(w.shape[0]):
+        t_sum += (xl.float() @ w[layer].float()).to(x0.dtype).double().abs()
+        xl = interactions.dcn_cross_layer(x0, xl, w[layer], b[layer])
+    return x0.double().abs() * (1 + t_sum)[:, None] + b.double().abs().sum(0)[None, :]
+
+
+def dcn_cross_stack_in_kernel_order(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version with each t = x_l . w_l summed as the kernel sums
+    it: lane j adds the products of columns j, j + 32, ... in turn, then the
+    warp adds its 32 partial sums by xor halving (16, 8, 4, 2, 1). In bf16 the
+    products are exact in f32, so this is the kernel's result bit for bit; in
+    f32 it rounds each product where the kernel's fmaf does not. For checks."""
+    bsz, d = x0.shape
+    pad = -d % 32
+    lanes = torch.arange(32, device=x0.device)
+    xl = x0
+    for layer in range(w.shape[0]):
+        prods = (torch.nn.functional.pad(xl.float(), (0, pad))
+                 * torch.nn.functional.pad(w[layer].float(), (0, pad))).reshape(bsz, -1, 32)
+        acc = torch.zeros((bsz, 32), device=x0.device)
+        for k in range(prods.shape[1]):
+            acc = acc + prods[:, k]
+        for o in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, lanes ^ o]
+        t = acc[:, 0].to(x0.dtype)
+        xl = x0 * t[:, None] + b[layer][None, :] + xl
+    return xl
+
+
+def dcn_cross_stack_backward(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor, g: torch.Tensor):
+    """JAX's ``_dcn_bwd``: recompute the chain x_0 .. x_{L-1} with the plain
+    layer, then walk it back. (gx0, gw, gb) in the inputs' dtypes; in bf16
+    every sum adds in f32 and rounds once, as JAX's ``jnp.sum`` and
+    ``einsum`` do."""
+    dt = x0.dtype
+    xs = [x0]
+    for layer in range(w.shape[0] - 1):
+        xs.append(interactions.dcn_cross_layer(x0, xs[-1], w[layer], b[layer]))
+    gx0 = torch.zeros_like(x0)
+    gw = torch.zeros_like(w)
+    gb = torch.zeros_like(b)
+    gxl = g.to(dt)
+    for layer in range(w.shape[0] - 1, -1, -1):
+        xl_in, wl = xs[layer], w[layer]
+        t = (xl_in.float() @ wl.float()).to(dt)
+        gb[layer] = gxl.float().sum(dim=0).to(dt)
+        gt = (gxl * x0).float().sum(dim=1).to(dt)
+        gx0 = gx0 + gxl * t[:, None]
+        gw[layer] = (gt.float() @ xl_in.float()).to(dt)
+        gxl = gxl + gt[:, None] * wl[None, :]
+    return gx0 + gxl, gw, gb
+
+
+class DcnCrossStack(torch.autograd.Function):
+    """``dcn_cross_stack_forward`` with JAX's custom VJP
+    (``interactions_tpu.py`` 125-161): the forward saves x0, w and b, the
+    backward is ``dcn_cross_stack_backward``."""
+
+    @staticmethod
+    def forward(ctx, x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+        ctx.save_for_backward(x0, w, b)
+        return dcn_cross_stack_forward(x0, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return dcn_cross_stack_backward(*ctx.saved_tensors, g)
+
+
+def dcn_cross_stack_op(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The cross stack as the models call it: through ``DcnCrossStack``
+    when grads are wanted, else the forward alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x0, w, b)):
+        return DcnCrossStack.apply(x0, w, b)
+    return dcn_cross_stack_forward(x0, w, b)

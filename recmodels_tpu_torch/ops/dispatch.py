@@ -5,12 +5,17 @@ the device of the tensors it is called with, and by nothing else: no
 environment switch and no backend probe. A CPU tensor takes the plain
 version; a CUDA tensor launches the kernels (or raises on what they do not
 take); the plain version never stands in for a kernel on the card.
+
+``dcn_cross_layer`` has a kernel in neither package (the JAX package's
+single-layer entry returns its reference): it is the plain op on every
+device.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+from recmodels_tpu_torch.ops import interactions
 from recmodels_tpu_torch.ops.cuda import interactions_cuda
 
 _KERNELS: Dict[str, Callable] = {
@@ -20,6 +25,9 @@ _KERNELS: Dict[str, Callable] = {
     "cin_stack_flat": interactions_cuda.cin_stack_flat,
     "cin_stack_dm_flat": interactions_cuda.cin_stack_dm_flat,
     "split_fused_rows": interactions_cuda.split_fused_rows_op,
+    "fm_pairwise": interactions_cuda.fm_pairwise_op,
+    "dcn_cross_stack": interactions_cuda.dcn_cross_stack_op,
+    "dcn_cross_layer": interactions.dcn_cross_layer,
 }
 
 

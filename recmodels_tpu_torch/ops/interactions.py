@@ -1,5 +1,6 @@
 """Feature-interaction ops: plain PyTorch versions of
-``recmodels_tpu/ops/interactions.py`` for the xDeepFM serving slice.
+``recmodels_tpu/ops/interactions.py`` (the CIN ops, the fused-row fanout,
+the FM second-order term and the DCN cross layers).
 
 Same layouts as the JAX package: fields ``[B, m, D]`` (or D-major
 ``[B, D, m]``), CIN weights either 3-D ``[H_next, H_k, m]`` or flat
@@ -68,3 +69,40 @@ def split_fused_rows(full: torch.Tensor, emb_dim: int):
     x_dm = full[..., :emb_dim].transpose(1, 2).contiguous()
     wide_sum = full[..., emb_dim].float().sum(dim=1)
     return x_dm, wide_sum
+
+
+def fm_pairwise(emb: torch.Tensor) -> torch.Tensor:
+    """FM second-order term by the sum-square identity (Rendle 2010): emb
+    [B, F, D] -> ``0.5 * (sum_d s_d^2 - sum_{f,d} e_fd^2)`` [B] in emb's
+    dtype, s_d = sum_f e_fd.
+
+    The JAX reference's rounding points, for bf16 input: each of the three
+    sums (s, sum e^2, sum s^2) adds in f32 and rounds once to bf16
+    (``jnp.sum`` upcasts); the squares ``e*e`` and ``s*s`` round
+    elementwise; the difference rounds, and the halving is exact. In f32
+    nothing rounds between the steps."""
+    dt = emb.dtype
+    s = emb.float().sum(dim=1).to(dt)
+    sq = (emb * emb).float().sum(dim=(1, 2)).to(dt)
+    ss = (s * s).float().sum(dim=1).to(dt)
+    return 0.5 * (ss - sq)
+
+
+def dcn_cross_layer(x0: torch.Tensor, xl: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """One DCN cross layer (arXiv:1708.05123): x0, xl [B, d], w, b [d] ->
+    ``x0 * (xl . w) + b + xl`` [B, d].
+
+    The JAX reference's rounding points, for bf16 input: t = xl . w is the
+    f32 sum of exact products, rounded once (``einsum("bd,d->b")``); then
+    ``x0 * t``, ``+ b`` and ``+ xl`` each round."""
+    t = (xl.float() @ w.float()).to(xl.dtype)
+    return x0 * t[:, None] + b[None, :] + xl
+
+
+def dcn_cross_stack(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All L cross layers: x0 [B, d], w [L, d], b [L, d] -> x_L [B, d]."""
+    xl = x0
+    for layer in range(w.shape[0]):
+        xl = dcn_cross_layer(x0, xl, w[layer], b[layer])
+    return xl

@@ -61,9 +61,11 @@ def export_model(out_dir: str, cfg: TrainConfig, engine: Engine, state: TrainSta
 def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
                     emb_tables: Mapping[str, np.ndarray], device="cuda") -> TrainState:
     """The port's parameters from the JAX package's, as numpy arrays:
-    ``dense_leaves`` in JAX's flatten order (for xDeepFM: bias, cin_w/0,
-    cin_w/1, mlp/i/b, mlp/i/w, w_cin, w_dense) and ``emb_tables`` keyed
-    ``emb/<collection>/<group>``, canonical 2-D f32 (``params.npz``'s keys).
+    ``dense_leaves`` in JAX's flatten order (dict keys sorted, lists in
+    order: the order of ``utils.tree.leaves`` over the model's
+    ``init_dense``; for DCN: bias, cross/b, cross/w, mlp/i/b, mlp/i/w,
+    w_out) and ``emb_tables`` keyed ``emb/<collection>/<group>``, canonical
+    2-D f32 (``params.npz``'s keys).
 
     Raises ``ValueError`` unless the leaf count and every shape match this
     engine's model."""

@@ -328,3 +328,123 @@ def test_cin_layer_function_on_the_card(cuda, hk, kernel):
     for got, want in zip(*grads):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= 0.03 * want.float().abs().max().item()  # the repo's bf16 rule
+
+
+def _fm_scale(emb: torch.Tensor) -> torch.Tensor:
+    """Per example ||sum_f e_f||^2 + sum_f ||e_f||^2: the FM term is their
+    halved difference, which cancels, so errors are held to this sum."""
+    e = emb.double()
+    return (e.sum(1) ** 2).sum(1) + (e ** 2).sum((1, 2))
+
+
+@pytest.mark.parametrize("b,f,d,view", [
+    (1, 26, 16, True),       # the engine's stride-17 view, one example
+    (97, 26, 16, True),      # ragged B on the view
+    (300, 26, 16, False),    # packed; half a warp an example
+    (33, 5, 40, False),      # D > 32: a lane takes two columns
+    (50, 3, 5, True),        # groups of 8 lanes
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fm_pairwise_kernel(cuda, b, f, d, view, dtype):
+    """Against the plain version on the card, per example to a share of
+    ||sum e||^2 + sum ||e||^2 (the term cancels): the same rounding points,
+    sums in another order; bf16 1% (a rounding one step apart moves s_d^2 by
+    2^-8 of itself), f32 1e-5."""
+    full = torch.randn((b, f, d + 1), generator=_gen(cuda, 14), device=cuda).to(dtype)
+    emb = full[..., :d] if view else full[..., :d].contiguous()
+    assert emb.is_contiguous() != view
+    before = K.fm_pairwise_forward.launches
+    got = K.fm_pairwise_forward(emb)
+    torch.cuda.synchronize()
+    assert K.fm_pairwise_forward.launches == before + 1
+    want = K.fm_pairwise_forward_reference(emb.contiguous())
+    assert got.shape == (b,) and got.dtype == dtype
+    tol = (BF16_REL_TOL if dtype == torch.bfloat16 else 1e-5) * _fm_scale(emb)
+    assert torch.all((got.double() - want.double()).abs() <= tol)
+
+
+def test_fm_pairwise_kernel_refuses_a_view_without_unit_stride(cuda):
+    x = torch.randn((4, 16, 26), device=cuda).transpose(1, 2)  # [4, 26, 16], D stride 26
+    with pytest.raises(ValueError, match="unit stride along D"):
+        K.fm_pairwise_forward(x)
+
+
+@pytest.mark.parametrize("b,d,n_layers", [
+    (1, 429, 3),      # DCN's width, odd: bf16 rows 858 bytes apart
+    (97, 429, 3),     # ragged B
+    (300, 5, 2),
+    (33, 1024, 6),    # the largest d; in f32 w and b fill the 48 KB exactly
+    (20, 429, 0),     # no layers: x0
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dcn_cross_kernel(cuda, b, d, n_layers, dtype):
+    """Against the plain version on the card, element by element to a share
+    of ``dcn_cross_stack_scale``: the same rounding points and t summed in
+    another order; bf16 2^-5 (a t one step apart moves x0 * t by 2^-8 of t
+    and the next t by that times x0 . w), f32 1e-5. In bf16 also bit for bit
+    the plain version summed in the kernel's order."""
+    g = _gen(cuda, 15)
+    x0 = torch.randn((b, d), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((n_layers, d), generator=g, device=cuda) / d ** 0.5).to(dtype)
+    bias = (torch.randn((n_layers, d), generator=g, device=cuda) * 0.1).to(dtype)
+    before = K.dcn_cross_stack_forward.launches
+    got = K.dcn_cross_stack_forward(x0, w, bias)
+    torch.cuda.synchronize()
+    assert K.dcn_cross_stack_forward.launches == before + 1
+    want = K.dcn_cross_stack_forward_reference(x0, w, bias)
+    assert got.shape == (b, d) and got.dtype == dtype
+    if n_layers == 0:
+        assert torch.equal(got, x0)
+        return
+    rel = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-5
+    assert torch.all((got.double() - want.double()).abs() <= rel * K.dcn_cross_stack_scale(x0, w, bias))
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, K.dcn_cross_stack_in_kernel_order(x0, w, bias))
+    assert torch.equal(got, K.dcn_cross_stack_forward(x0, w, bias))  # no atomics: runs repeat
+
+
+@pytest.mark.parametrize("d,n_layers,dtype", [
+    (1025, 1, torch.bfloat16),   # a row past 32 values a lane
+    (1000, 7, torch.float32),    # w and b past 48 KB of shared memory
+])
+def test_dcn_cross_kernel_refuses_shapes_past_its_limits(cuda, d, n_layers, dtype):
+    x0 = torch.zeros((4, d), device=cuda, dtype=dtype)
+    w = torch.zeros((n_layers, d), device=cuda, dtype=dtype)
+    before = K.dcn_cross_stack_forward.launches
+    with pytest.raises(ValueError, match="it takes d <= 1024 and w and b within 49152 bytes"):
+        K.dcn_cross_stack_forward(x0, w, w)
+    assert K.dcn_cross_stack_forward.launches == before
+
+
+def test_fm_and_dcn_functions_on_the_card(cuda):
+    """``FmPairwise`` on the stride-17 view and ``DcnCrossStack`` at d = 429,
+    bf16: forward kernel plus the plain backward, against autograd through
+    the plain forward on the card, by the repo's bf16 rule (3% of the
+    largest grad)."""
+    g = _gen(cuda, 16)
+    full = torch.randn((256, 26, 17), generator=g, device=cuda).to(torch.bfloat16)
+    cot = torch.randn((256,), generator=g, device=cuda).to(torch.bfloat16)
+    grads = []
+    for fn in (K.fm_pairwise_op, K.fm_pairwise_forward_reference):
+        x = full.clone().requires_grad_(True)
+        before = K.fm_pairwise_forward.launches
+        out = fn(x[..., :16])
+        assert K.fm_pairwise_forward.launches == before + int(fn is K.fm_pairwise_op)
+        grads.append(torch.autograd.grad((out.float() * cot.float()).sum(), x)[0])
+    assert torch.all(grads[0][..., 16] == 0)
+    err = (grads[0].float() - grads[1].float()).abs().max().item()
+    assert err <= 0.03 * grads[1].float().abs().max().item()
+    x0 = torch.randn((256, 429), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((3, 429), generator=g, device=cuda) / 429 ** 0.5).to(torch.bfloat16)
+    bias = (torch.randn((3, 429), generator=g, device=cuda) * 0.1).to(torch.bfloat16)
+    cot = torch.randn((256, 429), generator=g, device=cuda).to(torch.bfloat16)
+    grads = []
+    for fn in (K.dcn_cross_stack_op, K.dcn_cross_stack_forward_reference):
+        ins = [t.clone().requires_grad_(True) for t in (x0, w, bias)]
+        before = K.dcn_cross_stack_forward.launches
+        out = fn(*ins)
+        assert K.dcn_cross_stack_forward.launches == before + int(fn is K.dcn_cross_stack_op)
+        grads.append(torch.autograd.grad((out.float() * cot.float()).sum(), ins))
+    for got, want in zip(*grads):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 0.03 * want.float().abs().max().item()

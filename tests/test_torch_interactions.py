@@ -482,3 +482,182 @@ def test_three_layer_cin_matches_jax(monkeypatch, op, dtype):
     for got, want in zip(tgrads, jgrads):
         assert got.dtype == ins[0].dtype
         _max_err_within(_np(got), want.astype(jnp.float32), frac)
+
+
+# ---------------------------------------------------------------- FM term
+def _fm_inputs(b, f, d, dtype, seed, packed=True):
+    """emb [B, F, D] as JAX and torch arrays of the same values; unless
+    ``packed``, the torch side is the engine's view ``full[..., :D]`` of
+    fused rows [B, F, D+1] (field rows D+1 apart)."""
+    rng = np.random.default_rng(seed)
+    full = rng.normal(size=(b, f, d + 1)).astype(np.float32)
+    (jfull,), (tfull,) = _both([full], dtype)
+    return jfull[..., :d], (tfull[..., :d].contiguous() if packed else tfull[..., :d])
+
+
+def _fm_scale(emb: np.ndarray) -> np.ndarray:
+    """Per example ||sum_f e_f||^2 + sum_f ||e_f||^2: the FM term is their
+    halved difference, which cancels, so errors are held to this sum."""
+    e = np.asarray(emb, np.float64)
+    return (e.sum(1) ** 2).sum(1) + (e ** 2).sum((1, 2))
+
+
+@pytest.mark.parametrize("b", [512, 97], ids=["tiled", "ragged"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fm_pairwise_matches_jax(monkeypatch, b, dtype):
+    """The port's plain version (and the CPU entry, on the strided view)
+    against JAX's reference and JAX's Pallas kernel in interpret mode (B =
+    512 takes the kernel's tile, 97 its ragged fallback). Per example, to a
+    share of ||sum e||^2 + sum ||e||^2: f32 1e-5 (sums of 26 values in
+    another order); bf16 1%: the same rounding points, but XLA may keep f32
+    between fused bf16 steps, and one side keeping s_d unrounded moves s_d^2
+    by 2^-8 of itself, each other rounding (s*s, the two sums, the
+    difference) by 2^-9 of the scale, 0.98% in all at worst."""
+    monkeypatch.setattr(JT, "_INTERPRET", True)
+    jemb, temb = _fm_inputs(b, 26, 16, dtype, seed=30, packed=False)
+    tol = (1e-5 if dtype == "f32" else 1e-2) * _fm_scale(_np(temb))
+    got = T.fm_pairwise(temb.contiguous())
+    assert got.dtype == temb.dtype and got.shape == (b,)
+    before = K.fm_pairwise_forward.launches
+    assert torch.equal(get_op("fm_pairwise")(temb), got)  # the view, by the CPU entry
+    assert K.fm_pairwise_forward.launches == before
+    for want in (J.fm_pairwise(jemb), JT.fm_pairwise(jemb)):
+        err = np.abs(_np(got) - np.asarray(want.astype(jnp.float32)))
+        assert np.all(err <= tol), (err.max(), tol.min())
+
+
+@pytest.mark.parametrize("b", [512, 97], ids=["tiled", "ragged"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fm_pairwise_grad_matches_jax_vjp(monkeypatch, b, dtype):
+    """``FmPairwise`` on the strided view (the engine's input) against
+    jax.vjp of JAX's kernel entry (its custom VJP, ``_fm_bwd``) and of its
+    reference (autodiff): f32 to 1e-5 of the largest grad (the same
+    formula, 26-term sums in another order); bf16 by the repo's rule, 3%:
+    autodiff of the reference rounds at other points than ``_fm_bwd``."""
+    monkeypatch.setattr(JT, "_INTERPRET", True)
+    jemb, temb = _fm_inputs(b, 26, 16, dtype, seed=31, packed=False)
+    g = np.random.default_rng(32).normal(size=(b,)).astype(np.float32)
+    (jg,), (tg,) = _both([g], dtype)
+    x = temb.detach().requires_grad_(True)
+    (got,) = torch.autograd.grad((get_op("fm_pairwise")(x).float() * tg.float()).sum(), x)
+    assert got.dtype == temb.dtype and got.shape == temb.shape
+    frac = F32_TOL / 10 if dtype == "f32" else 0.03
+    for fn in (JT.fm_pairwise, J.fm_pairwise):
+        _, vjp = jax.vjp(fn, jemb)
+        (want,) = vjp(jg)
+        _max_err_within(_np(got), want.astype(jnp.float32), frac)
+
+
+def test_fm_pairwise_function_matches_autograd_of_plain_op():
+    """f32: ``FmPairwise``'s backward, (s - e) g, against autograd through
+    the plain sum-square formula: the same values to f32 rounding."""
+    _, temb = _fm_inputs(40, 26, 16, "f32", seed=33)
+    g = torch.from_numpy(np.random.default_rng(34).normal(size=(40,)).astype(np.float32))
+    grads = []
+    for fn in (K.FmPairwise.apply, T.fm_pairwise):
+        x = temb.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad((fn(x) * g).sum(), x)[0])
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5 * grads[1].abs().max().item())
+
+
+# ------------------------------------------------------- DCN cross stack
+def _dcn_inputs(b, d, n_layers, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x0 = rng.normal(size=(b, d)).astype(np.float32)
+    w = (rng.normal(size=(n_layers, d)) / np.sqrt(d)).astype(np.float32)
+    bias = (rng.normal(size=(n_layers, d)) * 0.1).astype(np.float32)
+    return _both([x0, w, bias], dtype)
+
+
+@pytest.mark.parametrize("b,d", [(512, 429), (97, 429), (512, 24)], ids=["tiled", "ragged", "narrow"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_dcn_cross_stack_matches_jax(monkeypatch, b, d, dtype):
+    """Three layers against JAX's reference and JAX's Pallas kernel in
+    interpret mode (B = 512 takes its 256-row tiles, 97 its ragged
+    fallback), at DCN's odd width 429 and at 24, element by element to a
+    share of ``dcn_cross_stack_scale``, as the card's checks hold the
+    kernel: f32 1e-5 (each t a d-term sum in another order); bf16 2^-5: the
+    same rounding points, but a t that lands one bf16 step apart (XLA may
+    keep f32 between fused steps) moves x0 * t by 2^-8 of t, and the next
+    layer's t by that times x0 . w."""
+    monkeypatch.setattr(JT, "_INTERPRET", True)
+    js, ts = _dcn_inputs(b, d, 3, dtype, seed=35)
+    before = K.dcn_cross_stack_forward.launches
+    got = get_op("dcn_cross_stack")(*ts)
+    assert K.dcn_cross_stack_forward.launches == before
+    assert got.dtype == ts[0].dtype and got.shape == (b, d)
+    assert torch.equal(got, T.dcn_cross_stack(*ts))
+    tol = (1e-5 if dtype == "f32" else 2.0 ** -5) * K.dcn_cross_stack_scale(*ts).numpy()
+    for want in (J.dcn_cross_stack(*js), JT.dcn_cross_stack(*js)):
+        err = np.abs(_np(got).astype(np.float64) - np.asarray(want.astype(jnp.float32), np.float64))
+        assert np.all(err <= tol)
+
+
+@pytest.mark.parametrize("b,d", [(512, 429), (97, 24)], ids=["tiled", "ragged"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_dcn_cross_stack_grads_match_jax_vjp(monkeypatch, b, d, dtype):
+    """``DcnCrossStack`` (JAX's ``_dcn_bwd`` in PyTorch ops) against jax.vjp
+    of JAX's kernel entry in interpret mode: gx0, gw and gb. f32 to 1e-5 of
+    each grad's largest value (gw and gb sum B rows, gx0 d-term dots: other
+    orders); bf16 by the repo's rule, 3% (the chain is recomputed in bf16
+    and a rounding one step apart carries through the layers)."""
+    monkeypatch.setattr(JT, "_INTERPRET", True)
+    js, ts = _dcn_inputs(b, d, 3, dtype, seed=36)
+    cot = np.random.default_rng(37).normal(size=(b, d)).astype(np.float32)
+    (jc,), (tc,) = _both([cot], dtype)
+    _, vjp = jax.vjp(JT.dcn_cross_stack, *js)
+    want = vjp(jc)
+    ins = [t.clone().requires_grad_(True) for t in ts]
+    got = torch.autograd.grad((get_op("dcn_cross_stack")(*ins).float() * tc.float()).sum(), ins)
+    frac = 1e-5 if dtype == "f32" else 0.03
+    for gt_, wt in zip(got, want):
+        assert gt_.dtype == ts[0].dtype and tuple(gt_.shape) == wt.shape
+        _max_err_within(_np(gt_), wt.astype(jnp.float32), frac)
+
+
+def test_dcn_cross_stack_function_matches_autograd_of_plain_ops():
+    """f32: the recompute-and-walk-back backward against autograd through
+    the plain layers, to f32 rounding."""
+    _, ts = _dcn_inputs(64, 37, 3, "f32", seed=38)
+    cot = torch.from_numpy(np.random.default_rng(39).normal(size=(64, 37)).astype(np.float32))
+    grads = []
+    for fn in (K.DcnCrossStack.apply, T.dcn_cross_stack):
+        ins = [t.clone().requires_grad_(True) for t in ts]
+        grads.append(torch.autograd.grad((fn(*ins) * cot).sum(), ins))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("b,d,n_layers", [(4096, 429, 3), (97, 1024, 6), (300, 5, 2)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_dcn_cross_stack_in_kernel_order_within_the_card_tolerance(b, d, n_layers, dtype):
+    """The card's checks hold the kernel element by element to a share of
+    ``dcn_cross_stack_scale`` (bf16 2^-5, f32 1e-5) and, in bf16, bit for
+    bit to ``dcn_cross_stack_in_kernel_order``. So the plain version summed
+    in the kernel's order must pass the first check here, and a stack that
+    lost its last bias, a fault of the size of b ~ N(0, 0.1), must fail it."""
+    _, (x0, w, bias) = _dcn_inputs(b, d, n_layers, dtype, seed=40)
+    rel = 1e-5 if dtype == "f32" else 2.0 ** -5
+    scale = K.dcn_cross_stack_scale(x0, w, bias)
+    want = T.dcn_cross_stack(x0, w, bias).double()
+    in_order = K.dcn_cross_stack_in_kernel_order(x0, w, bias)
+    assert in_order.dtype == x0.dtype and in_order.shape == (b, d)
+    assert torch.all((in_order.double() - want).abs() <= rel * scale)
+    lost = (in_order.double() - bias[-1].double()).to(x0.dtype).double()
+    assert not torch.all((lost - want).abs() <= rel * scale)
+
+
+@pytest.mark.parametrize("name", ["fm_pairwise", "dcn_cross_stack", "dcn_cross_layer"])
+def test_fm_and_dcn_dispatch_names_are_the_jax_packages(name):
+    """The three names JAX dispatches; ``dcn_cross_layer`` has a kernel in
+    neither package, so it is the plain op on every device (it runs on meta
+    tensors), while the other two reach kernel entries that raise there."""
+    assert name in jdispatch._REFERENCE
+    if name == "dcn_cross_layer":
+        assert get_op(name) is T.dcn_cross_layer
+        x = torch.empty((4, 6), device="meta")
+        assert get_op(name)(x, x, x[0], x[0]).shape == (4, 6)
+        return
+    x = torch.empty((4, 3, 6), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"{name}: no kernel"):
+        get_op(name)(x) if name == "fm_pairwise" else get_op(name)(x[:, 0], x[:3, 0], x[:3, 0])

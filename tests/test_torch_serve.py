@@ -2,7 +2,9 @@
 JAX, exported by the JAX package, served by the port's ``load_predictor``,
 and the other way round (an artifact the port exports loads in the JAX
 package). Logits are held against JAX's jitted ``Engine.logits`` on the same
-batches, ragged sizes included."""
+batches, ragged sizes included. The same round trip for DeepFM (the fused
+wide column, the FM term on the stride-17 view) and DCN (one dim-8 table,
+the cross stack) at the end."""
 
 import json
 import os
@@ -222,8 +224,10 @@ def test_engine_init_follows_jax_layout():
 
 
 def test_unported_models_name_the_roadmap():
+    """DeepFM is ported now; PNN, like the other models still to port,
+    raises naming the roadmap."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("deepfm", build_schema(TrainConfig(vocab_size=500)))
+        build_model("pnn", build_schema(TrainConfig(vocab_size=500)))
 
 
 def test_train_state_from_jax_carries_any_sparse_optimizer_state():
@@ -252,3 +256,52 @@ def test_train_state_from_jax_carries_any_sparse_optimizer_state():
         train_state_from_jax(eng, 7, dense, adam, tables, device="cpu", emb_opt=bad)
     with pytest.raises(ValueError, match="one of emb_opt and emb_acc"):
         train_state_from_jax(eng, 7, dense, adam, tables, emb_acc=tables, device="cpu", emb_opt=opt)
+
+
+# ------------------------------------------------------------ DeepFM, DCN
+def _zoo_cfg(model: str, bf16: bool) -> dict:
+    return dict(model=model, vocab_size=500, embed_dim=8, hidden=(32, 32), n_cross=2, bf16=bf16)
+
+
+@pytest.fixture(scope="module", params=[("deepfm", False), ("deepfm", True), ("dcn", False), ("dcn", True)],
+                ids=["deepfm-f32", "deepfm-bf16", "dcn-f32", "dcn-bf16"])
+def trained_zoo(request, tmp_path_factory):
+    model, bf16 = request.param
+    cfg = JConfig(**_zoo_cfg(model, bf16))
+    eng, state, schema = _train_jax(cfg)
+    art = str(tmp_path_factory.mktemp(f"artifact_{model}"))
+    jexport(art, cfg, eng, state)
+    batch = next(iter(SyntheticSource(schema, batch_size=max(SIZES), seed=9)))
+    want = np.asarray(jax.jit(eng.logits)(state, jnp.asarray(batch.dense), jnp.asarray(batch.ids)))
+    return dict(model=model, bf16=bf16, eng=eng, state=state, art=art, batch=batch, want=want)
+
+
+def test_port_serves_jax_deepfm_and_dcn_artifacts(trained_zoo):
+    """A JAX DeepFM or DCN artifact served by the port on the CPU, ragged
+    request sizes included, against JAX's jitted logits on each request:
+    f32 to rounding order, bf16 by the repo's rule (an MLP activation, the
+    FM term or a cross layer's t may round one bf16 step apart)."""
+    pred = load_predictor(trained_zoo["art"], device="cpu")
+    assert pred.engine.model.name == trained_zoo["model"]
+    b = trained_zoo["batch"]
+    for n in SIZES:
+        got = pred.predict_logits(b.dense[:n], b.ids[:n])
+        assert got.shape == (n,) and got.dtype == np.float32
+        want = np.asarray(jax.jit(trained_zoo["eng"].logits)(
+            trained_zoo["state"], jnp.asarray(b.dense[:n]), jnp.asarray(b.ids[:n])))
+        _check(got, want, trained_zoo["bf16"])
+
+
+def test_port_deepfm_and_dcn_artifacts_load_in_jax(trained_zoo, tmp_path):
+    """The port's export of a loaded DeepFM or DCN loads in the JAX package
+    with JAX's treedef and gives the JAX model's jitted logits bit for bit
+    (the weights round-trip exactly)."""
+    pred = load_predictor(trained_zoo["art"], device="cpu")
+    assert treedef_str(pred.state.dense_params) == str(
+        jax.tree_util.tree_structure(trained_zoo["state"].dense_params))
+    out = str(tmp_path / "from_port")
+    export_model(out, TrainConfig(**_zoo_cfg(trained_zoo["model"], trained_zoo["bf16"])),
+                 pred.engine, pred.state)
+    jpred = jload(out, min_bucket=max(SIZES))
+    b = trained_zoo["batch"]
+    np.testing.assert_array_equal(jpred.predict_logits(b.dense, b.ids), trained_zoo["want"])

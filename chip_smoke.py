@@ -24,7 +24,12 @@ Phases, each on its own lines:
                then those of slice 4: the FM term on the stride-17 view of
                gathered rows (DeepFM's [16384, 26, 16] bf16, FM's [8192, 26,
                16] f32) and the DCN cross stack (x0 [16384, 429], 3 layers,
-               bf16 and f32);
+               bf16 and f32). A kernel shorter than about 0.1 ms (the gather,
+               both fanouts, the dim-1 updates, the transpose, the FM term,
+               the cross stack), its plain version and its library call are
+               timed with a cold L2 and, by torch.profiler, warm; the rest
+               by CUDA events over back-to-back calls (the CIN layer also
+               by torch.profiler);
   4. serving:  full-width bf16 xDeepFM (26 x 1e5 ids, dim 16, CIN(128,128),
                DNN(400,400)) initialised from a seed (with weights under which
                each kernel's output moves the logits), exported, loaded with
@@ -59,6 +64,10 @@ Phases, each on its own lines:
                1, 1,000 and the batch, 16,384 or FM's 8,192; the FM term, or
                the cross layers' own share (x_L - x0) . w_out, must move the
                logits), then training as in 5, 30 steps at the same batch;
+               then f32 xDeepFM (bench.py --no-bf16: CIN(128,128),
+               DNN(400,400), the engine's defaults, batch 16,384) the same
+               way: its CIN runs through the layer kernel, which must
+               launch exactly twice a training step;
   8. a JSON line listing the kernels (launches from the run of each kernel's
      path), then the card line again, then the result line
      {"ok": true, "device": {...}}.
@@ -220,24 +229,48 @@ def cold_ms(fn, iters: int = 20) -> float:
     return sum(start.elapsed_time(end) for start, end in pairs) / iters
 
 
-def device_ms(fn, calls: int = 20) -> float:
+def device_ms(fn, calls: int = 20, tries: int = 3) -> float | None:
     """Device time per call of the kernels ``fn`` launches over back-to-back
-    calls, from torch.profiler: with the L2 as the previous call left it."""
+    calls, from torch.profiler: with the L2 as the previous call left it.
+    None (not measured) if in ``tries`` windows the profiler recorded no
+    kernel of the card."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            dev_us = getattr(e, "self_device_time_total", None)
-            total_us += e.self_cuda_time_total if dev_us is None else dev_us
-    return total_us / 1e3 / calls
+    for _ in range(tries):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                dev_us = getattr(e, "self_device_time_total", None)
+                total_us += e.self_cuda_time_total if dev_us is None else dev_us
+        if total_us > 0:
+            return total_us / 1e3 / calls
+        print("device_ms: the profiler recorded no kernel of the card in this window")
+    return None
+
+
+def short_times(kernel, plain, library=None, prefix: str = "") -> dict:
+    """Timing keys of a kernel row for a kernel shorter than about 0.1 ms,
+    where CUDA events over back-to-back calls measure the host's launch
+    time: ``ms``, ``plain_ms`` and ``library_ms`` with a cold L2
+    (``cold_ms``), ``warm_ms``, ``plain_warm_ms`` and ``library_warm_ms``
+    by torch.profiler over back-to-back calls, and ``event_ms`` by CUDA
+    events, each key after ``prefix``."""
+    times = {"ms": cold_ms(kernel), "warm_ms": device_ms(kernel), "event_ms": time_ms(kernel),
+             "plain_ms": cold_ms(plain), "plain_warm_ms": device_ms(plain),
+             "library_ms": None if library is None else cold_ms(library),
+             "library_warm_ms": None if library is None else device_ms(library)}
+    return {prefix + k: v for k, v in times.items()}
+
+
+SHORT_TIMING = ("ms, plain_ms, library_ms: cold L2 (cold_ms); warm_ms, plain_warm_ms, library_warm_ms: "
+                "back-to-back calls by torch.profiler; event_ms: back-to-back calls by CUDA events")
 
 
 def bound_ms(nbytes: float, flops: float = 0.0,
@@ -285,25 +318,27 @@ def liven(state, gen: torch.Generator, rows_scale: float = 10.0) -> None:
 
 def term_sizes(pred, dense, ids) -> dict[str, float]:
     """Largest |contribution| to a logit of ``wide_sum``, p1 . w_cin and
-    p2 . w_cin over the examples given, through the predictor's own wrappers
-    (the plain versions for a CPU predictor)."""
+    p2 . w_cin over the examples given (xDeepFM with CIN(h1, h2)), through
+    the predictor's own wrappers (the plain versions for a CPU predictor)
+    and the model's own choice of CIN route."""
     from recmodels_tpu_torch.embedding.gather import gather_rows
-    from recmodels_tpu_torch.ops.cuda.interactions_cuda import cin2_forward, split_fused_rows
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import cin_stack_dm_flat, split_fused_rows
 
     eng, st = pred.engine, pred.state
+    dt = eng.model.compute_dtype
     coll = eng.collections["emb"]
     (g,) = coll.groups
     with torch.inference_mode():
         gids = coll.group_row_ids(torch.as_tensor(ids, device=pred.device))[g.name]
-        full = gather_rows(st.emb_params["emb"][g.name], gids, torch.bfloat16)
+        full = gather_rows(st.emb_params["emb"][g.name], gids, dt)
         x_dm, ws = split_fused_rows(full, g.dim - 1)
-        w1, w2 = (w.to(torch.bfloat16) for w in st.dense_params["cin_w"])
-        _, p1, p2, _ = cin2_forward(x_dm.reshape(-1, x_dm.shape[2]), w1, w2, g.dim - 1)
+        w_cin_k = [w.to(dt) for w in st.dense_params["cin_w"]]
+        pools = cin_stack_dm_flat(x_dm, w_cin_k).float()
         w_cin = st.dense_params["w_cin"]
-        h1 = p1.shape[1]
+        h1 = w_cin_k[1].shape[0]
         return {"wide_sum": ws.abs().max().item(),
-                "p1 . w_cin": (p1.float() @ w_cin[:h1]).abs().max().item(),
-                "p2 . w_cin": (p2.float() @ w_cin[h1:]).abs().max().item()}
+                "p1 . w_cin": (pools[:, :h1] @ w_cin[:h1]).abs().max().item(),
+                "p2 . w_cin": (pools[:, h1:] @ w_cin[h1:]).abs().max().item()}
 
 
 def fm_term_sizes(pred, dense, ids) -> dict[str, float]:
@@ -358,16 +393,17 @@ def to_device(tree, device):
     return tree
 
 
-def adagrad_library_ms(table, ids, grads, lr, eps) -> float:
+def adagrad_library_step(table, ids, grads, lr, eps):
     """torch.optim.Adagrad's sparse step on the same update (its sparse path
     sums duplicates, adds g^2 to the accumulator and divides by sqrt + eps,
-    from an accumulator of 0.1): the yardstick, used nowhere in the port."""
+    from an accumulator of 0.1), ready to time: the yardstick, used nowhere
+    in the port."""
     keep = ids < table.shape[0]
     param = torch.nn.Parameter(table.clone())
     param.grad = torch.sparse_coo_tensor(ids[keep].long()[None], grads[keep].float(),
                                          size=table.shape, check_invariants=False)
     opt = torch.optim.Adagrad([param], lr=lr, eps=eps, initial_accumulator_value=0.1)
-    return time_ms(opt.step, iters=10)
+    return opt.step
 
 
 def check_step(name: str, got: torch.Tensor, want: torch.Tensor, before: torch.Tensor) -> float:
@@ -382,16 +418,16 @@ def check_step(name: str, got: torch.Tensor, want: torch.Tensor, before: torch.T
     return err
 
 
-def adam_library_ms(table, ids, grads, lr) -> float:
+def adam_library_step(table, ids, grads, lr):
     """torch.optim.SparseAdam's step on the same update (it sums duplicates
-    and updates the moments of the touched rows only, lazy Adam's rule):
-    the yardstick, used nowhere in the port."""
+    and updates the moments of the touched rows only, lazy Adam's rule),
+    ready to time: the yardstick, used nowhere in the port."""
     keep = ids < table.shape[0]
     param = torch.nn.Parameter(table.clone())
     param.grad = torch.sparse_coo_tensor(ids[keep].long()[None], grads[keep].float(),
                                          size=table.shape, check_invariants=False)
     opt = torch.optim.SparseAdam([param], lr=lr)
-    return time_ms(opt.step, iters=10)
+    return opt.step
 
 
 def adam_step_of(before_table, m, v, lr: float, step: int) -> torch.Tensor:
@@ -444,17 +480,20 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
         err = max((a.cpu() - b).abs().max().item() for a, b in zip((table, mom, vel), cpu))
         check(err == 0.0, f"sorted_adam_update {label or 'd16 '}bit-exact against the CPU plain version ({err})")
         b_ms, b_by = bound_ms(n * 4 + grads.numel() * 2 + touched * d * 4 * 6)
-        update.update({
-            f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
-            f"{label}ms": time_ms(lambda: sorted_adam_update(table, mom, vel, sorted_ids, grads, **hyper)),
-            f"{label}plain_ms": time_ms(lambda: sorted_adam_update_reference(
-                table, mom, vel, sorted_ids, grads, **hyper), iters=5),
-            f"{label}library_ms": adam_library_ms(table, sorted_ids, grads, hyper["lr"]),
-        })
+        update.update({f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by})
+        kernel = lambda: sorted_adam_update(table, mom, vel, sorted_ids, grads, **hyper)  # noqa: E731
+        plain = lambda: sorted_adam_update_reference(table, mom, vel, sorted_ids, grads, **hyper)  # noqa: E731
+        library = adam_library_step(table, sorted_ids, grads, hyper["lr"])
+        if d == 1:  # shorter than its launch: device time
+            update.update(short_times(kernel, plain, library, label))
+        else:
+            update.update({f"{label}ms": time_ms(kernel), f"{label}plain_ms": time_ms(plain, iters=5),
+                           f"{label}library_ms": time_ms(library, iters=10)})
         del table, mom, vel, grads, cpu
     report["sorted_adam_update"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/adam_update.cu",
-        replaces="recmodels_tpu/embedding/pallas_update.py:559", tol=0.0, **update,
+        replaces="recmodels_tpu/embedding/pallas_update.py:559", tol=0.0,
+        timing="unprefixed keys: CUDA events over back-to-back calls; dim1_ keys: " + SHORT_TIMING, **update,
     )
 
     # 9. cin_layer_forward: x0 [262144, 26] N(0, 1) and the model's initial
@@ -479,18 +518,25 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
         b_ms, b_by = bound_ms((xk.numel() + x0.numel() + w.numel() + got.numel()) * xk.element_size(),
                               2 * r * hk * m * hn, PEAK_F32_FLOP_PER_S if f32 else PEAK_BF16_FLOP_PER_S)
         w3 = w.reshape(hk, m, hn)
+        check(torch.equal(got, cin_layer_forward(xk, x0, w)), f"cin_layer_forward {label or 'l2_'}repeats bit for bit")
+        kernel = lambda: cin_layer_forward(xk, x0, w)  # noqa: E731
+        library = lambda: torch.einsum("rh,hin,ri->rn", xk, w3, x0)  # noqa: E731
         fwd.update({
             f"{label}max_abs_err": err, f"{label}tol": tol, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
-            f"{label}ms": time_ms(lambda: cin_layer_forward(xk, x0, w), iters=10),
+            f"{label}ms": time_ms(kernel, iters=10),
             f"{label}plain_ms": time_ms(lambda: cin_layer_forward_reference(xk, x0, w), iters=3),
-            f"{label}library_ms": time_ms(lambda: torch.einsum("rh,hin,ri->rn", xk, w3, x0), iters=3),
+            f"{label}library_ms": time_ms(library, iters=3),
+            f"{label}warm_ms": device_ms(kernel, calls=5),
+            f"{label}library_warm_ms": device_ms(library, calls=3),
         })
         del got
     report["cin_layer_forward"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/cin_layer.cu",
         replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:234",
         shapes="unprefixed keys: layer 2 bf16 [262144, 128] x [128, 26*128]; l1_: layer 1 "
-               "[262144, 26] x [26, 26*128]; f32_ and l1_f32_: the same in f32", **fwd,
+               "[262144, 26] x [26, 26*128]; f32_ and l1_f32_: the same in f32",
+        timing="ms, plain_ms, library_ms: CUDA events over back-to-back calls; warm_ms, library_warm_ms: "
+               "the same calls by torch.profiler", **fwd,
     )
 
     # 10. cin_layer_backward at layer 2: the output's cotangent N(0, 1)
@@ -529,10 +575,9 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
     report["transpose_minor2"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/transpose.cu",
         replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:180", max_abs_err=0.0, tol=0.0,
-        ms=time_ms(lambda: transpose_minor2(x)),
-        plain_ms=time_ms(lambda: transpose_minor2_reference(x)),
-        library_ms=time_ms(lambda: x.transpose(1, 2).contiguous()),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, timing=SHORT_TIMING,
+        **short_times(lambda: transpose_minor2(x), lambda: transpose_minor2_reference(x),
+                      lambda: x.transpose(1, 2).contiguous()),
     )
 
 
@@ -571,11 +616,8 @@ def slice4_kernels(report: dict, card: str, gen: torch.Generator) -> None:
         fm.update({
             f"{label}max_abs_err": err_ex.max().item(), f"{label}tol": rel, f"{label}max_rel_err": worst,
             f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
-            f"{label}ms": cold_ms(lambda: fm_pairwise_forward(emb)),
-            f"{label}plain_ms": cold_ms(lambda: fm_pairwise_forward_reference(emb)),
-            f"{label}library_ms": None,
-            f"{label}warm_ms": device_ms(lambda: fm_pairwise_forward(emb)),
-            f"{label}event_ms": time_ms(lambda: fm_pairwise_forward(emb)),
+            **short_times(lambda: fm_pairwise_forward(emb), lambda: fm_pairwise_forward_reference(emb),
+                          prefix=label),
         })
         del full, emb, got, want, e
     report["fm_pairwise_forward"] = dict(
@@ -583,9 +625,7 @@ def slice4_kernels(report: dict, card: str, gen: torch.Generator) -> None:
         replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:53",
         shapes="unprefixed keys: DeepFM, the [16384, 26, 16] bf16 view of [16384, 26, 17] rows; "
                "f32_: FM, the [8192, 26, 16] f32 view of [8192, 26, 17] rows; tol is a share of "
-               "each example's ||sum e||^2 + sum ||e||^2; ms and plain_ms: cold L2 (cold_ms), "
-               "warm_ms: back-to-back calls by torch.profiler, event_ms: back-to-back calls by "
-               "CUDA events (the host's launch time: the kernel is shorter)", **fm,
+               "each example's ||sum e||^2 + sum ||e||^2", timing=SHORT_TIMING, **fm,
     )
 
     # 13. dcn_cross_stack: DCN's x0 [16384, 429] N(0, 1), w N(0, 1/sqrt(429))
@@ -624,20 +664,15 @@ def slice4_kernels(report: dict, card: str, gen: torch.Generator) -> None:
         dcn.update({
             f"{label}max_abs_err": err, f"{label}tol": rel, f"{label}max_rel_err": worst,
             f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
-            f"{label}ms": cold_ms(lambda: dcn_cross_stack_forward(x0, w, bias)),
-            f"{label}plain_ms": cold_ms(lambda: dcn_cross_stack_forward_reference(x0, w, bias)),
-            f"{label}library_ms": None,
-            f"{label}warm_ms": device_ms(lambda: dcn_cross_stack_forward(x0, w, bias)),
-            f"{label}event_ms": time_ms(lambda: dcn_cross_stack_forward(x0, w, bias)),
+            **short_times(lambda: dcn_cross_stack_forward(x0, w, bias),
+                          lambda: dcn_cross_stack_forward_reference(x0, w, bias), prefix=label),
         })
         del x0, w, bias, got, err_el, scale
     report["dcn_cross_stack_forward"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/dcn_cross.cu",
         replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:98",
         shapes=f"unprefixed keys: x0 [16384, {d}] bf16, w and b [3, {d}]; f32_: the same in f32; tol is "
-               "a share of each element's dcn_cross_stack_scale; ms and plain_ms: cold L2 (cold_ms), "
-               "warm_ms: back-to-back calls by torch.profiler, event_ms: back-to-back calls by CUDA "
-               "events", **dcn,
+               "a share of each element's dcn_cross_stack_scale", timing=SHORT_TIMING, **dcn,
     )
 
 
@@ -655,7 +690,7 @@ def main() -> int:
     from recmodels_tpu_torch.models import build_model
     from recmodels_tpu_torch.ops.cuda import build
     from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
-        cin2_backward, cin2_backward_reference, cin2_forward, cin2_forward_reference,
+        cin2_backward, cin2_backward_reference, cin2_forward, cin2_forward_reference, cin_layer_forward,
         dcn_cross_stack_forward, fm_pairwise_forward, split_fused_rows, split_fused_rows_backward,
         split_fused_rows_backward_reference, split_fused_rows_reference,
     )
@@ -710,10 +745,10 @@ def main() -> int:
     report["gather_rows"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/gather.cu",
         replaces="recmodels_tpu/embedding/pallas_gather.py:180", max_abs_err=err, tol=0.0,
-        ms=time_ms(lambda: gather_rows(table, gids, torch.bfloat16)),
-        plain_ms=time_ms(lambda: gather_rows_reference(table, gids, torch.bfloat16)),
-        library_ms=time_ms(lambda: torch.index_select(table, 0, gids.reshape(-1)).to(torch.bfloat16)),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, timing=SHORT_TIMING,
+        **short_times(lambda: gather_rows(table, gids, torch.bfloat16),
+                      lambda: gather_rows_reference(table, gids, torch.bfloat16),
+                      lambda: torch.index_select(table, 0, gids.reshape(-1)).to(torch.bfloat16)),
     )
 
     # 2. split_fused_rows on the gathered rows [16384, 26, 17] bf16
@@ -728,10 +763,8 @@ def main() -> int:
     report["split_fused_rows"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/split_fused.cu",
         replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:881", max_abs_err=err,
-        tol=F32_REL_TOL * max(scale, 1.0),
-        ms=time_ms(lambda: split_fused_rows(full, DIM)),
-        plain_ms=time_ms(lambda: split_fused_rows_reference(full, DIM)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        tol=F32_REL_TOL * max(scale, 1.0), bound_ms=b_ms, bound_by=b_by, timing=SHORT_TIMING,
+        **short_times(lambda: split_fused_rows(full, DIM), lambda: split_fused_rows_reference(full, DIM)),
     )
 
     # 3. cin2_forward: x0 [262144, 26] N(0, 1), the model's initial CIN weights
@@ -771,9 +804,9 @@ def main() -> int:
     report["split_fused_rows_backward"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/split_fused.cu",
         replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:939", max_abs_err=0.0, tol=0.0,
-        ms=time_ms(lambda: split_fused_rows_backward(g_dm, g_ws)),
-        plain_ms=time_ms(lambda: split_fused_rows_backward_reference(g_dm, g_ws)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, timing=SHORT_TIMING,
+        **short_times(lambda: split_fused_rows_backward(g_dm, g_ws),
+                      lambda: split_fused_rows_backward_reference(g_dm, g_ws)),
     )
     del g_dm, g_ws, got
 
@@ -829,18 +862,22 @@ def main() -> int:
         check(err == 0.0, f"sorted_adagrad_update {label or 'd17 '}bit-exact against the CPU plain version ({err})")
         touched = torch.unique(sorted_ids).numel()
         b_ms, b_by = bound_ms(n * 4 + grads.numel() * 2 + touched * d1 * 4 * 4, 0.0)
-        update.update({
-            f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
-            f"{label}ms": time_ms(lambda: sorted_adagrad_update(upd_table, upd_acc, sorted_ids, grads, lr, eps)),
-            f"{label}plain_ms": time_ms(lambda: sorted_adagrad_update_reference(
-                upd_table, upd_acc, sorted_ids, grads, lr, eps), iters=5),
-            f"{label}library_ms": adagrad_library_ms(upd_table, sorted_ids, grads, lr, eps),
-        })
+        update.update({f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by})
+        kernel = lambda: sorted_adagrad_update(upd_table, upd_acc, sorted_ids, grads, lr, eps)  # noqa: E731
+        plain = lambda: sorted_adagrad_update_reference(  # noqa: E731
+            upd_table, upd_acc, sorted_ids, grads, lr, eps)
+        library = adagrad_library_step(upd_table, sorted_ids, grads, lr, eps)
+        if d1 == 1:  # shorter than its launch: device time
+            update.update(short_times(kernel, plain, library, label))
+        else:
+            update.update({f"{label}ms": time_ms(kernel), f"{label}plain_ms": time_ms(plain, iters=5),
+                           f"{label}library_ms": time_ms(library, iters=10)})
         del upd_table, upd_acc, grads, t_cpu, a_cpu
     report["sorted_adagrad_update"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/adagrad_update.cu",
         replaces="recmodels_tpu/embedding/pallas_update.py:427",
         also_replaces="recmodels_tpu/embedding/pallas_update.py:296 (the dim1_ keys)",
+        timing="unprefixed keys: CUDA events over back-to-back calls; dim1_ keys: " + SHORT_TIMING,
         tol=0.0, **update,
     )
     del table
@@ -851,16 +888,15 @@ def main() -> int:
     slice3_kernels(report, engine3, ids, card, gen)
     slice4_kernels(report, card, gen)
     for name, r in report.items():
-        print(f"{name}: max err {r['max_abs_err']:.6g} (tol {r['tol']:.6g}); "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{'-' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) on {card}")
-        for pre in sorted({k[: -len("plain_ms")] for k in r if k.endswith("plain_ms")} - {""}):
+        for pre in sorted({k[: -len("plain_ms")] for k in r if k.endswith("plain_ms")}):
             lib = r[pre + "library_ms"]
             tol = f" (tol {r[pre + 'tol']:.6g})" if pre + "tol" in r else ""
-            print(f"{name} {pre[:-1]}: max err {r[pre + 'max_abs_err']:.6g}{tol}; kernel {r[pre + 'ms']:.4f} ms, "
-                  f"plain {r[pre + 'plain_ms']:.4f} ms, library "
-                  f"{'-' if lib is None else format(lib, '.4f') + ' ms'}, bound "
+            warm = "".join(f", {what} warm {r[pre + key]:.4f} ms" for what, key in (
+                ("kernel", "warm_ms"), ("plain", "plain_warm_ms"), ("library", "library_warm_ms"))
+                if r.get(pre + key) is not None)
+            print(f"{name}{' ' + pre[:-1] if pre else ''}: max err {r[pre + 'max_abs_err']:.6g}{tol}; kernel "
+                  f"{r[pre + 'ms']:.4f} ms, plain {r[pre + 'plain_ms']:.4f} ms, library "
+                  f"{'-' if lib is None else format(lib, '.4f') + ' ms'}{warm}, bound "
                   f"{r[pre + 'bound_ms']:.4f} ms ({r[pre + 'bound_by']}) on {card}")
 
     # -------------------------------------------------------------- serving
@@ -874,28 +910,44 @@ def main() -> int:
     adam_dense_check(engine3, ids, card, gen)
     paths = {"slice2": launches, "slice3": launches3}
 
-    # ------------------------------------------------------------- slice 4
+    # -------------------------------------------- slice 4, then f32 xDeepFM
+    # each: (path, model, title, batch, bf16, model kwargs, the serving path's
+    # kernels, the training step's kernels, the term check, stream seed, rows'
+    # scale); f32 xDeepFM is bench.py --no-bf16: its CIN runs layer by layer
+    # through the layer kernel (two launches a step and a request), its
+    # backward through the f32 einsums
     slice4 = (
-        ("deepfm", f"full-width bf16 DeepFM, DNN{DEEPFM_HIDDEN}", BATCH, True,
-         dict(hidden=DEEPFM_HIDDEN), fm_pairwise_forward, fm_term_sizes, 17, 3.0),
-        ("dcn", f"full-width bf16 DCN, {N_CROSS} cross layers over 429, DNN{DCN_HIDDEN}", BATCH, True,
-         dict(hidden=DCN_HIDDEN, n_cross=N_CROSS), dcn_cross_stack_forward, cross_term_sizes, 19, 10.0),
-        ("fm", "full-width f32 FM", FM_BATCH, False, {}, fm_pairwise_forward, fm_term_sizes, 23, 3.0),
+        ("deepfm", "deepfm", f"full-width bf16 DeepFM, DNN{DEEPFM_HIDDEN}", BATCH, True,
+         dict(hidden=DEEPFM_HIDDEN), (gather_rows, fm_pairwise_forward),
+         (gather_rows, fm_pairwise_forward, sorted_adagrad_update), fm_term_sizes, 17, 3.0),
+        ("dcn", "dcn", f"full-width bf16 DCN, {N_CROSS} cross layers over 429, DNN{DCN_HIDDEN}", BATCH, True,
+         dict(hidden=DCN_HIDDEN, n_cross=N_CROSS), (gather_rows, dcn_cross_stack_forward),
+         (gather_rows, dcn_cross_stack_forward, sorted_adagrad_update), cross_term_sizes, 19, 10.0),
+        ("fm", "fm", "full-width f32 FM", FM_BATCH, False, {}, (gather_rows, fm_pairwise_forward),
+         (gather_rows, fm_pairwise_forward, sorted_adagrad_update), fm_term_sizes, 23, 3.0),
+        ("xdeepfm_f32", "xdeepfm", f"full-width f32 xDeepFM, CIN{CIN}, DNN{HIDDEN}", BATCH, False,
+         dict(cin_sizes=CIN, hidden=HIDDEN), (gather_rows, split_fused_rows, cin_layer_forward),
+         (gather_rows, split_fused_rows, cin_layer_forward, sorted_adagrad_update, split_fused_rows_backward),
+         term_sizes, 29, 10.0),
     )
-    for model, title, n, bf16, kw, kernel, terms, seed, rows_scale in slice4:
+    for path, model, title, n, bf16, kw, serve_kernels, train_kernels, terms, seed, rows_scale in slice4:
         cfg4 = TrainConfig(model=model, bf16=bf16, vocab_size=VOCAB, embed_dim=DIM, batch_size=n,
                            seed=SEED, **kw)
         engine4 = Engine(build_model(model, schema, **cfg4.model_kwargs()))
-        serving_phase(title, cfg4, engine4, (gather_rows, kernel), terms, batch.dense[:n], batch.ids[:n],
+        serving_phase(title, cfg4, engine4, serve_kernels, terms, batch.dense[:n], batch.ids[:n],
                       card, gen, rows_scale)
-        paths[model] = training_phase(f"{title}, Adam 1e-3 + sparse Adagrad 1e-2", engine4, schema, n,
-                                      (gather_rows, kernel, sorted_adagrad_update), seed, card, gen,
-                                      rows_scale)
+        paths[path] = training_phase(f"{title}, Adam 1e-3 + sparse Adagrad 1e-2", engine4, schema, n,
+                                     train_kernels, seed, card, gen, rows_scale)
+    launched = paths["xdeepfm_f32"]["cin_layer_forward"]
+    check(launched == 2 * TRAIN_STEPS,
+          f"cin_layer_forward launched twice a step on the f32 xDeepFM path ({launched} in {TRAIN_STEPS} steps)")
 
     # each kernel's launches come from the first path in this order that
-    # runs it (slice 2's for the six kernels of the xDeepFM step, DeepFM's
-    # for fm_pairwise_forward, DCN's for dcn_cross_stack_forward); every
-    # path's count is listed beside them
+    # runs it (slice 2's for the six kernels of the xDeepFM step, slice 3's
+    # for lazy Adam, the CIN layer and the transpose, DeepFM's for
+    # fm_pairwise_forward, DCN's for dcn_cross_stack_forward); every path's
+    # count is listed beside them (launches_xdeepfm_f32: the f32 xDeepFM
+    # step's)
     main_keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms")
     kernel_rows = []

@@ -1,8 +1,8 @@
 // Helpers shared by the generic CIN layer kernels (cin_layer.cu,
-// cin_layer_bwd.cu): bf16 tensor-core products with mma.sync (m16n8k16, f32
-// accumulate), whose fragment layouts the PTX ISA documents, fed by ldmatrix
-// from shared memory, and a tile loader that zero-fills what lies outside
-// the matrix.
+// cin_layer_bwd.cu) and the transpose (transpose.cu): bf16 tensor-core
+// products with mma.sync (m16n8k16, f32 accumulate), whose fragment layouts
+// the PTX ISA documents, fed by ldmatrix from shared memory; cp.async
+// copies; and a tile loader that zero-fills what lies outside the matrix.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * group + tig):
 //   A [16 x 16] row: a0 (row group, cols 2 tig, +1), a1 (row group + 8),
@@ -85,6 +85,12 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Copy rows x cols (cols a multiple of 8) of a row-major bf16 matrix g with

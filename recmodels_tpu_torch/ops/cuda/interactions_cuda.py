@@ -305,13 +305,25 @@ def transpose_minor2_reference(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).contiguous()
 
 
+TRANSPOSE_MAX_ITEM_BYTES = 64 * 1024  # an [a, b] item sits whole in a block's shared memory
+
+
 def transpose_minor2(x: torch.Tensor) -> torch.Tensor:
-    """[B, a, b] -> [B, b, a] (bf16 or f32), contiguous."""
+    """[B, a, b] -> [B, b, a] (bf16 or f32), contiguous. Any shape on the
+    CPU; on CUDA an [a, b] item of at most ``TRANSPOSE_MAX_ITEM_BYTES``:
+    a field matrix of m slots x D up to 16,384 f32 elements (256 x 64),
+    and, since ``cin_layer`` also transposes xk [B, Hk, D] and its output
+    [B, D, Hn], a CIN layer with Hk·D and Hn·D up to 16,384 in f32 (32,768
+    in bf16)."""
     if x.device.type == "cpu":
         return transpose_minor2_reference(x)
     dev_t = cuda_device(x, "transpose_minor2")
     require("transpose_minor2 x", x, FLOAT_DTYPES, 3, dev_t, align=x.element_size())
     bsz, a, b = x.shape
+    item_bytes = a * b * x.element_size()
+    if item_bytes > TRANSPOSE_MAX_ITEM_BYTES:
+        raise ValueError(f"transpose_minor2 kernel: an item [{a}, {b}] of {x.dtype} takes {item_bytes} "
+                         f"bytes; it takes items within {TRANSPOSE_MAX_ITEM_BYTES} bytes")
     out = torch.empty((bsz, b, a), dtype=x.dtype, device=dev_t)
     dev, stream = device_and_stream(dev_t)
     err = build.library().rm_transpose_minor2(dev, x.data_ptr(), out.data_ptr(), bsz, a, b,

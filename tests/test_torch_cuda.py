@@ -261,6 +261,12 @@ def _layer_inputs(cuda, rows, hk, m, hn, dtype, seed):
     (700, 128, 26, 128),   # layers 2 and 3
     (77, 37, 5, 20),       # nothing aligned
     (300, 200, 3, 130),    # two k-chunks and two column blocks
+    # the f32 kernel's tile edges: 128-row blocks, 128-wide chunks of Hk,
+    # 128-column blocks, K tiles of 16 that span fields
+    (129, 129, 3, 130),    # one row past a block, one h past a chunk, unaligned Hn
+    (257, 7, 39, 1),       # a tile spans three fields; one column
+    (257, 129, 1, 128),    # one field
+    (129, 7, 39, 130),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cin_layer_forward_kernel(cuda, rows, hk, m, hn, dtype):
@@ -274,6 +280,7 @@ def test_cin_layer_forward_kernel(cuda, rows, hk, m, hn, dtype):
     tol = BF16_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item()
+    assert torch.equal(got, K.cin_layer_forward(xk2, x02, w2))  # no atomics: runs repeat
 
 
 @pytest.mark.parametrize("rows,hk,m,hn", [
@@ -298,7 +305,13 @@ def test_cin_layer_backward_kernel(cuda, rows, hk, m, hn):
     assert all(torch.equal(x, y) for x, y in zip(outs, again))  # no atomics: runs repeat
 
 
-@pytest.mark.parametrize("shape", [(16384, 26, 16), (3, 5, 7), (1, 1, 1)])
+@pytest.mark.parametrize("shape", [
+    (16384, 26, 16), (3, 5, 7), (1, 1, 1),
+    (1000, 26, 16),     # a ragged last block
+    (5, 3, 3),          # a block's range not a multiple of 16 bytes
+    (16384, 16, 26),    # the transpose back (the backward's cotangent)
+    (3, 256, 64),       # the largest item in f32: 64 KB of shared memory
+])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_transpose_minor2_kernel_is_exact(cuda, shape, dtype):
     x = torch.randn(shape, generator=_gen(cuda, 11), device=cuda).to(dtype)
@@ -307,6 +320,22 @@ def test_transpose_minor2_kernel_is_exact(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert K.transpose_minor2.launches == before + 1
     assert torch.equal(got, K.transpose_minor2_reference(x))
+
+
+def test_transpose_minor2_kernel_on_an_offset_view(cuda):
+    """Items read from 2 bytes past a 16-byte boundary take the scalar path."""
+    flat = torch.randn((1 + 64 * 26 * 16,), generator=_gen(cuda, 11), device=cuda).to(torch.bfloat16)
+    x = flat[1:].view(64, 26, 16)
+    assert x.data_ptr() % 16 == 2
+    assert torch.equal(K.transpose_minor2(x), K.transpose_minor2_reference(x))
+
+
+def test_transpose_minor2_kernel_refuses_an_item_past_its_limit(cuda):
+    x = torch.zeros((2, 257, 64), device=cuda)  # 65,792 bytes an item
+    before = K.transpose_minor2.launches
+    with pytest.raises(ValueError, match="it takes items within 65536 bytes"):
+        K.transpose_minor2(x)
+    assert K.transpose_minor2.launches == before
 
 
 @pytest.mark.parametrize("hk,kernel", [(26, False), (128, True)])

@@ -451,6 +451,19 @@ def test_transpose_minor2_function_matches_jax_and_autograd(dtype):
     assert torch.equal(grads[0], grads[1])
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_transpose_minor2_takes_any_item_on_the_cpu(dtype):
+    """The kernel's item limit (``TRANSPOSE_MAX_ITEM_BYTES``) holds on the
+    card only: on the CPU an item past it takes the plain version and
+    matches JAX's transpose."""
+    rng = np.random.default_rng(26)
+    (jx,), (tx,) = _both([rng.normal(size=(2, 520, 64))], dtype)
+    assert tx[0].numel() * tx.element_size() > K.TRANSPOSE_MAX_ITEM_BYTES
+    got = K.transpose_minor2(tx)
+    assert got.shape == (2, 64, 520) and torch.equal(got.float(), torch.tensor(np.asarray(
+        JT.transpose_minor2(jx).astype(jnp.float32))))
+
+
 @pytest.mark.parametrize("op", ["cin_stack_dm_flat", "cin_stack_flat"])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_three_layer_cin_matches_jax(monkeypatch, op, dtype):

@@ -29,7 +29,8 @@ Phases, each on its own lines:
                the cross stack), its plain version and its library call are
                timed with a cold L2 and, by torch.profiler, warm; the rest
                by CUDA events over back-to-back calls (the CIN layer also
-               by torch.profiler);
+               by torch.profiler; the fused CIN forward and backward also
+               launch by launch, by torch.profiler);
   4. serving:  full-width bf16 xDeepFM (26 x 1e5 ids, dim 16, CIN(128,128),
                DNN(400,400)) initialised from a seed (with weights under which
                each kernel's output moves the logits), exported, loaded with
@@ -68,7 +69,13 @@ Phases, each on its own lines:
                DNN(400,400), the engine's defaults, batch 16,384) the same
                way: its CIN runs through the layer kernel, which must
                launch exactly twice a training step;
-  8. a JSON line listing the kernels (launches from the run of each kernel's
+  8. repaired shapes (ROADMAP queue 3), served and trained one step at
+               1,024 examples against the CPU plain path: bf16 xDeepFM at dim
+               32 and with CIN(256,256) (the fused CIN kernels), with
+               CIN(100,100) (layer by layer), and bf16 DCN at dim 40 (x0 of
+               1,053: the cross stack's wide-row path); each must launch the
+               kernels its route names and no others;
+  9. a JSON line listing the kernels (launches from the run of each kernel's
      path), then the card line again, then the result line
      {"ok": true, "device": {...}}.
 
@@ -132,6 +139,10 @@ F32_REL_TOL = 1e-5
 DCN_BF16_REL_TOL = 2.0 ** -5
 TRAIN_STEPS = 30
 TRAIN_CHECK_BATCH = 1024
+# the shapes of ROADMAP queue 3 run at a small batch over a small vocab: the
+# kernels see the model's widths, the CPU's step stays short
+REPAIR_BATCH = 1024
+REPAIR_VOCAB = 10_000
 # GPU step vs CPU step from one state: the grads pass through the same bf16
 # rounding points; a rounding that lands one bf16 step apart in the CIN or
 # the MLP moves a grad by about 2^-8 of its size. 3% of the largest change
@@ -229,11 +240,11 @@ def cold_ms(fn, iters: int = 20) -> float:
     return sum(start.elapsed_time(end) for start, end in pairs) / iters
 
 
-def device_ms(fn, calls: int = 20, tries: int = 3) -> float | None:
-    """Device time per call of the kernels ``fn`` launches over back-to-back
-    calls, from torch.profiler: with the L2 as the previous call left it.
-    None (not measured) if in ``tries`` windows the profiler recorded no
-    kernel of the card."""
+def launch_split(fn, calls: int = 20, tries: int = 3) -> dict[str, float]:
+    """Device time per call of each kernel ``fn`` launches, by name, from
+    torch.profiler over back-to-back calls (with the L2 as the previous call
+    left it; a kernel launched twice a call counts both). Empty if in
+    ``tries`` windows the profiler recorded no kernel of the card."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -244,15 +255,25 @@ def device_ms(fn, calls: int = 20, tries: int = 3) -> float | None:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total_us = 0.0
+        split = {}
         for e in prof.key_averages():
             if str(e.device_type).endswith("CUDA"):
                 dev_us = getattr(e, "self_device_time_total", None)
-                total_us += e.self_cuda_time_total if dev_us is None else dev_us
-        if total_us > 0:
-            return total_us / 1e3 / calls
-        print("device_ms: the profiler recorded no kernel of the card in this window")
-    return None
+                dev_us = e.self_cuda_time_total if dev_us is None else dev_us
+                name = e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+                name = name.split("::")[-1]
+                split[name] = split.get(name, 0.0) + dev_us / 1e3 / calls
+        if sum(split.values()) > 0:
+            return split
+        print("launch_split: the profiler recorded no kernel of the card in this window")
+    return {}
+
+
+def device_ms(fn, calls: int = 20) -> float | None:
+    """Device time per call of the kernels ``fn`` launches (``launch_split``
+    summed); None (not measured) if the profiler recorded none."""
+    split = launch_split(fn, calls)
+    return sum(split.values()) if split else None
 
 
 def short_times(kernel, plain, library=None, prefix: str = "") -> dict:
@@ -286,7 +307,7 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return (got - want).abs().max().item(), want.abs().max().item()
 
 
-def liven(state, gen: torch.Generator, rows_scale: float = 10.0) -> None:
+def liven(state, gen: torch.Generator, rows_scale: float = 10.0, dim: int = DIM) -> None:
     """Give every kernel of the path a visible share of the logits, in
     place. ``Engine.init`` leaves the first-order column, ``w_dense``, the
     bias and DCN's cross biases at zero, and its N(0, 0.05) rows leave the
@@ -300,7 +321,7 @@ def liven(state, gen: torch.Generator, rows_scale: float = 10.0) -> None:
     a few units, where the sigmoid does not saturate."""
     wide = state.emb_params.get("wide", {})
     for table in state.emb_params["emb"].values():
-        if wide or table.shape[1] != DIM + 1:  # no fused first-order column
+        if wide or table.shape[1] != dim + 1:  # no fused first-order column
             table *= rows_scale
         else:
             table[:, :-1] *= rows_scale
@@ -713,7 +734,7 @@ def main() -> int:
     log = lib_path.parent / build.LOG_NAME
     if log.exists():
         for line in log.read_text().splitlines():
-            if line.startswith("==") or "registers" in line or "spill" in line:
+            if line.startswith("==") or "Used" in line or "spill" in line:
                 print("  " + line.strip())
 
     cfg = TrainConfig(model="xdeepfm", bf16=True, vocab_size=VOCAB, embed_dim=DIM,
@@ -792,6 +813,9 @@ def main() -> int:
         ms=time_ms(lambda: cin2_forward(x02, w1, w2, DIM)),
         plain_ms=time_ms(lambda: cin2_forward_reference(x02, w1, w2, DIM), iters=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        launch_ms=launch_split(lambda: cin2_forward(x02, w1, w2, DIM), calls=10),
+        launch_ms_train=launch_split(lambda: cin2_forward(x02, w1, w2, DIM, want_x1=True, want_q=True),
+                                     calls=10),
     )
 
     # 4. split_fused_rows_backward: g_dm [16384, 16, 26] bf16, g_ws [16384] f32
@@ -840,7 +864,11 @@ def main() -> int:
         ms=time_ms(lambda: cin2_backward(x02, x1, w1, w2, q, g1p, g2p, DIM)),
         plain_ms=time_ms(lambda: cin2_backward_reference(x02, x1, w1, w2, q, g1p, g2p, DIM), iters=3),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        launch_ms=launch_split(lambda: cin2_backward(x02, x1, w1, w2, q, g1p, g2p, DIM), calls=10),
     )
+    for name in ("cin2_forward", "cin2_backward"):
+        split = ", ".join(f"{k} {v:.4f}" for k, v in report[name]["launch_ms"].items())
+        print(f"{name} launches by device time (ms a call): {split} on {card}")
     del bwd, x1, q, g1p, g2p, x02
 
     # 6. sorted_adagrad_update: the batch's sorted stream (425,984 ids) into
@@ -938,6 +966,7 @@ def main() -> int:
                       card, gen, rows_scale)
         paths[path] = training_phase(f"{title}, Adam 1e-3 + sparse Adagrad 1e-2", engine4, schema, n,
                                      train_kernels, seed, card, gen, rows_scale)
+    repaired_shapes_phase(card, gen)
     launched = paths["xdeepfm_f32"]["cin_layer_forward"]
     check(launched == 2 * TRAIN_STEPS,
           f"cin_layer_forward launched twice a step on the f32 xDeepFM path ({launched} in {TRAIN_STEPS} steps)")
@@ -1071,9 +1100,38 @@ def training_phase(title: str, engine, schema, batch_size: int, kernels, seed: i
     check(bool(torch.isfinite(losses).all()), "finite losses")
     check(last < first, "the loss falls over the steps")
 
-    # one step from a live state on the card and on the CPU plain path
-    liven(state, gen, rows_scale)
-    dense, ids, labels = (t[:TRAIN_CHECK_BATCH] for t in batches[0])
+    state = one_step_check(engine, state, batches[0], gen, rows_scale)
+
+    dense, ids, labels = batches[-1]
+    step_ms = time_ms(lambda: engine.train_step(state, dense, ids, labels), iters=10)
+    t_host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.train_step(state, dense, ids, labels)
+        torch.cuda.synchronize()
+        t_host.append(time.perf_counter() - t0)
+    host_ms = float(np.median(t_host)) * 1e3
+    name = engine.model.name
+    print(f"Engine.train_step ({name}) at {batch_size}: {step_ms:.4f} ms per step (CUDA events, 10 "
+          f"back-to-back steps), {batch_size / step_ms * 1e3:.0f} examples/s on {card}")
+    print(f"Engine.train_step ({name}) at {batch_size} one at a time (host clock to synchronize): "
+          f"{host_ms:.4f} ms median of 5, {batch_size / host_ms * 1e3:.0f} examples/s on {card}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    busy = profile(lambda: engine.train_step(state, dense, ids, labels), top=20)
+    print(f"Engine.train_step ({name}) at {batch_size}: {busy:.4f} ms of kernel time per step "
+          f"(profiler), {batch_size / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
+    return launches
+
+
+def one_step_check(engine, state, batch, gen: torch.Generator, rows_scale: float = 10.0, dim: int = DIM):
+    """One step from a live state (``liven``) at TRAIN_CHECK_BATCH examples
+    of ``batch`` on the card and on the CPU plain path, for a model with one
+    table and sparse Adagrad: the loss within LOGIT_REL_TOL of max |logit|,
+    Adam's moments and the touched rows of the table and acc within
+    STEP_REL_TOL of their largest change, untouched rows bit for bit.
+    Returns the card's state after the step."""
+    liven(state, gen, rows_scale, dim)
+    dense, ids, labels = (t[:TRAIN_CHECK_BATCH] for t in batch)
     cpu_state = to_device(state, "cpu")
     before = to_device(state, "cpu")
     cpu_in = [t.cpu() for t in (dense, ids, labels)]
@@ -1104,7 +1162,7 @@ def training_phase(title: str, engine, schema, batch_size: int, kernels, seed: i
     # the fused wide column's grads outgrow the embedding columns': each part
     # is held to its own largest change
     parts = ((("embedding columns", slice(0, -1)), ("wide column", slice(-1, None)))
-             if table_b.shape[1] == DIM + 1 else (("all columns", slice(None)),))
+             if table_b.shape[1] == dim + 1 else (("all columns", slice(None)),))
     for part, cols in parts:
         for name, gpu, cpu, b in (("table", gpu_t, cpu_t, table_b), ("acc", gpu_a, cpu_a, acc_b)):
             errs[f"{name}/{part}"] = check_step(f"touched {name} rows, {part}", gpu[touched, cols],
@@ -1117,26 +1175,7 @@ def training_phase(title: str, engine, schema, batch_size: int, kernels, seed: i
           f"{max(v for k, v in errs.items() if k.startswith('mu')):.6g}, Adam nu "
           f"{max(v for k, v in errs.items() if k.startswith('nu')):.6g}; untouched rows bit-identical")
     del cpu_state, before
-
-    dense, ids, labels = batches[-1]
-    step_ms = time_ms(lambda: engine.train_step(state, dense, ids, labels), iters=10)
-    t_host = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        engine.train_step(state, dense, ids, labels)
-        torch.cuda.synchronize()
-        t_host.append(time.perf_counter() - t0)
-    host_ms = float(np.median(t_host)) * 1e3
-    name = engine.model.name
-    print(f"Engine.train_step ({name}) at {batch_size}: {step_ms:.4f} ms per step (CUDA events, 10 "
-          f"back-to-back steps), {batch_size / step_ms * 1e3:.0f} examples/s on {card}")
-    print(f"Engine.train_step ({name}) at {batch_size} one at a time (host clock to synchronize): "
-          f"{host_ms:.4f} ms median of 5, {batch_size / host_ms * 1e3:.0f} examples/s on {card}")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    busy = profile(lambda: engine.train_step(state, dense, ids, labels), top=20)
-    print(f"Engine.train_step ({name}) at {batch_size}: {busy:.4f} ms of kernel time per step "
-          f"(profiler), {batch_size / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
-    return launches
+    return state
 
 
 def training3_phase(engine3, schema, card: str, gen: torch.Generator) -> dict[str, int]:
@@ -1241,6 +1280,66 @@ def training3_phase(engine3, schema, card: str, gen: torch.Generator) -> dict[st
     print(f"Engine.train_step (slice 3) at {BATCH}: {busy:.4f} ms of kernel time per step (profiler), "
           f"{BATCH / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
     return launches
+
+
+def repaired_shapes_phase(card: str, gen: torch.Generator) -> None:
+    """Shapes the card once refused (ROADMAP queue 3), served and trained one
+    step at REPAIR_BATCH examples against the CPU plain path: bf16 xDeepFM at
+    dim 32 (CIN(128,128)) and with CIN(256,256), which take the fused CIN
+    kernels, with CIN(100,100), which goes layer by layer, and bf16 DCN at
+    dim 40 (x0 of 1,053, the cross stack's wide-row path). The route must
+    launch the kernels ``cin2_takes`` names and no others."""
+    from recmodels_tpu_torch.data import SyntheticSource
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
+        cin2_backward, cin2_forward, cin_layer_forward, dcn_cross_stack_forward,
+    )
+    from recmodels_tpu_torch.serve import export_model, load_predictor
+    from recmodels_tpu_torch.train.engine import Engine
+    from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
+
+    dev = torch.device("cuda")
+    fused, layered = {cin2_forward: True, cin_layer_forward: False}, {cin2_forward: False, cin_layer_forward: True}
+    cases = (
+        ("xdeepfm", 32, dict(cin_sizes=CIN, hidden=HIDDEN), fused, {cin2_backward: True}),
+        ("xdeepfm", DIM, dict(cin_sizes=(256, 256), hidden=HIDDEN), fused, {cin2_backward: True}),
+        ("xdeepfm", DIM, dict(cin_sizes=(100, 100), hidden=HIDDEN), layered, {cin2_backward: False}),
+        ("dcn", 40, dict(hidden=DCN_HIDDEN, n_cross=N_CROSS), {dcn_cross_stack_forward: True}, {}),
+    )
+    for model, dim, kw, serve_route, train_route in cases:
+        title = f"bf16 {model}, dim {dim}, {kw}"
+        print(f"== repaired shapes ({title}), {REPAIR_BATCH} examples, vocab {REPAIR_VOCAB}")
+        cfg = TrainConfig(model=model, bf16=True, vocab_size=REPAIR_VOCAB, embed_dim=dim,
+                          batch_size=REPAIR_BATCH, seed=SEED, **kw)
+        schema = build_schema(cfg)
+        engine = Engine(build_model(model, schema, **cfg.model_kwargs()))
+        b = next(iter(SyntheticSource(schema, batch_size=REPAIR_BATCH, seed=31)))
+        state = engine.init(seed=SEED, device=dev)
+        liven(state, gen, 10.0, dim)
+        with tempfile.TemporaryDirectory() as art:
+            export_model(art, cfg, engine, state)
+            del state
+            pred = load_predictor(art, device="cuda")
+            for k in serve_route:
+                k.launches = 0
+            got = pred.predict_logits(b.dense, b.ids)
+            launched = {k.__name__: k.launches for k in serve_route}
+            print(f"serving launches: {launched}")
+            for k, want in serve_route.items():
+                check((k.launches > 0) is want, f"{title}: serving {'launches' if want else 'skips'} {k.__name__}")
+            cpu = load_predictor(art, device="cpu").predict_logits(b.dense, b.ids)
+        check(bool(np.all(np.isfinite(got))), f"{title}: finite logits")
+        err, scale = rel_err(torch.as_tensor(got), torch.as_tensor(cpu))
+        print(f"GPU vs CPU logits: max err {err:.6g}, max |ref| {scale:.6g}, tol {LOGIT_REL_TOL * scale:.6g}")
+        check(err <= LOGIT_REL_TOL * scale, f"{title}: GPU logits match the CPU plain path")
+        route = {**serve_route, **train_route}
+        for k in route:
+            k.launches = 0
+        batch = tuple(torch.as_tensor(a, device=dev) for a in (b.dense, b.ids, b.labels))
+        one_step_check(engine, engine.init(seed=SEED, device=dev), batch, gen, 10.0, dim)
+        print(f"training launches: { {k.__name__: k.launches for k in route} }")
+        for k, want in route.items():
+            check((k.launches > 0) is want, f"{title}: the step {'launches' if want else 'skips'} {k.__name__}")
 
 
 def adam_dense_check(engine3, ids, card: str, gen: torch.Generator) -> None:

@@ -2,10 +2,10 @@
 // (bf16 or f32), with x_{l+1} = x0 * (x_l . w_l) + b_l + x_l, x_0 = x0.
 //
 // Replaces: recmodels_tpu/ops/pallas/interactions_tpu.py::_dcn_forward (the
-// Pallas kernel _dcn_kernel). As there, all L layers run in one launch and
-// x_l does not go to device memory between layers. The TPU kernel takes
-// whole 256-row tiles and sends a ragged batch to the jnp reference; this
-// kernel takes any B (and d and L within the limits below).
+// Pallas kernel _dcn_kernel). As there, all L layers run in one launch and,
+// on the register path, x_l does not go to device memory between layers.
+// The TPU kernel takes whole 256-row tiles and sends a ragged batch to the
+// jnp reference; this file takes any B, d and L.
 //
 // Rounding points (those of recmodels_tpu_torch/ops/interactions.py
 // dcn_cross_layer, which are the JAX reference's): t = x_l . w_l is an f32
@@ -17,16 +17,27 @@
 // 429, L = 3, bf16) it reads 14.1 MB of x0 and writes 14.1 MB; the
 // arithmetic is about 5 operations a value a layer.
 //
-// Design: one warp per row. Lane j holds the row's values j, j + 32, ... in
-// registers (x0 and x_l, as f32: 14 of each at d = 429), so a row is read
-// once and written once with 2-byte accesses. Those need no alignment: a
-// bf16 row of odd d starts 2 bytes off a 4-byte boundary every other row,
-// and a wider vector load would fault there. Each layer sums the lane's
-// products, reduces across the warp by xor shuffles (every lane ends with
-// the same t) and updates its values. w and b of all layers sit in shared
-// memory, copied once per block, and the blocks walk the rows. So the
-// kernel takes d <= 1024 (32 values a lane) and 2 * L * d * sizeof(T) <=
-// 48 KB; rm_dcn_cross_stack refuses other shapes (the wrapper checks first).
+// Design, two paths chosen by shape (the wrapper's dcn_rows_in_registers):
+//  * registers (d <= 1024 and w and b of all layers within 48 KB, so DCN's
+//    d = 429 up to 28 bf16 or 14 f32 layers): one warp per row. Lane j
+//    holds the row's values j, j + 32, ... in registers (x0 and x_l, as
+//    f32: 14 of each at d = 429), so a row is read once and written once
+//    with 2-byte accesses. Those need no alignment: a bf16 row of odd d
+//    starts 2 bytes off a 4-byte boundary every other row, and a wider
+//    vector load would fault there. Each layer sums the lane's products,
+//    reduces across the warp by xor shuffles (every lane ends with the same
+//    t) and updates its values. w and b of all layers sit in shared memory,
+//    copied once per block, and the blocks walk the rows;
+//  * wide rows (any other d and L: bench.py --model dcn --dim 40 gives x0
+//    of 1,053; more than 14 f32 layers at 429): one block of 256 threads
+//    per row, the blocks walking the rows. Thread j owns columns j, j + 256,
+//    ... of the row; x_l lives in the output row (each thread reads back
+//    only what it wrote, so no barrier guards it), x0, w_l and b_l are read
+//    from L2 layer by layer. t sums thread j's products in column order,
+//    then each warp by xor shuffles, then the eight warp sums in warp
+//    order, one thread, no atomics: runs repeat bit for bit, and in bf16
+//    the products are exact, so the wrapper's dcn_cross_stack_in_kernel_order
+//    gives the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,6 +135,41 @@ __global__ void dcn_cross_kernel(const T* __restrict__ x0,
   }
 }
 
+// wide rows: one block per row; x_l in the output row
+template <typename T>
+__global__ void __launch_bounds__(kThreads) dcn_cross_wide_kernel(const T* __restrict__ x0,
+                                                                  const T* __restrict__ w,
+                                                                  const T* __restrict__ bias,
+                                                                  T* __restrict__ out, int b,
+                                                                  int d, int n_layers) {
+  __shared__ float part[kWarps];
+  __shared__ float t_shared;
+  const int tid = threadIdx.x;
+  for (long long r = blockIdx.x; r < b; r += gridDim.x) {
+    const T* xr = x0 + r * d;
+    T* orow = out + r * d;
+    for (int c = tid; c < d; c += kThreads) orow[c] = xr[c];
+    for (int l = 0; l < n_layers; ++l) {
+      const T* wl = w + (long long)l * d;
+      const T* bl = bias + (long long)l * d;
+      float t = 0.f;
+      for (int c = tid; c < d; c += kThreads) t = fmaf(to_f32(orow[c]), to_f32(wl[c]), t);
+      t = warp_sum(t);
+      if ((tid & 31) == 0) part[tid >> 5] = t;
+      __syncthreads();
+      if (tid == 0) {
+        float sum = part[0];
+        for (int k = 1; k < kWarps; ++k) sum += part[k];
+        t_shared = round_to<T>(sum);
+      }
+      __syncthreads();
+      const float tr = t_shared;
+      for (int c = tid; c < d; c += kThreads)
+        orow[c] = from_f32<T>(cross<T>(to_f32(xr[c]), tr, to_f32(bl[c]), to_f32(orow[c])));
+    }
+  }
+}
+
 template <typename T, int V>
 int launch_v(const void* x0, const void* w, const void* bias, void* out, int b,
              int d, int n_layers, unsigned blocks, cudaStream_t s) {
@@ -140,16 +186,20 @@ int launch(const void* x0, const void* w, const void* bias, void* out, int b,
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   // enough blocks to fill the card; each walks its share of the rows
+  if (d > 32 * 32 || 2 * (long long)n_layers * d * (long long)sizeof(T) > kSmemBytes) {
+    const unsigned blocks = (unsigned)(b < 8LL * sms ? b : 8LL * sms);
+    dcn_cross_wide_kernel<T><<<blocks, kThreads, 0, s>>>((const T*)x0, (const T*)w, (const T*)bias,
+                                                          (T*)out, b, d, n_layers);
+    return (int)cudaGetLastError();
+  }
   const long long want = ((long long)b + kWarps - 1) / kWarps;
   const unsigned blocks = (unsigned)(want < 4LL * sms ? want : 4LL * sms);
-  if (2 * (long long)n_layers * d * (long long)sizeof(T) > kSmemBytes) return (int)cudaErrorInvalidValue;
   if (d <= 32) return launch_v<T, 1>(x0, w, bias, out, b, d, n_layers, blocks, s);
   if (d <= 64) return launch_v<T, 2>(x0, w, bias, out, b, d, n_layers, blocks, s);
   if (d <= 128) return launch_v<T, 4>(x0, w, bias, out, b, d, n_layers, blocks, s);
   if (d <= 256) return launch_v<T, 8>(x0, w, bias, out, b, d, n_layers, blocks, s);
   if (d <= 512) return launch_v<T, 16>(x0, w, bias, out, b, d, n_layers, blocks, s);
-  if (d <= 1024) return launch_v<T, 32>(x0, w, bias, out, b, d, n_layers, blocks, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_v<T, 32>(x0, w, bias, out, b, d, n_layers, blocks, s);
 }
 
 }  // namespace

@@ -41,8 +41,8 @@ _SIGNATURES = {
     "rm_gather_rows": [_I, _P, _P, _P, _L, _I, _I, _P],
     # device, full, x_dm, wide_sum, b, m, d, is_bf16, stream
     "rm_split_fused_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # device, x0, w1, w2, x1, p1, p2, q, b, d, m, h1, h2, stream
-    "rm_cin2_forward": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # device, x0, w1, w2, x1, p1, p2, q, scratch, b, d, m, h1, h2, stream
+    "rm_cin2_forward": [_I] + [_P] * 8 + [_I] * 5 + [_P],
     # device, g_dm, g_ws, out, b, m, d, is_bf16, stream
     "rm_split_fused_rows_backward": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     # device, x0, x1, w1, w2, q, g1p, g2p, gx0, gw1, gw2, scratch, b, d, m, h1, h2, stream
@@ -65,8 +65,12 @@ _SIGNATURES = {
 }
 # functions that return something other than a CUDA error code
 _RESTYPES = {
-    # b, d, m, h1, h2 -> scratch bytes of rm_cin2_backward, or -1
-    "rm_cin2_backward_scratch": ([_I] * 5, _L),
+    # d, m, h1, h2 -> 1 if the fused CIN kernels take the shape
+    "rm_cin2_takes": ([_I] * 4, _I),
+    # b, d, m, h1, h2, want_q -> scratch bytes of rm_cin2_forward, or -1
+    "rm_cin2_forward_scratch": ([_I] * 6, _L),
+    # device, b, d, m, h1, h2 -> scratch bytes of rm_cin2_backward, or -1
+    "rm_cin2_backward_scratch": ([_I] * 6, _L),
     # rows, hk, m, hn -> scratch bytes of rm_cin_layer_backward, or -1
     "rm_cin_layer_backward_scratch": ([_L, _I, _I, _I], _L),
     "rm_error_string": ([_I], ctypes.c_char_p),

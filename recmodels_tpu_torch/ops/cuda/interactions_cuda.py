@@ -153,18 +153,39 @@ def cin2_forward_reference(x02: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
     return (x1 if want_x1 else None), p1, p2, (q if want_q else None)
 
 
+CIN2_MAX_D = 32  # an example's rows fill 16 or 32 slots of a 128-slot tile
+CIN2_MAX_M = 32  # pairs (h, i) with i padded to 32
+CIN2_MAX_H = 256  # the widest wgmma product: N = 256
+
+
+def cin2_takes(d: int, m: int, h1: int, h2: int, dtype: torch.dtype) -> bool:
+    """Whether the fused kernels (``csrc/cin2.cu``, ``csrc/cin2_bwd.cu``)
+    take a two-layer CIN of d rows per example, m fields and layer widths h1,
+    h2 in ``dtype``: bf16, d and m up to 32, h1 and h2 multiples of 16 from
+    16 to 256. ``cin_stack_dm_flat`` routes by it on every device; the
+    kernels' own check (``rm_cin2_takes``) is the same."""
+    return (dtype == torch.bfloat16 and 1 <= d <= CIN2_MAX_D and 1 <= m <= CIN2_MAX_M
+            and all(h % 16 == 0 and 16 <= h <= CIN2_MAX_H for h in (h1, h2)))
+
+
+def _cin2_refusal(what: str, d: int, m: int, h1: int, h2: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} kernel: d={d}, m={m}, h1={h1}, h2={h2}; it takes d <= {CIN2_MAX_D}, m <= "
+        f"{CIN2_MAX_M} and h1, h2 multiples of 16 up to {CIN2_MAX_H} (cin2_takes)")
+
+
 def cin2_forward(x02: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, d: int,
                  want_x1: bool = False, want_q: bool = False):
     """Fused 2-layer CIN forward on bf16 rows: same arguments and results as
-    ``cin2_forward_reference``. Any B; on CUDA, d <= 16 and h1, h2 multiples
-    of 16 up to 128."""
+    ``cin2_forward_reference``. Any B; on CUDA, the shapes ``cin2_takes``
+    admits."""
     if x02.device.type == "cpu":
         return cin2_forward_reference(x02, w1, w2, d, want_x1, want_q)
     dev_t = cuda_device(x02, "cin2_forward")
     bf16 = (torch.bfloat16,)
     require("cin2_forward x0", x02, bf16, 2, dev_t)
-    require("cin2_forward w1", w1, bf16, 2, dev_t, align=32)
-    require("cin2_forward w2", w2, bf16, 2, dev_t, align=32)
+    require("cin2_forward w1", w1, bf16, 2, dev_t)
+    require("cin2_forward w2", w2, bf16, 2, dev_t)
     rows, m = x02.shape
     h1 = w1.shape[1] // m
     h2 = w2.shape[1] // m
@@ -173,11 +194,8 @@ def cin2_forward(x02: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, d: int,
             f"cin2_forward: x0 {tuple(x02.shape)}, w1 {tuple(w1.shape)}, "
             f"w2 {tuple(w2.shape)} and d={d} do not fit together"
         )
-    if d > 16 or h1 % 16 or h2 % 16 or not (16 <= h1 <= 128 and 16 <= h2 <= 128):
-        raise NotImplementedError(
-            f"cin2_forward kernel: d={d}, h1={h1}, h2={h2}; it takes d <= 16 and "
-            "h1, h2 multiples of 16 up to 128"
-        )
+    if not cin2_takes(d, m, h1, h2, x02.dtype):
+        raise _cin2_refusal("cin2_forward", d, m, h1, h2)
     b = rows // d
 
     def new(*shape):
@@ -186,11 +204,14 @@ def cin2_forward(x02: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, d: int,
     x1 = new(rows, h1) if want_x1 else None
     q = new(b, m * h1) if want_q else None
     p1, p2 = new(b, h1), new(b, h2)
+    lib = build.library()
+    scratch = torch.empty((max(lib.rm_cin2_forward_scratch(b, d, m, h1, h2, int(want_q)), 1),),
+                          dtype=torch.uint8, device=dev_t)
     dev, stream = device_and_stream(dev_t)
-    err = build.library().rm_cin2_forward(
+    err = lib.rm_cin2_forward(
         dev, x02.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         None if x1 is None else x1.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-        None if q is None else q.data_ptr(), b, d, m, h1, h2, stream,
+        None if q is None else q.data_ptr(), scratch.data_ptr(), b, d, m, h1, h2, stream,
     )
     build.check(err, "cin2_forward")
     cin2_forward.launches += 1
@@ -236,8 +257,8 @@ def cin2_backward_reference(x02, x1, w1, w2, q, g1p, g2p, d: int):
 
 def cin2_backward(x02, x1, w1, w2, q, g1p, g2p, d: int):
     """Fused 2-layer CIN backward on bf16 tensors: same arguments and
-    results as ``cin2_backward_reference``. Any B; on CUDA, d <= 16, 4 <= m
-    <= 32 and h1, h2 multiples of 16 up to 128."""
+    results as ``cin2_backward_reference``. Any B; on CUDA, the shapes
+    ``cin2_takes`` admits."""
     if x02.device.type == "cpu":
         return cin2_backward_reference(x02, x1, w1, w2, q, g1p, g2p, d)
     dev_t = cuda_device(x02, "cin2_backward")
@@ -246,26 +267,24 @@ def cin2_backward(x02, x1, w1, w2, q, g1p, g2p, d: int):
     h1 = w1.shape[1] // m
     h2 = w2.shape[1] // m
     b = rows // d
-    for what, t, shape, align in (
-        ("x0", x02, (rows, m), 16), ("x1", x1, (rows, h1), 16), ("w1", w1, (m, m * h1), 32),
-        ("w2", w2, (h1, m * h2), 32), ("Q", q, (b, m * h1), 16), ("g1p", g1p, (b, h1), 16),
-        ("g2p", g2p, (b, h2), 16),
+    for what, t, shape in (
+        ("x0", x02, (rows, m)), ("x1", x1, (rows, h1)), ("w1", w1, (m, m * h1)),
+        ("w2", w2, (h1, m * h2)), ("Q", q, (b, m * h1)), ("g1p", g1p, (b, h1)), ("g2p", g2p, (b, h2)),
     ):
-        require(f"cin2_backward {what}", t, bf16, 2, dev_t, align=align)
+        require(f"cin2_backward {what}", t, bf16, 2, dev_t)
         if tuple(t.shape) != shape or rows % d:
             raise ValueError(f"cin2_backward: {what} {tuple(t.shape)}, expected {shape} (d={d})")
+    if not cin2_takes(d, m, h1, h2, x02.dtype):
+        raise _cin2_refusal("cin2_backward", d, m, h1, h2)
     lib = build.library()
-    scratch_bytes = lib.rm_cin2_backward_scratch(b, d, m, h1, h2)
+    dev, stream = device_and_stream(dev_t)
+    scratch_bytes = lib.rm_cin2_backward_scratch(dev, b, d, m, h1, h2)
     if scratch_bytes < 0:
-        raise NotImplementedError(
-            f"cin2_backward kernel: d={d}, m={m}, h1={h1}, h2={h2}; it takes d <= 16, "
-            "4 <= m <= 32 and h1, h2 multiples of 16 up to 128"
-        )
+        raise RuntimeError(f"cin2_backward: no scratch size for device {dev}")
     gx0 = torch.empty((rows, m), dtype=torch.bfloat16, device=dev_t)
     gw1 = torch.empty((m, m * h1), dtype=torch.bfloat16, device=dev_t)
     gw2 = torch.empty((h1, m * h2), dtype=torch.bfloat16, device=dev_t)
     scratch = torch.empty((max(scratch_bytes, 1),), dtype=torch.uint8, device=dev_t)
-    dev, stream = device_and_stream(dev_t)
     err = lib.rm_cin2_backward(
         dev, x02.data_ptr(), x1.data_ptr(), w1.data_ptr(), w2.data_ptr(), q.data_ptr(),
         g1p.data_ptr(), g2p.data_ptr(), gx0.data_ptr(), gw1.data_ptr(), gw2.data_ptr(),
@@ -515,12 +534,14 @@ def cin_layer_2d(xk2: torch.Tensor, x02: torch.Tensor, w2: torch.Tensor) -> torc
 # ------------------------------------------------------------------ CIN ops
 def cin_stack_dm_flat(x0_dm: torch.Tensor, w2s) -> torch.Tensor:
     """CIN pools [B, sum(H)] from a D-major field matrix [B, D, m] and flat
-    weights [H_k, m*H_next]. Two layers in bf16 take the fused kernels
-    (``Cin2``); every other CIN runs layer by layer (``CinLayer2d``), each
-    layer's pool the sum over D in the activation dtype."""
+    weights [H_k, m*H_next]. Two layers of the shapes ``cin2_takes`` admits
+    take the fused kernels (``Cin2``); every other CIN runs layer by layer
+    (``CinLayer2d``), each layer's pool the sum over D in the activation
+    dtype. The route depends on shapes and dtype alone, so the CPU takes the
+    plain versions of the kernels the card runs."""
     b, d, m = x0_dm.shape
     x02 = x0_dm.reshape(b * d, m)
-    if len(w2s) == 2 and x0_dm.dtype == torch.bfloat16:
+    if len(w2s) == 2 and cin2_takes(d, m, w2s[0].shape[1] // m, w2s[1].shape[1] // m, x0_dm.dtype):
         if torch.is_grad_enabled() and any(t.requires_grad for t in (x02, *w2s)):
             p1, p2 = Cin2.apply(x02, w2s[0], w2s[1], d)
         else:
@@ -627,15 +648,25 @@ def fm_pairwise_op(emb: torch.Tensor) -> torch.Tensor:
 # -------------------------------------------------------- DCN cross stack
 dcn_cross_stack_forward_reference = interactions.dcn_cross_stack
 
-DCN_MAX_D = 1024  # a lane holds at most 32 of a row's values in registers
-DCN_SMEM_BYTES = 48 * 1024  # w and b of every layer sit in shared memory
+DCN_MAX_D = 1024  # the register path: a lane holds at most 32 of a row's values
+DCN_SMEM_BYTES = 48 * 1024  # and w and b of every layer sit in shared memory
+DCN_WIDE_THREADS = 256  # the wide path: one block of 256 threads per row
+
+
+def dcn_rows_in_registers(d: int, n_layers: int, dtype: torch.dtype) -> bool:
+    """Which of ``csrc/dcn_cross.cu``'s two paths takes x0 [B, d] with L
+    layers: a warp per row with the row in registers (d <= ``DCN_MAX_D``,
+    w and b within ``DCN_SMEM_BYTES``; DCN's d = 429 up to 28 bf16 or 14 f32
+    layers), else a block per row."""
+    itemsize = torch.finfo(dtype).bits // 8
+    return d <= DCN_MAX_D and 2 * n_layers * d * itemsize <= DCN_SMEM_BYTES
 
 
 def dcn_cross_stack_forward(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """All L cross layers in one launch: x0 [B, d], w, b [L, d] (one dtype,
     bf16 or f32) -> x_L [B, d], the plain version's function and rounding
-    points. Any B; on CUDA, d <= ``DCN_MAX_D`` and w and b together within
-    ``DCN_SMEM_BYTES`` (at DCN's d = 429: L <= 28 in bf16, 14 in f32)."""
+    points. Any B, d and L (``dcn_rows_in_registers`` says which path of
+    the kernel runs)."""
     if x0.device.type == "cpu":
         return dcn_cross_stack_forward_reference(x0, w, b)
     dev_t = cuda_device(x0, "dcn_cross_stack")
@@ -648,11 +679,6 @@ def dcn_cross_stack_forward(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor) 
     if w.shape[1] != d or b.shape != w.shape:
         raise ValueError(f"dcn_cross_stack: x0 {tuple(x0.shape)}, w {tuple(w.shape)} and "
                          f"b {tuple(b.shape)} do not fit together")
-    wb_bytes = 2 * n_layers * d * x0.element_size()
-    if d > DCN_MAX_D or wb_bytes > DCN_SMEM_BYTES:
-        raise ValueError(f"dcn_cross_stack kernel: d={d} and L={n_layers} in {x0.dtype}; it takes "
-                         f"d <= {DCN_MAX_D} and w and b within {DCN_SMEM_BYTES} bytes (these take "
-                         f"{wb_bytes})")
     out = torch.empty_like(x0)
     dev, stream = device_and_stream(dev_t)
     err = build.library().rm_dcn_cross_stack(
@@ -683,24 +709,32 @@ def dcn_cross_stack_scale(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor) ->
 
 def dcn_cross_stack_in_kernel_order(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The plain version with each t = x_l . w_l summed as the kernel sums
-    it: lane j adds the products of columns j, j + 32, ... in turn, then the
-    warp adds its 32 partial sums by xor halving (16, 8, 4, 2, 1). In bf16 the
-    products are exact in f32, so this is the kernel's result bit for bit; in
-    f32 it rounds each product where the kernel's fmaf does not. For checks."""
+    it. On the register path (``dcn_rows_in_registers``) lane j adds the
+    products of columns j, j + 32, ... in turn, then the warp adds its 32
+    partial sums by xor halving (16, 8, 4, 2, 1). On the wide path thread j
+    of 256 adds columns j, j + 256, ..., each warp halves its 32 sums the same
+    way, and the eight warp sums are added in warp order. In bf16 the
+    products are exact in f32, so this is the kernel's result bit for bit;
+    in f32 it rounds each product where the kernel's fmaf does not. For
+    checks."""
     bsz, d = x0.shape
-    pad = -d % 32
+    threads = 32 if dcn_rows_in_registers(d, w.shape[0], x0.dtype) else DCN_WIDE_THREADS
+    pad = -d % threads
     lanes = torch.arange(32, device=x0.device)
     xl = x0
     for layer in range(w.shape[0]):
         prods = (torch.nn.functional.pad(xl.float(), (0, pad))
-                 * torch.nn.functional.pad(w[layer].float(), (0, pad))).reshape(bsz, -1, 32)
-        acc = torch.zeros((bsz, 32), device=x0.device)
+                 * torch.nn.functional.pad(w[layer].float(), (0, pad))).reshape(bsz, -1, threads)
+        acc = torch.zeros((bsz, threads), device=x0.device)
         for k in range(prods.shape[1]):
             acc = acc + prods[:, k]
+        acc = acc.reshape(bsz, threads // 32, 32)
         for o in (16, 8, 4, 2, 1):
-            acc = acc + acc[:, lanes ^ o]
-        t = acc[:, 0].to(x0.dtype)
-        xl = x0 * t[:, None] + b[layer][None, :] + xl
+            acc = acc + acc[:, :, lanes ^ o]
+        t = acc[:, 0, 0]
+        for warp in range(1, threads // 32):
+            t = t + acc[:, warp, 0]
+        xl = x0 * t.to(x0.dtype)[:, None] + b[layer][None, :] + xl
     return xl
 
 

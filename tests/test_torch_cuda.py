@@ -17,6 +17,7 @@ from recmodels_tpu_torch.embedding.update import (
     sorted_adam_update_reference,
 )
 from recmodels_tpu_torch.nn.mlp import ProductF32
+from recmodels_tpu_torch.ops.cuda import build
 from recmodels_tpu_torch.ops.cuda import interactions_cuda as K
 
 pytestmark = pytest.mark.cuda
@@ -67,12 +68,21 @@ def test_split_fused_rows_kernel(cuda, b, dtype):
     torch.testing.assert_close(ws, ws_ref, rtol=1e-5, atol=1e-5)  # f32 sums in another order
 
 
-@pytest.mark.parametrize("b,d,m,h1,h2", [
-    (1, 16, 26, 128, 128),
-    (33, 16, 26, 128, 128),  # ragged: 2 full blocks and one example
+_CIN2_SHAPES = [
+    (1, 16, 26, 128, 128),   # one served request
+    (33, 16, 26, 128, 128),  # ragged: 4 full tiles of 8 examples and one example
     (20, 8, 26, 16, 32),
     (5, 3, 7, 48, 16),
-])
+    (37, 32, 26, 128, 128),  # d = 32 (bench.py --dim 32): 4 examples a tile, ragged
+    (9, 1, 26, 128, 128),    # d = 1
+    (11, 16, 4, 64, 16),     # m = 4
+    (21, 16, 26, 256, 256),  # the widest layers
+    (13, 32, 32, 256, 240),  # every limit at once, h2 not a multiple of 64
+    (300, 16, 26, 128, 128),
+]
+
+
+@pytest.mark.parametrize("b,d,m,h1,h2", _CIN2_SHAPES)
 def test_cin2_forward_kernel(cuda, b, d, m, h1, h2):
     g = _gen(cuda, 1)
     x02 = torch.randn((b * d, m), generator=g, device=cuda).to(torch.bfloat16)
@@ -164,13 +174,7 @@ def test_adagrad_update_kernel_is_bit_exact(cuda, rows, dim, n, hot, grad_dtype)
     assert torch.equal(table[~touched], t0[~touched])
 
 
-@pytest.mark.parametrize("b,d,m,h1,h2", [
-    (1, 16, 26, 128, 128),
-    (33, 16, 26, 128, 128),  # ragged: 2 full blocks and one example
-    (1100, 16, 26, 128, 128),  # two gw2 slices
-    (20, 8, 26, 16, 32),
-    (5, 3, 7, 48, 16),
-])
+@pytest.mark.parametrize("b,d,m,h1,h2", _CIN2_SHAPES + [(1100, 16, 26, 128, 128)])  # several slices
 def test_cin2_backward_kernel(cuda, b, d, m, h1, h2):
     g = _gen(cuda, 4)
     x02 = torch.randn((b * d, m), generator=g, device=cuda).to(torch.bfloat16)
@@ -402,8 +406,11 @@ def test_fm_pairwise_kernel_refuses_a_view_without_unit_stride(cuda):
     (1, 429, 3),      # DCN's width, odd: bf16 rows 858 bytes apart
     (97, 429, 3),     # ragged B
     (300, 5, 2),
-    (33, 1024, 6),    # the largest d; in f32 w and b fill the 48 KB exactly
+    (33, 1024, 6),    # the largest d of the register path; in f32 w and b fill the 48 KB exactly
     (20, 429, 0),     # no layers: x0
+    (61, 1053, 3),    # bench.py --model dcn --dim 40: the wide-row path
+    (40, 1677, 3),    # --dim 64
+    (50, 429, 15),    # f32: w and b past 48 KB, the wide-row path
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dcn_cross_kernel(cuda, b, d, n_layers, dtype):
@@ -432,17 +439,73 @@ def test_dcn_cross_kernel(cuda, b, d, n_layers, dtype):
     assert torch.equal(got, K.dcn_cross_stack_forward(x0, w, bias))  # no atomics: runs repeat
 
 
+def test_cin2_takes_matches_the_kernels_own_check(cuda):
+    """The route's shape function and the kernels' check agree on a grid
+    around every limit."""
+    lib = build.library()
+    for d in (1, 16, 17, 32, 33):
+        for m in (1, 26, 32, 33):
+            for h1 in (8, 16, 100, 128, 240, 256, 272):
+                for h2 in (16, 128, 256, 272):
+                    assert bool(lib.rm_cin2_takes(d, m, h1, h2)) is K.cin2_takes(d, m, h1, h2, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d,hs", [(32, (128, 128)), (32, (256, 256)), (16, (100, 100)), (32, (100, 100))])
+def test_two_layer_bf16_cin_on_the_card_matches_the_cpu(cuda, d, hs):
+    """``cin_stack_dm_flat`` on the card against the same call on the CPU
+    (the plain versions of the same route): d = 32 with CIN(128,128) and
+    CIN(256,256) take the fused kernels, CIN(100,100) goes layer by layer.
+    Pools by 1% of the largest, grads by the repo's bf16 rule (3%)."""
+    g = _gen(cuda, 17)
+    b, m = 40, 26
+    h1, h2 = hs
+    x = torch.randn((b, d, m), generator=g, device=cuda).to(torch.bfloat16)
+    w1 = (torch.randn((m, m * h1), generator=g, device=cuda) * (2.0 / (m * m)) ** 0.5).to(torch.bfloat16)
+    w2 = (torch.randn((h1, m * h2), generator=g, device=cuda) * (2.0 / (h1 * m)) ** 0.5).to(torch.bfloat16)
+    cot = torch.randn((b, h1 + h2), generator=g, device=cuda).to(torch.bfloat16)
+    fused = K.cin2_takes(d, m, h1, h2, torch.bfloat16)
+    assert fused is (hs != (100, 100))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        ins = [t.to(dev).clone().requires_grad_(True) for t in (x, w1, w2)]
+        counts = (K.cin2_forward.launches, K.cin2_backward.launches, K.cin_layer_forward.launches)
+        pools = K.cin_stack_dm_flat(ins[0], ins[1:])
+        grads = torch.autograd.grad((pools.float() * cot.to(dev).float()).sum(), ins)
+        torch.cuda.synchronize()
+        launched = (K.cin2_forward.launches - counts[0], K.cin2_backward.launches - counts[1],
+                    K.cin_layer_forward.launches - counts[2])
+        if dev.type == "cuda":
+            assert launched == ((1, 1, 0) if fused else (0, 0, 2))
+        outs.append([pools, *grads])
+    for got, want, frac in zip(outs[0], outs[1], (BF16_REL_TOL, 0.03, 0.03, 0.03)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        err = (got.detach().float().cpu() - want.detach().float()).abs().max().item()
+        assert err <= frac * want.detach().float().abs().max().item()
+
+
 @pytest.mark.parametrize("d,n_layers,dtype", [
     (1025, 1, torch.bfloat16),   # a row past 32 values a lane
     (1000, 7, torch.float32),    # w and b past 48 KB of shared memory
 ])
-def test_dcn_cross_kernel_refuses_shapes_past_its_limits(cuda, d, n_layers, dtype):
-    x0 = torch.zeros((4, d), device=cuda, dtype=dtype)
-    w = torch.zeros((n_layers, d), device=cuda, dtype=dtype)
+def test_dcn_cross_kernel_takes_shapes_past_its_register_path(cuda, d, n_layers, dtype):
+    """Shapes the register path cannot hold go to the wide-row path: they
+    run, match the plain version within the share of the scale, in bf16
+    bit for bit the plain version in the wide path's order, and repeat."""
+    g = _gen(cuda, 18)
+    assert not K.dcn_rows_in_registers(d, n_layers, dtype)
+    x0 = torch.randn((4, d), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((n_layers, d), generator=g, device=cuda) / d ** 0.5).to(dtype)
+    bias = (torch.randn((n_layers, d), generator=g, device=cuda) * 0.1).to(dtype)
     before = K.dcn_cross_stack_forward.launches
-    with pytest.raises(ValueError, match="it takes d <= 1024 and w and b within 49152 bytes"):
-        K.dcn_cross_stack_forward(x0, w, w)
-    assert K.dcn_cross_stack_forward.launches == before
+    got = K.dcn_cross_stack_forward(x0, w, bias)
+    torch.cuda.synchronize()
+    assert K.dcn_cross_stack_forward.launches == before + 1
+    want = K.dcn_cross_stack_forward_reference(x0, w, bias)
+    rel = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-5
+    assert torch.all((got.double() - want.double()).abs() <= rel * K.dcn_cross_stack_scale(x0, w, bias))
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, K.dcn_cross_stack_in_kernel_order(x0, w, bias))
+    assert torch.equal(got, K.dcn_cross_stack_forward(x0, w, bias))
 
 
 def test_fm_and_dcn_functions_on_the_card(cuda):

@@ -152,7 +152,8 @@ def test_cin2_reference_f32_matches_jax(cin_inputs, shape):
         np.testing.assert_allclose(g.numpy(), w, rtol=F32_TOL, atol=F32_TOL * np.abs(w).max())
 
 
-@pytest.mark.parametrize("shape", [(16, 8, 26, 16, 16), (4, 16, 26, 128, 128), (3, 5, 7, 16, 32)])
+@pytest.mark.parametrize("shape", [(16, 8, 26, 16, 16), (4, 16, 26, 128, 128), (3, 5, 7, 16, 32),
+                                   (3, 32, 26, 16, 16)])
 def test_cin2_reference_bf16_within_rule_of_f32_oracle(cin_inputs, shape):
     b, d, m, h1, h2 = shape
     x_dm, w1, w2 = cin_inputs(b, d, m, h1, h2, seed=4)
@@ -214,7 +215,8 @@ def test_cin2_backward_reference_f32_matches_jax_vjp(cin_inputs, shape):
         np.testing.assert_allclose(g.numpy(), w, rtol=F32_TOL, atol=F32_TOL * np.abs(w).max())
 
 
-@pytest.mark.parametrize("shape", [(16, 8, 26, 16, 16), (4, 16, 26, 128, 128), (3, 5, 7, 16, 32)])
+@pytest.mark.parametrize("shape", [(16, 8, 26, 16, 16), (4, 16, 26, 128, 128), (3, 5, 7, 16, 32),
+                                   (3, 32, 26, 16, 16)])
 def test_cin2_backward_reference_bf16_within_rule_of_f32_vjp(cin_inputs, shape):
     """bf16 rounds t1p, gx1, gp, the pairs and the products the kernel
     rounds; the f32 oracle is jax.vjp on the same bf16-valued inputs."""
@@ -282,6 +284,62 @@ def test_cin2_function_matches_autograd_of_plain_ops(cin_inputs):
     ws = [torch.from_numpy(w).to(torch.bfloat16) for w in (w1, w2)]
     pools = get_op("cin_stack_dm_flat")(x, ws)
     assert pools.grad_fn is not None and "Cin2" in pools.grad_fn.next_functions[0][0].name()
+
+
+@pytest.mark.parametrize("d,m,h1,h2,dtype,takes", [
+    (16, 26, 128, 128, torch.bfloat16, True),    # the flagship
+    (32, 26, 128, 128, torch.bfloat16, True),    # bench.py --dim 32
+    (33, 26, 128, 128, torch.bfloat16, False),   # past 32 rows an example
+    (1, 1, 16, 16, torch.bfloat16, True),        # the smallest
+    (16, 32, 256, 256, torch.bfloat16, True),    # the widest
+    (16, 33, 128, 128, torch.bfloat16, False),   # past 32 fields
+    (16, 26, 272, 128, torch.bfloat16, False),   # h1 past 256
+    (16, 26, 128, 272, torch.bfloat16, False),   # h2 past 256
+    (16, 26, 100, 100, torch.bfloat16, False),   # not multiples of 16
+    (16, 26, 240, 16, torch.bfloat16, True),
+    (16, 26, 8, 128, torch.bfloat16, False),     # below 16
+    (16, 26, 128, 128, torch.float32, False),    # f32 runs layer by layer
+])
+def test_cin2_takes_states_the_fused_kernels_limits(d, m, h1, h2, dtype, takes):
+    assert K.cin2_takes(d, m, h1, h2, dtype) is takes
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 10, 100, 100), (4, 4, 40, 16, 16), (4, 2, 6, 272, 272)],
+                         ids=["cin100", "m40", "h272"])
+def test_two_layer_bf16_cin_past_the_fused_limits_goes_layer_by_layer(monkeypatch, shape):
+    """bf16 CIN(100,100), a 40-field CIN and CIN(272,272): ``cin2_takes``
+    refuses them, so ``cin_stack_dm_flat`` runs them layer by layer
+    (``CinLayer2d``, the einsum backward: no layer is 128-aligned), as JAX
+    does (its layer path in interpret mode). Pools and their grads w.r.t.
+    the field matrix and both weights by the repo's bf16 rule (3%)."""
+    monkeypatch.setattr(JT, "_INTERPRET", True)
+    b, d, m, h1, h2 = shape
+    assert not K.cin2_takes(d, m, h1, h2, torch.bfloat16)
+    rng = np.random.default_rng(41)
+    x = rng.normal(size=(b, d, m)).astype(np.float32)
+    w1 = (rng.normal(size=(m, m * h1)) * np.sqrt(2.0 / (m * m))).astype(np.float32)
+    w2 = (rng.normal(size=(h1, m * h2)) * np.sqrt(2.0 / (h1 * m))).astype(np.float32)
+    cot = rng.normal(size=(b, h1 + h2)).astype(np.float32)
+    js, ts = _both([x, w1, w2, cot], "bf16")
+    jout, vjp = jax.vjp(lambda *a: JT.cin_stack_dm_flat(a[0], list(a[1:])), *js[:-1])
+    jgrads = vjp(js[-1])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the fused CIN ran")
+
+    monkeypatch.setattr(K, "cin2_forward", refuse)
+    layers = []
+    plain_layer = K.cin_layer_2d
+    monkeypatch.setattr(K, "cin_layer_2d", lambda *a: layers.append(a[0].shape) or plain_layer(*a))
+    ins = [t.clone().requires_grad_(True) for t in ts[:-1]]
+    out = get_op("cin_stack_dm_flat")(ins[0], ins[1:])
+    assert layers == [(b * d, m), (b * d, h1)]
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == jout.shape
+    tgrads = torch.autograd.grad((out.float() * ts[-1].float()).sum(), ins)
+    _max_err_within(_np(out.detach()), jout.astype(jnp.float32), 0.03)
+    for got, want in zip(tgrads, jgrads):
+        assert got.dtype == torch.bfloat16
+        _max_err_within(_np(got), want.astype(jnp.float32), 0.03)
 
 
 def test_product_function_matches_autograd_of_widened_product():
@@ -641,14 +699,17 @@ def test_dcn_cross_stack_function_matches_autograd_of_plain_ops():
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
 
 
-@pytest.mark.parametrize("b,d,n_layers", [(4096, 429, 3), (97, 1024, 6), (300, 5, 2)])
+@pytest.mark.parametrize("b,d,n_layers", [(4096, 429, 3), (97, 1024, 6), (300, 5, 2), (256, 1053, 3),
+                                          (128, 1677, 3), (256, 429, 15)])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_dcn_cross_stack_in_kernel_order_within_the_card_tolerance(b, d, n_layers, dtype):
     """The card's checks hold the kernel element by element to a share of
     ``dcn_cross_stack_scale`` (bf16 2^-5, f32 1e-5) and, in bf16, bit for
     bit to ``dcn_cross_stack_in_kernel_order``. So the plain version summed
     in the kernel's order must pass the first check here, and a stack that
-    lost its last bias, a fault of the size of b ~ N(0, 0.1), must fail it."""
+    lost its last bias, a fault of the size of b ~ N(0, 0.1), must fail it.
+    d = 1,053 and 1,677 (``--dim 40``, ``--dim 64``) and 15 f32 layers take
+    the kernel's wide-row path, whose order the emulation follows too."""
     _, (x0, w, bias) = _dcn_inputs(b, d, n_layers, dtype, seed=40)
     rel = 1e-5 if dtype == "f32" else 2.0 ** -5
     scale = K.dcn_cross_stack_scale(x0, w, bias)
@@ -658,6 +719,18 @@ def test_dcn_cross_stack_in_kernel_order_within_the_card_tolerance(b, d, n_layer
     assert torch.all((in_order.double() - want).abs() <= rel * scale)
     lost = (in_order.double() - bias[-1].double()).to(x0.dtype).double()
     assert not torch.all((lost - want).abs() <= rel * scale)
+
+
+@pytest.mark.parametrize("d,n_layers,dtype,registers", [
+    (429, 3, torch.bfloat16, True),     # DCN's cell
+    (1024, 6, torch.float32, True),     # the register path's edges: 1024 values, 48 KB
+    (1025, 1, torch.bfloat16, False),   # past 32 values a lane
+    (429, 15, torch.float32, False),    # w and b past 48 KB
+    (429, 28, torch.bfloat16, True),
+    (1053, 3, torch.bfloat16, False),   # bench.py --model dcn --dim 40
+])
+def test_dcn_rows_in_registers_routes_by_width_and_weights(d, n_layers, dtype, registers):
+    assert K.dcn_rows_in_registers(d, n_layers, dtype) is registers
 
 
 @pytest.mark.parametrize("name", ["fm_pairwise", "dcn_cross_stack", "dcn_cross_layer"])

@@ -29,8 +29,9 @@ Phases, each on its own lines:
                the cross stack), its plain version and its library call are
                timed with a cold L2 and, by torch.profiler, warm; the rest
                by CUDA events over back-to-back calls (the CIN layer also
-               by torch.profiler; the fused CIN forward and backward also
-               launch by launch, by torch.profiler);
+               by torch.profiler; the fused CIN forward and backward and the
+               layer backward also launch by launch, by torch.profiler; the
+               layer backward beside the JAX package's einsum backward);
   4. serving:  full-width bf16 xDeepFM (26 x 1e5 ids, dim 16, CIN(128,128),
                DNN(400,400)) initialised from a seed (with weights under which
                each kernel's output moves the logits), exported, loaded with
@@ -470,7 +471,7 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
         bias_correction, sorted_adam_update, sorted_adam_update_reference,
     )
     from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
-        cin_layer_backward, cin_layer_backward_reference, cin_layer_forward,
+        cin_layer_backward, cin_layer_backward_einsum, cin_layer_backward_reference, cin_layer_forward,
         cin_layer_forward_reference, transpose_minor2, transpose_minor2_reference,
     )
 
@@ -578,13 +579,20 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
     hn = w2.shape[1] // m
     nbytes = (xk2.numel() + x02.numel() + w2.numel() + gy.numel() + sum(t.numel() for t in outs)) * 2
     b_ms, b_by = bound_ms(nbytes, 4 * r * hk * m * hn)
+    kernel = lambda: cin_layer_backward(xk2, x02, w2, gy)  # noqa: E731
     report["cin_layer_backward"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/cin_layer_bwd.cu",
         replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:379",
         max_abs_err=max(e for e, _ in errs), tol=max(t for _, t in errs),
-        ms=time_ms(lambda: cin_layer_backward(xk2, x02, w2, gy), iters=10),
+        ms=time_ms(kernel, iters=10),
+        warm_ms=device_ms(kernel, calls=10),
+        launch_ms=launch_split(kernel, calls=10),
         plain_ms=time_ms(lambda: cin_layer_backward_reference(xk2, x02, w2, gy), iters=3),
+        einsum_ms=time_ms(lambda: cin_layer_backward_einsum(xk2, x02, w2, gy), iters=3),
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        timing="ms, plain_ms, einsum_ms: CUDA events over back-to-back calls; warm_ms, launch_ms: "
+               "torch.profiler, the sum and each launch; einsum_ms: cin_layer_backward_einsum, the "
+               "JAX package's einsum backward in five PyTorch calls (a yardstick, not one library call)",
     )
     del outs, gy, xk2, x02
 

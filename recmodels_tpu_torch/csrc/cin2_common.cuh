@@ -1,6 +1,8 @@
 // What the fused CIN kernels (cin2.cu, cin2_bwd.cu) share: their limits,
 // the padded pair layout, and two launchers defined in cin2.cu that both
 // directions use (a weight re-layout and a bf16 GEMM on the tensor cores).
+// The CIN layer's backward (cin_layer_bwd.cu) takes kTileRows, kConsumers,
+// kMaxSmem and the re-layout (cin2_permute, Perm) from here.
 //
 // Pairs (h, i) of fields are laid out h-major with i padded to kPairPad =
 // 32: pair (h, i) is column h * 32 + i, and columns with i >= m are zero.

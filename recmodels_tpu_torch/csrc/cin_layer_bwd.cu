@@ -14,337 +14,670 @@
 //
 // Bound on this card: operations, 2 * 2 * R * Hk * m * Hn (the t1 products
 // and the gw products), 446 GFLOP at the training shape (R = 262,144,
-// Hk = Hn = 128, m = 26).
+// Hk = Hn = 128, m = 26): 0.4516 ms at 989 TFLOP/s.
 //
-// Design. Two products with different reductions, so two kernels and an
-// in-order sum:
-//   rows: a block of 128 rows (8 warps of 16) holds its g rows and xk rows
-//     in shared memory and walks the fields i; w2_i's [128, Hn] slice is
-//     staged per i (by cp.async, into a second buffer while field i - 1
-//     multiplies) and read in place as the B operand ([h][n] rows are B's
-//     columns), so no transposed weight exists. Each warp forms t1_i on the
-//     tensor cores (mma.sync, f32 accumulate), rounds it, folds it into its
-//     gxk accumulators with x0[r, i] and into q_i with the xk values at the
-//     same fragment positions; q_i's row sums reduce over the quad's lanes
-//     and add into an f32 per-row partial in shared memory, rounded once at
-//     the end (Hk > 128 walks blocks of 128 h and adds across them).
-//   gw: the weight grad is a sum over all rows. A block forms one
-//     [128 h x 128 n] tile of field i over a slice of 4,096 rows, 64 rows
-//     at a time: the next chunk's g and xk rows are copied by cp.async
-//     while this one forms z_i = bf16(xk * x0_i) in shared memory and
-//     multiplies; it writes f32 partials per slice, and a third kernel sums
-//     the slices in slice order and rounds. No atomics, so a run repeats
-//     bit for bit.
-// Ragged R, Hk, Hn are zero-filled at the tile edges and masked at the
-// store; m is limited by the rows kernel's shared memory (m <= 182).
+// What held the previous design back (mma.sync; 3.2885 ms on an NVIDIA H100
+// 80GB HBM3 at 700 W by chip_smoke.py, by launch 1.9993 rows, 1.2125 gw,
+// 0.0423 sum, PERF.md): the rows kernel gave each warp 16 rows and had every
+// warp read the whole [128 h x 128 n] w2_i block from shared memory as B
+// fragments (8 warps x 32 KB a field for 4.2 MFLOP: shared memory, not the
+// tensor cores, set its pace), ran one block an SM with a barrier and a
+// cp.async wait per field, and folded on every warp at once while the tensor
+// cores idled. The gw kernel, one field a block, staged the g and xk rows of
+// its slice again for every field (3.4 GB from L2 a call), formed z_i in
+// shared memory between two barriers with x0 read at a stride of m, ran a
+// two-deep ring, and wrote 64 slices of f32 partials (109 MB) that a third
+// kernel read back.
+//
+// This design, three launches on the caller's stream (four when an input is
+// not laid out for TMA, see below):
+//  1. rows: t1 = g [R, Hn] x W [Hn, m*Hk] as one GEMM whose 128-wide N blocks
+//     are the fields i, folded in its epilogue. Persistent blocks of a
+//     producer warpgroup (one thread issues the copies; setmaxnreg hands its
+//     registers to the consumers, 232 a thread) and two consumer warpgroups
+//     (64 rows each) walk tiles of 128 rows. The producer loads a tile's g
+//     rows once (TMA, K-major as they lie) and, per h block of 128, its xk
+//     rows, and streams w2's [128 h x 64 n] boxes (a 3-D map [h][i][n], so a
+//     box stops at its field's edge) through a ring of up to eight stages
+//     that runs ahead across fields and tiles. Products are wgmma m64n128k16
+//     with both operands in shared memory, so no register A operand is in
+//     flight while the fold runs. The fold keeps the contract's rounding
+//     points: t1_i rounds to bf16; gxk's f32 accumulators (64 a thread,
+//     across i) take t1_i * x0[r, i]; q_i forms as bf16x2 products with xk's
+//     values at the accumulator's positions (read once per h block into
+//     registers), and those products lie as mma.m16n8k16 A fragments, so
+//     q_i's row sums are one mma.sync against ones (f32 sums on the tensor
+//     cores, not 64 adds and shuffles a thread); they go to an f32 partial
+//     per (row, i) in shared memory, rounded once per tile. The two
+//     warpgroups take turns issuing (two named barriers), so one's products
+//     run while the other folds. Hk > 128 walks h blocks with their own gxk
+//     pass; Hn > 128 is the K loop (past Hn = 256 the g tiles stream through
+//     the ring with w2's). A field's K tiles go in windows of at most the
+//     ring's depth, one window a turn: a window's stages are waited for
+//     together, its products issue unbroken, and both warpgroups release
+//     them before the ring must refill them. Where the ring holds a field
+//     (as at the training shape) a field is one window and the loop unrolls
+//     (a template instance a K-tile count). Ragged R, Hk and Hn
+//     read TMA's zero fill and mask the stores. The kernel also writes x0^T
+//     [m][R] (the x0 values it loads anyway) for launch 2.
+//  2. gw: split-K over a fixed number of row slices, so that the blocks of
+//     (field pair, h block, n block, slice) fill the SMs once (10 slices at
+//     m = 26: 17 MB of partials, not 109). Each warpgroup takes one field
+//     of the pair; the two share every staged K tile of 64 rows, so a slice
+//     is read m / 2 times from L2, not m times. A = z_i^T in registers:
+//     xk's fragments by ldmatrix.trans from the TMA tile [64 r x 128 h],
+//     each scaled by its row's x0[r, i] (one bf16x2 product rounds as
+//     bf16(xk * x0)), with x0's column pair staged by TMA from x0^T beside
+//     the tiles (x0 read at a stride of m cost more than the products);
+//     each K tile retires before the registers are written again
+//     (wgmma_sm90.cuh), and the warpgroups take turns issuing, so one forms
+//     its fragments while the other's products run. B = g's TMA tile
+//     [64 r x 128 n] read MN-major with the transpose-B bit, so no g^T is
+//     written (a layout probe on the card checked the descriptor first). A
+//     6-stage ring; blocks with field pair fastest share a slice's rows in
+//     L2. An odd m's last warpgroup runs on TMA's zero fill and stores
+//     nothing, so no branch surrounds the products.
+//  3. sum: the slices' partials summed in slice order, rounded to bf16.
+// No atomics: every sum has a fixed order, so a run repeats bit for bit.
+// Measured the same way: 1.0820 ms (rows 0.7268, gw 0.3310, sum 0.0045),
+// 2.4x the bound; the rows kernel's fold and the issue of its products,
+// not its w2 stream, hold it now (PERF.md).
+//
+// Inputs that TMA cannot read as they lie (a row pitch that is not a
+// multiple of 16 bytes, or a base off 16 bytes) are first copied by one
+// re-layout launch (cin2_permute) into scratch with padded rows; the
+// kernels are the same. m is bounded by the rows kernel's shared memory:
+// the (row, i) partials take 512 m bytes beside a ring of at least two
+// stages, g's and xk's tiles: m <= 291 at Hn up to 64, 259 from 65 to 128,
+// 227 from 129 to 192, 195 from 193 to 256, 259 above 256.
 
-#include "mma_sm90.cuh"
+#include "cin2_common.cuh"
 
-using rm::bf16;
-
+namespace rm {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 128;          // rows per block (rows kernel)
-constexpr int kChunk = 64;          // rows per staged chunk (gw kernel)
-constexpr int kTile = 128;          // h, n (and K chunk) width of a block
-constexpr int kLd = kTile + 8;      // padded shared row (bf16)
-constexpr long long kSlice = 4096;  // rows per gw partial
-constexpr size_t kTileBytes = (size_t)kRows * kLd * sizeof(bf16);
-constexpr size_t kMaxSmem = 232448;
+constexpr int kBox = 128 * 128;       // bytes of a [128 rows][64] bf16 box
+constexpr int kHalfBox = 64 * 128;    // bytes of a [64 rows][64] box
+constexpr int kGResident = 4;         // K tiles of g a rows tile holds: Hn <= 256
+constexpr int kGwStages = 6;
+// xk [64 r][128 h], g [64 r][128 n] and x0^T [2 fields][64 r]
+constexpr int kGwX0 = 4 * kHalfBox;
+constexpr int kGwStage = kGwX0 + 1024;
+constexpr int kOrder0 = 2, kOrder1 = 3, kWgSync = 4;  // named barriers (0: __syncthreads)
+constexpr uint32_t kOnes = 0x3F803F80u;                 // bf16x2 (1, 1)
+// two consumer warpgroups and a producer warpgroup (one thread of it issues
+// the copies): the producer gives its registers up to the consumers
+constexpr int kThreads = kConsumers + 128;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-// g rows, xk rows, two w2 blocks and the gx0 partials
-size_t rows_smem(int m) { return 4 * kTileBytes + (size_t)kRows * m * sizeof(float); }
-// two buffers each of g rows and xk rows, and z
-constexpr size_t kGwSmem = 5 * (size_t)kChunk * kLd * sizeof(bf16);
+// ------------------------------------------------------------------ rows
+struct RowsLayout {
+  int nkt, nhb, stage_bytes, stages;
+  bool g_resident;
+  size_t g, x, ring, sp, bars, total;
+};
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__host__ __device__ inline RowsLayout rows_layout(int hk, int m, int hn, int stages) {
+  RowsLayout L;
+  L.nkt = (hn + 63) / 64;
+  L.nhb = (hk + 127) / 128;
+  L.g_resident = L.nkt <= kGResident;
+  L.stage_bytes = L.g_resident ? kBox : 2 * kBox;  // w2's box (and g's when streamed)
+  L.stages = stages;
+  L.g = 0;
+  L.x = L.g + (L.g_resident ? (size_t)L.nkt * kBox : 0);
+  L.ring = L.x + 2 * (size_t)kBox;
+  L.sp = L.ring + (size_t)stages * L.stage_bytes;
+  L.bars = L.sp + (((size_t)kTileRows * m * 4 + 15) & ~(size_t)15);
+  L.total = 1024 + L.bars + (2 * (size_t)stages + 4) * 8;
+  return L;
 }
 
+// the deepest ring (8 down to 2 stages) that fits, or 0
+int rows_stages(int hk, int m, int hn) {
+  for (int s = 8; s >= 2; --s) {
+    if (rows_layout(hk, m, hn, s).total <= kMaxSmem) return s;
+  }
+  return 0;
+}
+
+// Up to Hn = 256 g's K tiles are held for the tile; past it they stream
+// through the ring with w2's. NKT > 0: a field is one window of NKT K tiles
+// (g held, a ring of at least NKT stages), so its K loop unrolls into
+// straight-line waits and products; 0: any Hn and ring, a field in windows
+// of at most `stages` tiles. ptxas serialises the wgmma of a function whose
+// K loop it cannot unroll (C7520: 0.70 -> 1.12 ms at the training shape on
+// the H100), so only the shapes that need more windows take NKT = 0.
+// Besides gxk and gx0 the kernel writes x0^T [m][rows8] for the gw kernel.
+template <int NKT>
 __global__ void __launch_bounds__(kThreads, 1)
-    cin_bwd_rows_kernel(const bf16* __restrict__ g, const bf16* __restrict__ xk,
-                        const bf16* __restrict__ x0, const bf16* __restrict__ w2,
-                        bf16* __restrict__ gxk, bf16* __restrict__ gx0, long long rows, int hk,
-                        int m, int hn) {
-  extern __shared__ uint4 smem_raw[];
-  bf16* sg = reinterpret_cast<bf16*>(smem_raw);  // g rows, one K chunk of n
-  bf16* sx = sg + kRows * kLd;                   // xk rows, one block of h
-  bf16* sw = sx + kRows * kLd;                   // two buffers of the w2_i block [h][n]
-  float* sp = reinterpret_cast<float*>(sw + 2 * kTile * kLd);  // gx0 partials [kRows][m]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const long long avail = rows - row0;
-  const int la = warp * 16 + grp, lb = la + 8;  // the thread's two rows, in the block
-  const long long ra = row0 + la, rb = row0 + lb;
-  const int nkc = (hn + kTile - 1) / kTile;
-  const int nhb = (hk + kTile - 1) / kTile;
-  const int stages = nhb * m * nkc;  // stage s: h block, field, K chunk (K chunk fastest)
-  const long long ld_w = (long long)m * hn;
-
-  // w2[h block, field i's K chunk] of stage s into buffer s & 1
-  auto issue_w = [&](int s) {
-    const int kc = s % nkc, i = (s / nkc) % m, hb = s / (nkc * m);
-    const int h0 = hb * kTile, k0 = kc * kTile;
-    const int kw = min(kTile, hn - k0);
-    rm::stage_tile(sw + (s & 1) * kTile * kLd, kLd,
-                         w2 + (long long)h0 * ld_w + (long long)i * hn + k0, ld_w,
-                         min(kTile, hk - h0), kw, kTile, ((kw + 15) >> 4) * 16);
-    rm::cp_async_commit();
-  };
-
-  for (int idx = threadIdx.x; idx < kRows * m; idx += kThreads) sp[idx] = 0.f;
-  float gacc[16][4], t[16][4];
-  issue_w(0);
-  for (int s = 0; s < stages; ++s) {
-    const int kc = s % nkc, i = (s / nkc) % m, hb = s / (nkc * m);
-    const int h0 = hb * kTile, k0 = kc * kTile;
-    const int hw = min(kTile, hk - h0);
-    const int kw = min(kTile, hn - k0);
-    const int ksteps = (kw + 15) >> 4;
-    rm::cp_async_wait_all();
-    __syncthreads();  // stage s's block has landed; every warp is done with stage s - 1
-    const bool new_g = s == 0 || nkc > 1;
-    const bool new_x = i == 0 && kc == 0;
-    if (new_g) rm::stage_tile(sg, kLd, g + row0 * hn + k0, hn, avail, kw, kRows, ksteps * 16);
-    if (new_x) rm::stage_tile(sx, kLd, xk + row0 * hk + h0, hk, avail, hw, kRows, kTile);
-    if (new_g || new_x) rm::cp_async_wait_all();
-    if (s + 1 < stages) issue_w(s + 1);  // lands while this stage multiplies
-    if (new_g || new_x) __syncthreads();
-    const bool last = kc == nkc - 1;
-    float xa = 0.f, xb = 0.f;  // loaded ahead of the products
-    if (last) {
-      if (ra < rows) xa = __bfloat162float(x0[ra * m + i]);
-      if (rb < rows) xb = __bfloat162float(x0[rb * m + i]);
+    cin_bwd_rows_kernel(const __grid_constant__ CUtensorMap mg, const __grid_constant__ CUtensorMap mx,
+                        const __grid_constant__ CUtensorMap mw, const bf16* __restrict__ x0,
+                        bf16* __restrict__ gxk, bf16* __restrict__ gx0, bf16* __restrict__ x0t,
+                        long long rows8, long long rows, int hk, int m, int hn, int stages, int tiles) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = (unsigned char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  const RowsLayout L = rows_layout(hk, m, hn, stages);
+  float* sp = reinterpret_cast<float*>(smem + L.sp);  // gx0 partials [128 rows][m]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  uint64_t* g_full = empty + stages;
+  uint64_t* g_empty = g_full + 1;
+  uint64_t* x_full = g_full + 2;
+  uint64_t* x_empty = g_full + 3;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
     }
-    if (new_x) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) gacc[j][0] = gacc[j][1] = gacc[j][2] = gacc[j][3] = 0.f;
-    }
-    if (kc == 0) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) t[j][0] = t[j][1] = t[j][2] = t[j][3] = 0.f;
-    }
-    const bf16* swb = sw + (s & 1) * kTile * kLd;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t a[4];
-      rm::load_a(a, sg, kLd, warp * 16, ks * 16, lane);
-#pragma unroll
-      for (int hp = 0; hp < 8; ++hp) {
-        uint32_t b[4];
-        rm::load_b_nk(b, swb, kLd, ks * 16, hp * 16, lane);
-        rm::mma_bf16(t[2 * hp], a, b[0], b[1]);
-        rm::mma_bf16(t[2 * hp + 1], a, b[2], b[3]);
-      }
-    }
-    if (!last) continue;
-    float qa = 0.f, qb = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = j * 8 + tig * 2;
-      const float2 ka = rm::unpack_bf16x2(*reinterpret_cast<const uint32_t*>(sx + la * kLd + col));
-      const float2 kb = rm::unpack_bf16x2(*reinterpret_cast<const uint32_t*>(sx + lb * kLd + col));
-      const float t0 = round_bf16(t[j][0]), t1 = round_bf16(t[j][1]);
-      const float t2 = round_bf16(t[j][2]), t3 = round_bf16(t[j][3]);
-      gacc[j][0] = fmaf(t0, xa, gacc[j][0]);
-      gacc[j][1] = fmaf(t1, xa, gacc[j][1]);
-      gacc[j][2] = fmaf(t2, xb, gacc[j][2]);
-      gacc[j][3] = fmaf(t3, xb, gacc[j][3]);
-      qa += round_bf16(t0 * ka.x) + round_bf16(t1 * ka.y);
-      qb += round_bf16(t2 * kb.x) + round_bf16(t3 * kb.y);
-    }
-    qa += __shfl_xor_sync(0xffffffffu, qa, 1);
-    qa += __shfl_xor_sync(0xffffffffu, qa, 2);
-    qb += __shfl_xor_sync(0xffffffffu, qb, 1);
-    qb += __shfl_xor_sync(0xffffffffu, qb, 2);
-    if (tig == 0) {  // one writer per (row, i); the same lane in every h block
-      sp[la * m + i] += qa;
-      sp[lb * m + i] += qb;
-    }
-    if (i < m - 1) continue;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {  // this h block of gxk is complete
-      const int col = j * 8 + tig * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long r = h ? rb : ra;
-        if (r >= rows) continue;
-        bf16* dst = gxk + r * hk + h0 + col;
-        const float v0 = gacc[j][2 * h], v1 = gacc[j][2 * h + 1];
-        if (col + 1 < hw && (hk & 1) == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          if (col < hw) dst[0] = __float2bfloat16_rn(v0);
-          if (col + 1 < hw) dst[1] = __float2bfloat16_rn(v1);
-        }
-      }
-    }
+    mbar_init(g_full, 1);
+    mbar_init(g_empty, kConsumers / 32);
+    mbar_init(x_full, 1);
+    mbar_init(x_empty, kConsumers / 32);
+    mbar_fence_init();
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < kRows * m; idx += kThreads) {
-    const int r = idx / m;
-    if (r < avail) gx0[(row0 + r) * m + (idx - r * m)] = __float2bfloat16_rn(sp[idx]);
+
+  if (warp >= kConsumers / 32) {  // producer: per tile g, per h block xk, per field w2
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      int it = 0, nt = 0, nu = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++nt) {
+        const int row0 = tile * kTileRows;
+        if (L.g_resident) {
+          mbar_wait(g_empty, (nt & 1) ^ 1);
+          mbar_expect_tx(g_full, L.nkt * kBox);
+          for (int kt = 0; kt < L.nkt; ++kt) tma_load_2d(smem + L.g + kt * kBox, &mg, g_full, kt * 64, row0);
+        }
+        for (int hb = 0; hb < L.nhb; ++hb, ++nu) {
+          mbar_wait(x_empty, (nu & 1) ^ 1);
+          mbar_expect_tx(x_full, 2 * kBox);
+          tma_load_2d(smem + L.x, &mx, x_full, hb * 128, row0);
+          tma_load_2d(smem + L.x + kBox, &mx, x_full, hb * 128 + 64, row0);
+          for (int i = 0; i < m; ++i) {
+            for (int kt = 0; kt < L.nkt; ++kt, ++it) {
+              const int s = it % stages;
+              unsigned char* st = smem + L.ring + (size_t)s * L.stage_bytes;
+              mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+              mbar_expect_tx(&full[s], L.stage_bytes);
+              tma_load_3d(st, &mw, &full[s], kt * 64, i, hb * 128);
+              if (!L.g_resident) tma_load_2d(st + kBox, &mg, &full[s], kt * 64, row0);
+            }
+          }
+        }
+      }
+    }
+    return;
   }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rl = wg * 64 + (warp & 3) * 16 + g;  // tile rows rl, rl + 8 of this thread
+  const int nkt = NKT ? NKT : L.nkt;
+  const int window = NKT ? NKT : stages;
+  const bool g_resident = NKT || L.g_resident;
+  int it = 0, nt = 0, nu = 0, turn = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++nt) {
+    const long long ra = (long long)tile * kTileRows + rl;
+    const long long rb = ra + 8;
+    if (L.g_resident) mbar_wait(g_full, nt & 1);
+    for (int hb = 0; hb < L.nhb; ++hb, ++nu) {
+      // xk at the accumulator's positions (row rl or rl + 8, cols 8 j + 2 t,
+      // + 1) from the swizzled tile, kept for the h block; then the tile is
+      // the producer's again
+      mbar_wait(x_full, nu & 1);
+      uint32_t xr[16][2];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const unsigned char* xb = smem + L.x + (j >> 3) * kBox + (((j & 7) ^ (rl & 7)) << 4) + 4 * t;
+        xr[j][0] = *reinterpret_cast<const uint32_t*>(xb + rl * 128);
+        xr[j][1] = *reinterpret_cast<const uint32_t*>(xb + (rl + 8) * 128);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(x_empty);
+
+      float gacc[64];
+#pragma unroll
+      for (int k = 0; k < 64; ++k) gacc[k] = 0.f;
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      bf16 xa = ra < rows ? x0[ra * m] : zero;
+      bf16 xb = rb < rows ? x0[rb * m] : zero;
+      for (int i = 0; i < m; ++i) {
+        bf16 na = zero, nb = zero;  // the next field's x0, loaded ahead
+        if (i + 1 < m) {
+          if (ra < rows) na = x0[ra * m + i + 1];
+          if (rb < rows) nb = x0[rb * m + i + 1];
+        }
+        if (hb == 0 && t == 0) {  // x0^T: 16 consecutive rows a warp, 32 bytes
+          if (ra < rows) x0t[i * rows8 + ra] = xa;
+          if (rb < rows) x0t[i * rows8 + rb] = xb;
+        }
+        // t1_i for the warpgroup's 64 rows: its K tiles in windows of at most
+        // `window` (one when NKT > 0), a window's stages waited for together,
+        // its products issued unbroken and its stages released once they
+        // retire. The warpgroups take turns, a window a turn, so both release
+        // a window before the ring must refill it
+        float acc[64];
+#pragma unroll
+        for (int c = 0; c < 64; ++c) acc[c] = 0.f;
+        for (int k0 = 0; k0 < nkt; k0 += window, ++turn) {
+          const int k1 = k0 + window < nkt ? k0 + window : nkt;
+          if (wg == 1) bar_sync(kOrder1, kConsumers);
+          else if (turn > 0) bar_sync(kOrder0, kConsumers);
+#pragma unroll
+          for (int kt = k0; kt < k1; ++kt) mbar_wait(&full[(it + kt) % stages], ((it + kt) / stages) & 1);
+          wgmma_fence();
+#pragma unroll
+          for (int kt = k0; kt < k1; ++kt) {
+            const unsigned char* st = smem + L.ring + (size_t)((it + kt) % stages) * L.stage_bytes;
+            const unsigned char* gt = g_resident ? smem + L.g + kt * kBox : st + kBox;
+            const uint64_t da = desc_k128(gt + wg * kHalfBox), db = desc_k128(st);
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) Wgmma<128>::ss(acc, da + 2 * ks, db + 2 * ks, 1);
+          }
+          wgmma_commit();
+          bar_arrive(wg == 0 ? kOrder1 : kOrder0, kConsumers);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          if (lane == 0) {
+            for (int kt = k0; kt < k1; ++kt) mbar_arrive(&empty[(it + kt) % stages]);
+          }
+        }
+        it += nkt;
+        // the fold: gxk += bf16(t1) * x0[r, i]; q = sum_h bf16(bf16(t1) * xk).
+        // The bf16x2 products lie as mma.m16n8k16's A fragments (k block kb:
+        // j = 2 kb, 2 kb + 1), so q's row sums are one product with a B of
+        // ones on the tensor cores, summed in f32
+        const float fxa = __bfloat162float(xa), fxb = __bfloat162float(xb);
+        float qd[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kb = 0; kb < 8; ++kb) {
+          uint32_t qa_frag[4];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int j = 2 * kb + jj;
+            const uint32_t ta = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+            const uint32_t tb = pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+            const float2 fa = unpack_bf16x2(ta), fb = unpack_bf16x2(tb);
+            gacc[4 * j] = fmaf(fa.x, fxa, gacc[4 * j]);
+            gacc[4 * j + 1] = fmaf(fa.y, fxa, gacc[4 * j + 1]);
+            gacc[4 * j + 2] = fmaf(fb.x, fxb, gacc[4 * j + 2]);
+            gacc[4 * j + 3] = fmaf(fb.y, fxb, gacc[4 * j + 3]);
+            const __nv_bfloat162 pa = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&ta),
+                                              *reinterpret_cast<const __nv_bfloat162*>(&xr[j][0]));
+            const __nv_bfloat162 pb = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&tb),
+                                              *reinterpret_cast<const __nv_bfloat162*>(&xr[j][1]));
+            qa_frag[2 * jj] = *reinterpret_cast<const uint32_t*>(&pa);
+            qa_frag[2 * jj + 1] = *reinterpret_cast<const uint32_t*>(&pb);
+          }
+          mma_bf16(qd, qa_frag, kOnes, kOnes);
+        }
+        if (t == 0) {  // one writer per (row, i): the same lane in every h block
+          float* pa = sp + rl * m + i;
+          float* pb = sp + (rl + 8) * m + i;
+          if (hb == 0) {
+            *pa = qd[0];
+            *pb = qd[2];
+          } else {
+            *pa += qd[0];
+            *pb += qd[2];
+          }
+        }
+        xa = na;
+        xb = nb;
+      }
+      // every product of the tile has retired: g's tiles are the producer's
+      if (L.g_resident && hb == L.nhb - 1 && lane == 0) mbar_arrive(g_empty);
+      // this h block of gxk
+      const int h0 = hb * 128;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = h0 + 8 * j + 2 * t;
+        if (col >= hk) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long r = half ? rb : ra;
+          if (r >= rows) continue;
+          bf16* dst = gxk + r * hk + col;
+          const float v0 = gacc[4 * j + 2 * half], v1 = gacc[4 * j + 2 * half + 1];
+          if ((hk & 1) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            dst[0] = __float2bfloat16_rn(v0);
+            if (col + 1 < hk) dst[1] = __float2bfloat16_rn(v1);
+          }
+        }
+      }
+    }
+    // gx0 of the warpgroup's 64 rows, contiguous in gx0
+    bar_sync(kWgSync + wg, 128);
+    const long long w0 = (long long)tile * kTileRows + wg * 64;
+    const int tw = tid & 127;
+    for (int idx = tw; idx < 64 * m; idx += 128) {
+      if (w0 + idx / m < rows) gx0[w0 * m + idx] = __float2bfloat16_rn(sp[wg * 64 * m + idx]);
+    }
+    bar_sync(kWgSync + wg, 128);  // the partials are free for the next tile
+  }
+  if (wg == 0 && turn > 0) bar_sync(kOrder0, kConsumers);  // warpgroup 1's last turn
 }
 
-__global__ void __launch_bounds__(kThreads)
-    cin_bwd_gw_kernel(const bf16* __restrict__ g, const bf16* __restrict__ xk,
-                      const bf16* __restrict__ x0, float* __restrict__ partial, long long rows,
-                      int hk, int m, int hn, int nhb, int nnb) {
-  extern __shared__ uint4 smem_raw[];
-  bf16* sg = reinterpret_cast<bf16*>(smem_raw);  // two buffers of g rows [r][n]
-  bf16* sx = sg + 2 * kChunk * kLd;              // two buffers of xk rows [r][h]
-  bf16* sz = sx + 2 * kChunk * kLd;              // z_i rows [r][h]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int wh = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 h x 32 n
-  const int nb = blockIdx.x % nnb;
-  const int hb = (blockIdx.x / nnb) % nhb;
-  const int i = blockIdx.x / (nnb * nhb);
-  const int h0 = hb * kTile, n0 = nb * kTile;
-  const int hw = min(kTile, hk - h0), nw = min(kTile, hn - n0);
-  const long long r_begin = (long long)blockIdx.y * kSlice;
-  const long long r_end = min(rows, r_begin + kSlice);
-  const int chunks = (int)((r_end - r_begin + kChunk - 1) / kChunk);
+// -------------------------------------------------------------------- gw
+// Partial of slice s for field i, h block hb, n block nb:
+//   part[s][h][i*hn + n] = sum_{r in s} bf16(xk[r, h] * x0[r, i]) * g[r, n]
+// Block = (field pair, h block, n block, slice), field pair fastest;
+// warpgroup w takes field 2 * pair + w over the block's 128 h x 128 n.
+struct GwArgs {
+  float* part;
+  int hk, m, hn, pairs, nhb, nnb, slices, kt_total;
+};
 
-  // the g and xk rows of chunk c into buffer c & 1
-  auto issue = [&](int c) {
-    const long long c0 = r_begin + (long long)c * kChunk;
-    const int b = (c & 1) * kChunk * kLd;
-    rm::stage_tile(sg + b, kLd, g + c0 * hn + n0, hn, r_end - c0, nw, kChunk, kTile);
-    rm::stage_tile(sx + b, kLd, xk + c0 * hk + h0, hk, r_end - c0, hw, kChunk, kTile);
-    rm::cp_async_commit();
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
-
-  issue(0);
-  for (int c = 0; c < chunks; ++c) {
-    const long long c0 = r_begin + (long long)c * kChunk;
-    const long long avail = r_end - c0;
-    const int ksteps = (int)((min(avail, (long long)kChunk) + 15) >> 4);
-    rm::cp_async_wait_all();
-    __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
-    if (c + 1 < chunks) issue(c + 1);  // lands while this chunk multiplies
-    // z_i = bf16(xk * x0[:, i]) from the staged xk rows (zero rows stay zero)
-    const bf16* sxb = sx + (c & 1) * kChunk * kLd;
-    for (int idx = threadIdx.x; idx < kChunk * (kTile / 8); idx += kThreads) {
-      const int r = idx / (kTile / 8);
-      const int col = (idx - r * (kTile / 8)) * 8;
-      union Chunk {
-        uint4 u;
-        bf16 h[8];
-      } v;
-      v.u = *reinterpret_cast<const uint4*>(sxb + r * kLd + col);
-      const float xv = r < avail ? __bfloat162float(x0[(c0 + r) * m + i]) : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v.h[j] = __float2bfloat16_rn(__bfloat162float(v.h[j]) * xv);
-      *reinterpret_cast<uint4*>(sz + r * kLd + col) = v.u;
+__global__ void __launch_bounds__(kThreads, 1)
+    cin_bwd_gw_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mg,
+                      const __grid_constant__ CUtensorMap mx0, const GwArgs A) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = (unsigned char*)(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kGwStages * kGwStage);
+  uint64_t* empty = full + kGwStages;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  int b = blockIdx.x;
+  const int pair = b % A.pairs;
+  b /= A.pairs;
+  const int nb = b % A.nnb;
+  b /= A.nnb;
+  const int hb = b % A.nhb;
+  const int slice = b / A.nhb;
+  const int kt_begin = (int)((long long)slice * A.kt_total / A.slices);
+  const int kt_end = (int)((long long)(slice + 1) * A.kt_total / A.slices);
+  if (tid == 0) {
+    for (int s = 0; s < kGwStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
     }
-    __syncthreads();
-    const bf16* sgb = sg + (c & 1) * kChunk * kLd;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t a[4][4], b[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) rm::load_a_trans(a[mt], sz, kLd, wh * 64 + mt * 16, ks * 16, lane);
-#pragma unroll
-      for (int p = 0; p < 2; ++p) rm::load_b_kn(b[p], sgb, kLd, ks * 16, wn * 32 + p * 16, lane);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          rm::mma_bf16(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {  // producer: xk's and g's K tiles of 64 rows
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        const int n = kt - kt_begin;
+        const int s = n % kGwStages;
+        unsigned char* st = smem + s * kGwStage;
+        mbar_wait(&empty[s], ((n / kGwStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kGwX0 + 2 * 64 * 2);
+        tma_load_2d(st, &mx, &full[s], hb * 128, kt * 64);
+        tma_load_2d(st + kHalfBox, &mx, &full[s], hb * 128 + 64, kt * 64);
+        tma_load_2d(st + 2 * kHalfBox, &mg, &full[s], nb * 128, kt * 64);
+        tma_load_2d(st + 3 * kHalfBox, &mg, &full[s], nb * 128 + 64, kt * 64);
+        tma_load_2d(st + kGwX0, &mx0, &full[s], kt * 64, 2 * pair);
+      }
     }
+    return;
   }
 
-  const long long e_total = (long long)hk * m * hn;
-  float* out = partial + (long long)blockIdx.y * e_total;
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const int w4 = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int i = 2 * pair + wg;
+  // an odd m leaves the last pair's second field empty: that warpgroup runs
+  // on TMA's zero fill (no branch around the products) and stores nothing
+  const bool live = i < A.m;
+  float acc[2][64];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int k = 0; k < 64; ++k) acc[0][k] = acc[1][k] = 0.f;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int n = kt - kt_begin;
+    const int s = n % kGwStages;
+    const unsigned char* st = smem + s * kGwStage;
+    mbar_wait(&full[s], (n / kGwStages) & 1);
+    // x0[r, i] for rows 16 ks + 2 t + {0, 1, 8, 9} of the K tile, as bf16x2
+    const bf16* xo = reinterpret_cast<const bf16*>(st + kGwX0) + wg * 64 + 2 * t;
+    __nv_bfloat162 xs[4][2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int hl = wh * 64 + mt * 16 + grp + h * 8;
-      if (hl >= hw) continue;
-      float* row = out + (long long)(h0 + hl) * m * hn + (long long)i * hn + n0;
+    for (int ks = 0; ks < 4; ++ks) {
+      xs[ks][0] = *reinterpret_cast<const __nv_bfloat162*>(xo + ks * 16);
+      xs[ks][1] = *reinterpret_cast<const __nv_bfloat162*>(xo + ks * 16 + 8);
+    }
+    // z_i^T's fragments: A[h][r] = bf16(xk[r, h] * x0[r, i]), formed while
+    // the other warpgroup's products run
+    uint32_t a[2][4][4];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int nl = wn * 32 + nt * 8 + tig * 2;
-        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-        if (nl + 1 < nw && (hn & 1) == 0) {
-          *reinterpret_cast<float2*>(row + nl) = make_float2(v0, v1);
+    for (int mh = 0; mh < 2; ++mh) {
+      const bf16* xt = reinterpret_cast<const bf16*>(st + mh * kHalfBox);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        load_a_trans_sw128(a[mh][ks], xt, w4 * 16, ks * 16, lane);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const __nv_bfloat162 z = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a[mh][ks][q]),
+                                           xs[ks][q >> 1]);
+          a[mh][ks][q] = *reinterpret_cast<const uint32_t*>(&z);
+        }
+      }
+    }
+    // the warpgroups issue in turn
+    if (wg == 1) bar_sync(kOrder1, kConsumers);
+    else if (n > 0) bar_sync(kOrder0, kConsumers);
+    const uint64_t bd = desc_mn128(st + 2 * kHalfBox, kHalfBox);
+    wgmma_fence();
+#pragma unroll
+    for (int mh = 0; mh < 2; ++mh)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) wgmma_rs_n128_mn(acc[mh], a[mh][ks], bd + 128 * ks, 1);
+    wgmma_commit();
+    bar_arrive(wg == 0 ? kOrder1 : kOrder0, kConsumers);
+    // the A fragments are read after issue: retire the group before the
+    // next K tile's are formed
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  if (wg == 0 && kt_end > kt_begin) bar_sync(kOrder0, kConsumers);  // warpgroup 1's last turn
+  if (!live) return;
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+  const long long ld = (long long)A.m * A.hn;
+  float* out = A.part + (long long)slice * A.hk * ld + (long long)i * A.hn;
+#pragma unroll
+  for (int mh = 0; mh < 2; ++mh) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int h = hb * 128 + mh * 64 + w4 * 16 + g + 8 * half;
+      if (h >= A.hk) continue;
+      float* row = out + h * ld;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = nb * 128 + 8 * j + 2 * t;
+        const float v0 = acc[mh][4 * j + 2 * half], v1 = acc[mh][4 * j + 2 * half + 1];
+        if (col + 1 < A.hn && (A.hn & 1) == 0) {
+          *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
         } else {
-          if (nl < nw) row[nl] = v0;
-          if (nl + 1 < nw) row[nl + 1] = v1;
+          if (col < A.hn) row[col] = v0;
+          if (col + 1 < A.hn) row[col + 1] = v1;
         }
       }
     }
   }
 }
 
-__global__ void cin_bwd_gw_reduce_kernel(const float* __restrict__ partial, bf16* __restrict__ gw,
-                                         long long e_total, int n_slices) {
+__global__ void cin_bwd_gw_sum_kernel(const float* __restrict__ part, bf16* __restrict__ gw,
+                                      long long e_total, int slices) {
   const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (e >= e_total) return;
   float s = 0.f;
-  for (int k = 0; k < n_slices; ++k) s += partial[k * e_total + e];
+  for (int k = 0; k < slices; ++k) s += part[k * e_total + e];
   gw[e] = __float2bfloat16_rn(s);
 }
 
-bool supported(long long rows, int hk, int m, int hn) {
-  return rows >= 0 && hk >= 1 && m >= 1 && hn >= 1 && rows_smem(m) <= kMaxSmem &&
-         (rows + kSlice - 1) / kSlice <= 65535;
+// ------------------------------------------------------------------ plan
+struct Plan {
+  int stages, tiles, pairs, nhb, nnb, slices, kt_total;
+  int hk8, hn8;                 // row pitches of the padded copies
+  long long rows8;              // row pitch of x0^T
+  bool pad_g, pad_x, pad_w;     // inputs copied before the kernels read them
+  size_t part, x0t, gp, xp, wp, total;
+};
+
+bool tma_ready(const void* p, long long pitch) {
+  return ((reinterpret_cast<uintptr_t>(p) & 15) == 0) && pitch % 8 == 0;
 }
 
-long long n_slices(long long rows) { return rows == 0 ? 0 : (rows + kSlice - 1) / kSlice; }
+int sm_count(int device, int* sms) {
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+// -1 if the kernels do not take these sizes
+int plan(Plan* P, int sms, const void* g, const void* xk, const void* w2, long long rows, int hk,
+         int m, int hn) {
+  if (rows < 0 || hk < 1 || m < 1 || hn < 1) return -1;
+  P->stages = rows_stages(hk, m, hn);
+  if (P->stages == 0) return -1;
+  P->tiles = (int)((rows + kTileRows - 1) / kTileRows);
+  P->pairs = (m + 1) / 2;
+  P->nhb = (hk + 127) / 128;
+  P->nnb = (hn + 127) / 128;
+  P->kt_total = (int)((rows + 63) / 64);
+  const long long blocks = (long long)P->pairs * P->nhb * P->nnb;
+  long long s = sms / blocks;
+  s = s < 1 ? 1 : s;
+  s = s > P->kt_total ? P->kt_total : s;
+  P->slices = (int)(s < 1 ? 1 : s);
+  if (blocks * P->slices > 0x7fffffffLL || rows > 0x7fffffffLL - kTileRows) return -1;
+  P->hk8 = (hk + 7) / 8 * 8;
+  P->hn8 = (hn + 7) / 8 * 8;
+  P->pad_g = !tma_ready(g, hn);
+  P->pad_x = !tma_ready(xk, hk);
+  P->pad_w = !tma_ready(w2, hn);
+  P->rows8 = (rows + 7) / 8 * 8;
+  if ((P->pad_g && rows * P->hn8 >= (1LL << 31)) || (P->pad_x && rows * P->hk8 >= (1LL << 31)) ||
+      (P->pad_w && (long long)hk * m * P->hn8 >= (1LL << 31)) || P->rows8 * m >= (1LL << 31))
+    return -1;
+  P->part = 0;
+  P->x0t = align1k((size_t)P->slices * hk * m * hn * 4);
+  P->gp = P->x0t + align1k((size_t)m * P->rows8 * 2);
+  P->xp = P->gp + (P->pad_g ? align1k((size_t)rows * P->hn8 * 2) : 0);
+  P->wp = P->xp + (P->pad_x ? align1k((size_t)rows * P->hk8 * 2) : 0);
+  P->total = P->wp + (P->pad_w ? (size_t)hk * m * P->hn8 * 2 : 0);
+  return 0;
+}
+
+template <int NKT>
+int rows_launch(const CUtensorMap& mg, const CUtensorMap& mx, const CUtensorMap& mw, const void* x0,
+                void* gxk, void* gx0, bf16* x0t, long long rows, int hk, int m, int hn, const Plan& P,
+                const RowsLayout& L, int grid, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(cin_bwd_rows_kernel<NKT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  cin_bwd_rows_kernel<NKT><<<grid, kThreads, L.total, st>>>(mg, mx, mw, (const bf16*)x0, (bf16*)gxk,
+                                                            (bf16*)gx0, x0t, P.rows8, rows, hk, m, hn,
+                                                            P.stages, P.tiles);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
+}  // namespace rm
 
-// Scratch bytes rm_cin_layer_backward needs (the gw partials), or -1 when the
-// kernels do not take these sizes.
-extern "C" long long rm_cin_layer_backward_scratch(long long rows, int hk, int m, int hn) {
-  if (!supported(rows, hk, m, hn)) return -1;
-  return n_slices(rows) * hk * (long long)m * hn * (long long)sizeof(float);
+using namespace rm;
+
+// Scratch bytes rm_cin_layer_backward needs for these inputs (the gw
+// partials, and padded copies of inputs TMA cannot read as they lie), or -1
+// when the kernels do not take these sizes.
+extern "C" long long rm_cin_layer_backward_scratch(int device, const void* g, const void* xk,
+                                                   const void* w2, long long rows, int hk, int m,
+                                                   int hn) {
+  int sms = 0;
+  Plan P;
+  if (sm_count(device, &sms) || plan(&P, sms, g, xk, w2, rows, hk, m, hn)) return -1;
+  return (long long)P.total;
 }
 
 // g [rows, hn], xk [rows, hk], x0 [rows, m], w2 [hk, m*hn], all bf16
 // row-major -> gxk [rows, hk], gx0 [rows, m], gw [hk, m*hn] bf16; scratch of
-// rm_cin_layer_backward_scratch bytes.
+// rm_cin_layer_backward_scratch bytes, 1024-byte aligned.
 extern "C" int rm_cin_layer_backward(int device, const void* g, const void* xk, const void* x0,
                                      const void* w2, void* gxk, void* gx0, void* gw,
                                      void* scratch, long long rows, int hk, int m, int hn,
                                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!supported(rows, hk, m, hn)) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int e = sm_count(device, &sms);
+  if (e) return e;
+  Plan P;
+  if (plan(&P, sms, g, xk, w2, rows, hk, m, hn)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long e_total = (long long)hk * m * hn;
   if (rows == 0) return (int)cudaMemsetAsync(gw, 0, e_total * sizeof(bf16), st);
-  const size_t smem_rows = rows_smem(m);
-  err = cudaFuncSetAttribute(cin_bwd_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_rows);
-  if (err != cudaSuccess) return (int)err;
-  cin_bwd_rows_kernel<<<(unsigned)((rows + kRows - 1) / kRows), kThreads, smem_rows, st>>>(
-      (const bf16*)g, (const bf16*)xk, (const bf16*)x0, (const bf16*)w2, (bf16*)gxk, (bf16*)gx0,
-      rows, hk, m, hn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nhb = (hk + kTile - 1) / kTile, nnb = (hn + kTile - 1) / kTile;
-  const size_t smem_gw = kGwSmem;
+  unsigned char* base = (unsigned char*)scratch;
+  float* part = (float*)(base + P.part);
+  // inputs as TMA reads them: rows of 16-byte multiples at 16-byte bases
+  const bf16* gt = (const bf16*)g;
+  const bf16* xt = (const bf16*)xk;
+  const bf16* wt = (const bf16*)w2;
+  long long g_pitch = hn, x_pitch = hk, w_pitch = hn;
+  // x0^T [m][rows8], the gw kernel's per-row scales by TMA (the rows kernel
+  // writes it)
+  bf16* x0t = (bf16*)(base + P.x0t);
+  Perm jobs[3];
+  int njobs = 0;
+  if (P.pad_g) {
+    gt = (const bf16*)(base + P.gp);
+    g_pitch = P.hn8;
+    jobs[njobs++] = Perm{(const bf16*)g, (bf16*)gt, 1, (int)rows, P.hn8, 1, (int)rows, hn, 0, hn, 1};
+  }
+  if (P.pad_x) {
+    xt = (const bf16*)(base + P.xp);
+    x_pitch = P.hk8;
+    jobs[njobs++] = Perm{(const bf16*)xk, (bf16*)xt, 1, (int)rows, P.hk8, 1, (int)rows, hk, 0, hk, 1};
+  }
+  if (P.pad_w) {
+    wt = (const bf16*)(base + P.wp);
+    w_pitch = P.hn8;
+    jobs[njobs++] = Perm{(const bf16*)w2, (bf16*)wt, hk, m, P.hn8, hk, m, hn, (long long)m * hn, hn, 1};
+  }
+  if (njobs) {
+    e = cin2_permute(jobs, njobs, st);
+    if (e) return e;
+  }
+  CUtensorMap mg_rows, mx_rows, mw, mx_gw, mg_gw, mx0;
+  if ((e = make_map_bf16(&mg_rows, gt, hn, rows, g_pitch, 128))) return e;
+  if ((e = make_map_bf16(&mx_rows, xt, hk, rows, x_pitch, 128))) return e;
+  if ((e = make_map_bf16_3d(&mw, wt, hn, m, hk, w_pitch, (long long)m * w_pitch, 1, 128))) return e;
+  if ((e = make_map_bf16(&mx_gw, xt, hk, rows, x_pitch, 64))) return e;
+  if ((e = make_map_bf16(&mg_gw, gt, hn, rows, g_pitch, 64))) return e;
+  if ((e = make_map_bf16(&mx0, x0t, rows, m, P.rows8, 2, 64, false))) return e;
+
+  const RowsLayout L = rows_layout(hk, m, hn, P.stages);
+  const int grid = P.tiles < sms ? P.tiles : sms;
+  const bool one_window = L.g_resident && P.stages >= L.nkt;
+  switch (one_window ? L.nkt : 0) {
+    case 1: e = rows_launch<1>(mg_rows, mx_rows, mw, x0, gxk, gx0, x0t, rows, hk, m, hn, P, L, grid, st); break;
+    case 2: e = rows_launch<2>(mg_rows, mx_rows, mw, x0, gxk, gx0, x0t, rows, hk, m, hn, P, L, grid, st); break;
+    case 3: e = rows_launch<3>(mg_rows, mx_rows, mw, x0, gxk, gx0, x0t, rows, hk, m, hn, P, L, grid, st); break;
+    case 4: e = rows_launch<4>(mg_rows, mx_rows, mw, x0, gxk, gx0, x0t, rows, hk, m, hn, P, L, grid, st); break;
+    default: e = rows_launch<0>(mg_rows, mx_rows, mw, x0, gxk, gx0, x0t, rows, hk, m, hn, P, L, grid, st);
+  }
+  if (e) return e;
+
+  const size_t smem_gw = 1024 + kGwStages * (size_t)kGwStage + 2 * kGwStages * 8;
   err = cudaFuncSetAttribute(cin_bwd_gw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_gw);
   if (err != cudaSuccess) return (int)err;
-  const int slices = (int)n_slices(rows);
-  cin_bwd_gw_kernel<<<dim3((unsigned)(m * nhb * nnb), (unsigned)slices), kThreads, smem_gw, st>>>(
-      (const bf16*)g, (const bf16*)xk, (const bf16*)x0, (float*)scratch, rows, hk, m, hn, nhb,
-      nnb);
+  const GwArgs A = {part, hk, m, hn, P.pairs, P.nhb, P.nnb, P.slices, P.kt_total};
+  const unsigned gw_blocks = (unsigned)((long long)P.pairs * P.nhb * P.nnb * P.slices);
+  cin_bwd_gw_kernel<<<gw_blocks, kThreads, smem_gw, st>>>(mx_gw, mg_gw, mx0, A);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cin_bwd_gw_reduce_kernel<<<(unsigned)((e_total + 255) / 256), 256, 0, st>>>(
-      (const float*)scratch, (bf16*)gw, e_total, slices);
+  cin_bwd_gw_sum_kernel<<<(unsigned)((e_total + 255) / 256), 256, 0, st>>>(part, (bf16*)gw, e_total,
+                                                                          P.slices);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// Hopper helpers for the fused CIN kernels (cin2.cu, cin2_bwd.cu): TMA tile
-// loads into shared memory with 128-byte swizzle, mbarriers, and warpgroup
-// products (wgmma, bf16 in, f32 accumulate) whose B operand, and optionally
-// A, is read from shared memory through a matrix descriptor.
+// Hopper helpers for the fused CIN kernels (cin2.cu, cin2_bwd.cu) and the CIN
+// layer's backward (cin_layer_bwd.cu): TMA tile loads into shared memory
+// with 128-byte swizzle, mbarriers, and warpgroup products (wgmma, bf16 in,
+// f32 accumulate) whose B operand, and optionally A, is read from shared
+// memory through a matrix descriptor.
 //
 // Conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix Operations"):
 //  * a K-major operand tile is [rows][64] bf16: 64 values of K in a 128-byte
@@ -69,10 +70,31 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for a 3-D map: box at (c0 inner, c1, c2 outer).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 __device__ __forceinline__ uint64_t desc_k128(const void* tile) {
   const uint64_t addr = smem_addr(tile);
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// An MN-major operand tile: K rows of 64 values of N (or M) in 128-byte
+// rows, as TMA boxes {64, rows} with 128-byte swizzle lay a row-major [K][N]
+// matrix down, one box per 64 columns of N. Leading byte offset: from one
+// box to the next along N (box_bytes); stride byte offset 1024 (eight K
+// rows). The k-th slice of 16 rows starts 2048 bytes further: desc + 128 * k.
+// With the instruction's transpose-B bit (wgmma_rs_n128_mn) it is B's [K][N].
+__device__ __forceinline__ uint64_t desc_mn128(const void* tile, uint32_t box_bytes) {
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(box_bytes >> 4) << 16) | (64ull << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -84,6 +106,26 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Move this warpgroup's register budget to N a thread (a multiple of 8):
+// a producer warpgroup gives registers up, consumer warpgroups take them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Named barrier `id` over `threads` threads (a multiple of 32): bar_sync
+// waits for them all, bar_arrive counts this warp in and goes on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Keep the accumulator's registers ordered around wgmma_wait.
@@ -126,6 +168,16 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// As wgmma_rs_n128, with B MN-major (desc_mn128: the transpose-B bit).
+__device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
@@ -193,8 +245,10 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-inline int make_map_bf16(CUtensorMap* map, const void* base, long long inner, long long outer,
-                         long long pitch, int box_outer, int box_inner = 64, bool swizzle = true) {
+// A tensor map of a bf16 array of `rank` dimensions (dims[0] innermost;
+// strides in bytes of dims 1.. , multiples of 16); outside it reads as zero.
+inline int encode_map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box, bool swizzle) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -204,16 +258,32 @@ inline int make_map_bf16(CUtensorMap* map, const void* base, long long inner, lo
     if (fn == nullptr || q != cudaDriverEntryPointSuccess) return (int)cudaErrorNotSupported;
     encode = (EncodeTiled)fn;
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+inline int make_map_bf16(CUtensorMap* map, const void* base, long long inner, long long outer,
+                         long long pitch, int box_outer, int box_inner = 64, bool swizzle = true) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  return encode_map_bf16(map, base, 2, dims, strides, box, swizzle);
+}
+
+// A 3-D map of a bf16 array [d2][d1][d0] with pitches (in elements, multiples
+// of 8) p1 between rows of d1 and p2 between planes of d2, read in boxes of
+// {64, box1, box2} with 128-byte swizzle.
+inline int make_map_bf16_3d(CUtensorMap* map, const void* base, long long d0, long long d1,
+                            long long d2, long long p1, long long p2, int box1, int box2) {
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)p1 * 2, (cuuint64_t)p2 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box1, (cuuint32_t)box2};
+  return encode_map_bf16(map, base, 3, dims, strides, box, true);
 }
 
 }  // namespace rm

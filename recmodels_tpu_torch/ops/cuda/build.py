@@ -71,8 +71,8 @@ _RESTYPES = {
     "rm_cin2_forward_scratch": ([_I] * 6, _L),
     # device, b, d, m, h1, h2 -> scratch bytes of rm_cin2_backward, or -1
     "rm_cin2_backward_scratch": ([_I] * 6, _L),
-    # rows, hk, m, hn -> scratch bytes of rm_cin_layer_backward, or -1
-    "rm_cin_layer_backward_scratch": ([_L, _I, _I, _I], _L),
+    # device, g, xk, w2, rows, hk, m, hn -> scratch bytes of rm_cin_layer_backward, or -1
+    "rm_cin_layer_backward_scratch": ([_I, _P, _P, _P, _L, _I, _I, _I], _L),
     "rm_error_string": ([_I], ctypes.c_char_p),
 }
 

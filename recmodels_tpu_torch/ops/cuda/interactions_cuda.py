@@ -445,8 +445,11 @@ def cin_layer_backward_reference(xk2, x02, w2, g):
 
 def cin_layer_backward(xk2, x02, w2, g):
     """The layer's backward kernel on bf16 tensors: same arguments and
-    results as ``cin_layer_backward_reference``; any R, Hk and Hn, m up to
-    182."""
+    results as ``cin_layer_backward_reference``; any R and Hk, any Hn, and m
+    as far as the rows kernel's shared memory holds 512 m bytes of partials
+    a tile beside its other tiles: m up to 291 at Hn up to 64, 259 from 65
+    to 128, 227 from 129 to 192, 195 from 193 to 256, 259 above 256 (the
+    source note of ``csrc/cin_layer_bwd.cu``)."""
     if xk2.device.type == "cpu":
         return cin_layer_backward_reference(xk2, x02, w2, g)
     dev_t = cuda_device(xk2, "cin_layer_backward")
@@ -457,14 +460,18 @@ def cin_layer_backward(xk2, x02, w2, g):
     if g.shape != (rows, hn):
         raise ValueError(f"cin_layer_backward: g {tuple(g.shape)}, expected {(rows, hn)}")
     lib = build.library()
-    scratch_bytes = lib.rm_cin_layer_backward_scratch(rows, hk, m, hn)
+    dev, stream = device_and_stream(dev_t)
+    scratch_bytes = lib.rm_cin_layer_backward_scratch(
+        dev, g.data_ptr(), xk2.data_ptr(), w2.data_ptr(), rows, hk, m, hn,
+    )
     if scratch_bytes < 0:
-        raise NotImplementedError(f"cin_layer_backward kernel: rows={rows}, m={m}; it takes m <= 182")
+        raise NotImplementedError(f"cin_layer_backward kernel: rows={rows}, hk={hk}, m={m}, hn={hn}; "
+                                  "it takes m up to 291 at Hn up to 64, 259 from 65 to 128, 227 from "
+                                  "129 to 192, 195 from 193 to 256, 259 above 256")
     gxk = torch.empty((rows, hk), dtype=torch.bfloat16, device=dev_t)
     gx0 = torch.empty((rows, m), dtype=torch.bfloat16, device=dev_t)
     gw = torch.empty((hk, m * hn), dtype=torch.bfloat16, device=dev_t)
     scratch = torch.empty((max(scratch_bytes, 1),), dtype=torch.uint8, device=dev_t)
-    dev, stream = device_and_stream(dev_t)
     err = lib.rm_cin_layer_backward(
         dev, g.data_ptr(), xk2.data_ptr(), x02.data_ptr(), w2.data_ptr(), gxk.data_ptr(),
         gx0.data_ptr(), gw.data_ptr(), scratch.data_ptr(), rows, hk, m, hn, stream,

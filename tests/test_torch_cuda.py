@@ -292,10 +292,28 @@ def test_cin_layer_forward_kernel(cuda, rows, hk, m, hn, dtype):
     (5000, 128, 4, 128),    # ragged rows, two gw slices
     (300, 40, 7, 24),       # nothing aligned
     (600, 136, 5, 200),     # two h blocks and two k-chunks
+    (100, 128, 26, 128),    # fewer rows than one 128-row tile
+    (3000, 128, 26, 128),   # 47 K tiles over 10 gw slices, a ragged last tile
+    (1000, 256, 6, 256),    # two h blocks of 128, four K tiles of 64
+    (700, 128, 1, 128),     # one field: the second warpgroup of the gw pair idles
+    (300, 128, 3, 320),     # Hn past 256: g streams through the ring with w2
+    (512, 128, 26, 384),    # 6 K tiles through a ring of 5: two windows a field
+    (512, 128, 26, 512),    # 8 K tiles through a ring of 5
+    (300, 128, 100, 320),   # 5 K tiles through a ring of 4
+    (333, 37, 3, 21),       # row pitches off 16 bytes: padded copies first
+    (256, 128, 128, 128),   # the most fields takes_backward_kernel admits
+    (130, 64, 195, 256),    # the most fields at Hn = 256: 4 g-held K tiles, a ring of 2
+    (130, 64, 227, 192),    # the most at Hn = 192: 3 K tiles, a ring of 2
+    (130, 64, 259, 384),    # the most past Hn = 256: 6 streamed K tiles, a ring of 2
+    (16384, 128, 26, 128),  # the training step's layer at 16,384 rows
 ])
 def test_cin_layer_backward_kernel(cuda, rows, hk, m, hn):
     xk2, x02, w2 = _layer_inputs(cuda, rows, hk, m, hn, torch.bfloat16, 9)
     gy = torch.randn((rows, hn), generator=_gen(cuda, 10), device=cuda).to(torch.bfloat16)
+    _check_cin_layer_backward(xk2, x02, w2, gy)
+
+
+def _check_cin_layer_backward(xk2, x02, w2, gy):
     before = K.cin_layer_backward.launches
     outs = K.cin_layer_backward(xk2, x02, w2, gy)
     torch.cuda.synchronize()
@@ -307,6 +325,39 @@ def test_cin_layer_backward_kernel(cuda, rows, hk, m, hn):
         assert err <= BF16_REL_TOL * want.float().abs().max().item()
     again = K.cin_layer_backward(xk2, x02, w2, gy)
     assert all(torch.equal(x, y) for x, y in zip(outs, again))  # no atomics: runs repeat
+
+
+def test_cin_layer_backward_kernel_on_views_off_16_bytes(cuda):
+    """Inputs whose data starts 2 bytes past a 16-byte boundary: TMA cannot
+    read them as they lie, so the kernel copies them first."""
+    rows, hk, m, hn = 300, 128, 5, 128
+    xk2, x02, w2 = _layer_inputs(cuda, rows, hk, m, hn, torch.bfloat16, 11)
+    gy = torch.randn((rows, hn), generator=_gen(cuda, 12), device=cuda).to(torch.bfloat16)
+
+    def off(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    _check_cin_layer_backward(off(xk2), x02, off(w2), off(gy))
+
+
+def test_cin_layer_backward_kernel_on_no_rows(cuda):
+    xk2, x02, w2 = _layer_inputs(cuda, 0, 128, 26, 128, torch.bfloat16, 13)
+    gy = torch.empty((0, 128), dtype=torch.bfloat16, device=cuda)
+    gxk, gx0, gw = K.cin_layer_backward(xk2, x02, w2, gy)
+    torch.cuda.synchronize()
+    assert gxk.shape == (0, 128) and gx0.shape == (0, 26)
+    assert gw.shape == w2.shape and not gw.any()
+
+
+@pytest.mark.parametrize("m,hn", [(196, 256), (228, 192), (260, 384)])
+def test_cin_layer_backward_kernel_refuses_fields_past_its_limit(cuda, m, hn):
+    xk2, x02, w2 = _layer_inputs(cuda, 130, 64, m, hn, torch.bfloat16, 14)
+    gy = torch.zeros((130, hn), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="it takes m up to 291"):
+        K.cin_layer_backward(xk2, x02, w2, gy)
 
 
 @pytest.mark.parametrize("shape", [

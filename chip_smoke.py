@@ -29,9 +29,10 @@ Phases, each on its own lines:
                the cross stack), its plain version and its library call are
                timed with a cold L2 and, by torch.profiler, warm; the rest
                by CUDA events over back-to-back calls (the CIN layer also
-               by torch.profiler; the fused CIN forward and backward and the
-               layer backward also launch by launch, by torch.profiler; the
-               layer backward beside the JAX package's einsum backward);
+               by torch.profiler; the fused CIN forward and backward, the
+               bf16 layer forward and the layer backward also launch by
+               launch, by torch.profiler; the layer backward beside the JAX
+               package's einsum backward);
   4. serving:  full-width bf16 xDeepFM (26 x 1e5 ids, dim 16, CIN(128,128),
                DNN(400,400)) initialised from a seed (with weights under which
                each kernel's output moves the logits), exported, loaded with
@@ -56,7 +57,7 @@ Phases, each on its own lines:
                path's step (loss, dense Adam moments, each table's m and v on
                touched rows; the table moves by the Adam step of its own
                moments, bit for bit; untouched rows bit for bit); the step's
-               device time, kernel time and profile; then one dense-Adam
+               event time, kernel time, busy share and profile; then one dense-Adam
                ("adam_dense") table update on the card, run twice from one
                state (identical bits) and held against the CPU;
   7. slice 4, for each of full-width bf16 DeepFM (DNN(400,400,400)), bf16
@@ -187,10 +188,10 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile(fn, calls: int = 3, top: int = 12) -> float:
+def profile(fn, calls: int = 3, top: int = 12) -> tuple[float, float]:
     """Print the device time per call of the kernels ``fn`` runs, from
     torch.profiler, and the share of the window the device was busy; return
-    the kernels' time per call (ms)."""
+    the kernels' time per call (ms) and that share."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -217,7 +218,7 @@ def profile(fn, calls: int = 3, top: int = 12) -> float:
     for ms, count, name in rows[:top]:
         print(f"profile: {ms:.4f} ms/call x{count} {name[:90]}")
     print(f"profile: {sum(r[1] for r in rows)} kernel launches per call")
-    return busy / calls
+    return busy / calls, busy / wall_ms
 
 
 def cold_ms(fn, iters: int = 20) -> float:
@@ -551,14 +552,20 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
             f"{label}warm_ms": device_ms(kernel, calls=5),
             f"{label}library_warm_ms": device_ms(library, calls=3),
         })
+        if not f32:  # the re-layout (layer 1) and the product kernel apart
+            fwd[f"{label}launch_ms"] = launch_split(kernel, calls=10)
         del got
+    for label in ("", "l1_"):
+        split = ", ".join(f"{k} {v:.4f}" for k, v in fwd[f"{label}launch_ms"].items())
+        print(f"cin_layer_forward {label or 'l2_'}bf16 launches by device time (ms a call): {split} on {card}")
     report["cin_layer_forward"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/cin_layer.cu",
         replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:234",
         shapes="unprefixed keys: layer 2 bf16 [262144, 128] x [128, 26*128]; l1_: layer 1 "
                "[262144, 26] x [26, 26*128]; f32_ and l1_f32_: the same in f32",
         timing="ms, plain_ms, library_ms: CUDA events over back-to-back calls; warm_ms, library_warm_ms: "
-               "the same calls by torch.profiler", **fwd,
+               "the same calls by torch.profiler; launch_ms, l1_launch_ms: each launch of the bf16 calls by "
+               "torch.profiler", **fwd,
     )
 
     # 10. cin_layer_backward at layer 2: the output's cotangent N(0, 1)
@@ -1125,7 +1132,7 @@ def training_phase(title: str, engine, schema, batch_size: int, kernels, seed: i
     print(f"Engine.train_step ({name}) at {batch_size} one at a time (host clock to synchronize): "
           f"{host_ms:.4f} ms median of 5, {batch_size / host_ms * 1e3:.0f} examples/s on {card}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    busy = profile(lambda: engine.train_step(state, dense, ids, labels), top=20)
+    busy, _ = profile(lambda: engine.train_step(state, dense, ids, labels), top=20)
     print(f"Engine.train_step ({name}) at {batch_size}: {busy:.4f} ms of kernel time per step "
           f"(profiler), {batch_size / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
     return launches
@@ -1284,9 +1291,11 @@ def training3_phase(engine3, schema, card: str, gen: torch.Generator) -> dict[st
     print(f"Engine.train_step (slice 3) at {BATCH}: {step_ms:.4f} ms per step (CUDA events, 10 "
           f"back-to-back steps), {BATCH / step_ms * 1e3:.0f} examples/s on {card}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    busy = profile(lambda: engine3.train_step(state, dense, ids, labels), top=24)
+    busy, share = profile(lambda: engine3.train_step(state, dense, ids, labels), top=24)
     print(f"Engine.train_step (slice 3) at {BATCH}: {busy:.4f} ms of kernel time per step (profiler), "
           f"{BATCH / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
+    print(f"slice-3 step: events {step_ms:.4f} ms, kernels {busy:.4f} ms, device busy {share:.1%} of the "
+          f"profiled window, on {card}")
     return launches
 
 

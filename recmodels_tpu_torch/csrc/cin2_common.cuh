@@ -1,8 +1,9 @@
 // What the fused CIN kernels (cin2.cu, cin2_bwd.cu) share: their limits,
 // the padded pair layout, and two launchers defined in cin2.cu that both
 // directions use (a weight re-layout and a bf16 GEMM on the tensor cores).
-// The CIN layer's backward (cin_layer_bwd.cu) takes kTileRows, kConsumers,
-// kMaxSmem and the re-layout (cin2_permute, Perm) from here.
+// The CIN layer's kernels (cin_layer.cu, cin_layer_bwd.cu) take kTileRows,
+// kConsumers, kMaxSmem and the re-layout from here, and share the host-side
+// plan of their inputs as TMA reads them (TmaRows, Scratch, tma_copy).
 //
 // Pairs (h, i) of fields are laid out h-major with i padded to kPairPad =
 // 32: pair (h, i) is column h * 32 + i, and columns with i >= m are zero.
@@ -65,6 +66,70 @@ __device__ __forceinline__ void load_x0_tile(bf16* s, int ld, const bf16* __rest
     *reinterpret_cast<uint4*>(s + (v >> 2) * ld + (v & 3) * 8) =
         *reinterpret_cast<const uint4*>(tile + v * 8);
   }
+}
+
+// ------------------------------------------------- inputs as TMA reads them
+// A row-major bf16 matrix [outer][inner] is read by TMA as it lies when its
+// base is 16-byte aligned and its row pitch a multiple of 8 elements; else a
+// re-layout launch first copies it into scratch with rows padded to a
+// multiple of 8 (zeros past `inner`).
+inline bool tma_ready(const void* p, long long pitch) {
+  return ((reinterpret_cast<uintptr_t>(p) & 15) == 0) && pitch % 8 == 0;
+}
+
+inline int multiprocessors(int device, int* sms) {
+  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+struct TmaRows {
+  const bf16* src;
+  long long outer, pitch;  // pitch: of the matrix TMA reads
+  int inner;
+  bool copy;               // read from a padded copy at `off` in scratch
+  size_t off;
+  const bf16* at(unsigned char* scratch) const { return copy ? (const bf16*)(scratch + off) : src; }
+};
+
+// Scratch laid out piece by piece, each piece 1024-byte aligned.
+struct Scratch {
+  size_t total = 0;
+  size_t take(size_t bytes) {
+    const size_t off = total;
+    total += align1k(bytes);
+    return off;
+  }
+  TmaRows rows(const void* p, long long outer, int inner) {
+    TmaRows r{(const bf16*)p, outer, inner, inner, false, 0};
+    if (!tma_ready(p, inner)) {
+      r.copy = true;
+      r.pitch = (inner + 7) / 8 * 8;
+      r.off = take((size_t)outer * r.pitch * 2);
+    }
+    return r;
+  }
+};
+
+// The padded copies of the inputs that need one, in pieces of fewer than
+// 2^31 elements, four to a re-layout launch.
+inline int tma_copy(const TmaRows* in, int n, unsigned char* scratch, cudaStream_t st) {
+  Perm jobs[4];
+  int njobs = 0;
+  for (int k = 0; k < n; ++k) {
+    const TmaRows& r = in[k];
+    if (!r.copy) continue;
+    const long long piece = 0x7fffffffLL / r.pitch;
+    for (long long r0 = 0; r0 < r.outer; r0 += piece) {
+      const int nr = (int)(r.outer - r0 < piece ? r.outer - r0 : piece);
+      jobs[njobs++] = Perm{r.src + r0 * r.inner, (bf16*)(scratch + r.off) + r0 * r.pitch, 1, nr,
+                           (int)r.pitch, 1, nr, r.inner, 0, r.inner, 1};
+      if (njobs == 4) {
+        const int e = cin2_permute(jobs, njobs, st);
+        if (e) return e;
+        njobs = 0;
+      }
+    }
+  }
+  return njobs ? cin2_permute(jobs, njobs, st) : 0;
 }
 
 __device__ __forceinline__ void consumer_sync() {

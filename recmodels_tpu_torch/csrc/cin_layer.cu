@@ -13,18 +13,63 @@
 // reference is full f32).
 //
 // bf16. t_i[r, n] = sum_h xk[r, h] * w2[h, i*Hn + n] in f32, never rounded,
-// then out = cast(sum_i t_i * x0[:, i]) (an f32 fold, one cast): the pair
-// products xk * x0 are never formed, so nothing rounds before the final
-// cast. The TPU kernel forms t as one [TR, m*Hn] MXU product in VMEM and
-// folds it lane-slice by lane-slice. Here a block takes 128 rows and 128
-// output columns (8 warps of 32 rows x 64 columns) and walks i: w2's
-// [Hk, 128] slice for field i is staged in shared memory (k-chunks of 128
-// when Hk > 128), each warp forms its 32 x 64 t_i on the tensor cores
-// (mma.sync, bf16 in, f32 accumulate; the xk rows stay in shared memory),
-// and then folds t_i into its f32 output accumulators with the row's
-// x0[r, i], which the C fragment's known layout puts in registers. The next
-// field's slice is copied by cp.async into a second buffer while this one
-// multiplies.
+// then out = cast(sum_i t_i * x0[:, i]) (an f32 fold in field order, one
+// cast): the pair products xk * x0 are never formed, so nothing rounds
+// before the final cast. The TPU kernel forms t as one [TR, m*Hn] MXU
+// product in VMEM and folds it lane-slice by lane-slice.
+//
+// What held the previous design back (mma.sync; layer 2 1.1086 ms, layer 1
+// 0.5584 ms warm on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md): one
+// 128 x 128 block an SM; every warp read its whole [128 h x 64 n] half of
+// field i's w2 slice from shared memory as B fragments, for every field, so
+// shared memory and not the tensor cores set the pace; one cp.async wait
+// and one barrier a field, with one slice in flight; and the fold ran on
+// all eight warps at once while the tensor cores idled. At layer 1 (Hk =
+// 26) a field was two k-steps against a barrier, a wait and a 32 KB copy.
+//
+// This design: one GEMM per item (a 128-row tile, a 128-wide n block) whose
+// N blocks are the fields, folded in its epilogue, as the backward's rows
+// kernel (cin_layer_bwd.cu). Persistent blocks of a producer warpgroup (one
+// thread issues the copies; setmaxnreg hands its registers to the
+// consumers) and two consumer warpgroups of 64 rows walk the items. The
+// producer loads an item's xk rows once (TMA, K-major as they lie; two
+// buffers, so the next item's rows land while this one multiplies) and
+// streams w2 as [kb h x 64 n] boxes of a 3-D map [h][i][n] (a box stops at
+// its field's edge) through a ring of up to eight stages that runs ahead
+// across fields and items. A step takes two fields: four boxes, MN-major
+// (K = h down the rows), that wgmma m64n256k16 reads with the transpose-B
+// bit into one accumulator holding t_i and t_{i+1}, both operands from
+// shared memory, started with scale-d 0. The fold acc += t_i * x0[r, i],
+// then t_{i+1}, takes the thread's two rows' x0, loaded a step ahead from
+// device memory. The two warpgroups take turns issuing (two named
+// barriers), so one's products run while the other folds. At Hk <= 32
+// (layer 1: Hk = m = 26) a box has 32 h rows and a step two K slices, not
+// four. A step's K tiles go in windows of at most the ring's depth, one
+// window a turn, so no step waits for more K tiles than the ring holds (Hk
+// > 256 streams xk's K tiles through the ring beside w2's); where the ring
+// holds a step, a template instance per K-tile count unrolls the loop
+// (ptxas serialises the wgmma of a loop it cannot unroll). Ragged R, Hk and
+// Hn read TMA's zero fill and mask the stores. Inputs TMA cannot read as
+// they lie (xk at Hk % 8 != 0, as layer 1's 52-byte rows; w2 at Hn % 8 !=
+// 0, as CIN(100,100); a base off 16 bytes) are first copied by one
+// re-layout launch into scratch with padded rows (cin2_common.cuh); the
+// kernel is the same. No atomics: a run repeats bit for bit.
+//
+// What the measurements chose (chip runs on an NVIDIA H100 80GB HBM3 at
+// 700.00 W, PERF.md): one field a step, turns as above, 0.4420 ms at layer
+// 2 and 0.2857 at layer 1; a second accumulator set issued a field ahead,
+// or t copied out of the accumulator so the next field could issue before
+// the fold, made ptxas serialise the products (C7514, C7515) or cost 64
+// moves a field (0.39, 0.25 ms); two fields a step, 0.34, 0.21 ms. Passing
+// the turn only after a warpgroup's products retire was slower (0.42,
+// 0.25); w2's stream switched off moved it by 1-5%. With the fold switched
+// off layer 1 takes about half the time (0.12 ms): there the turns do not
+// hide the fold.
+//
+// Measured the same way (chip_smoke.py, parent and change in turn): layer
+// 2 0.3480, 0.3469 ms by launch (the mma.sync kernel 1.0943, 1.0956), 1.5x
+// its 0.2258 ms bound; layer 1 0.2158, 0.2181 plus a 0.0122 ms re-layout
+// (0.5700, 0.5699), 4.8x its 0.0459 ms bound.
 //
 // f32. One product with K = m * Hk and one accumulator:
 //   A[r, (i, h)] = xk[r, h] * x0[r, i],   B[(i, h), n] = w2[h, i*Hn + n].
@@ -53,20 +98,319 @@
 // copied by scalar loads and the output then stored by scalars. No atomics
 // and a fixed order: a run repeats bit for bit.
 
-#include "mma_sm90.cuh"
+#include "cin2_common.cuh"
 
-using rm::bf16;
-
+namespace rm {
 namespace {
 
-constexpr int kThreads = 256;
-// bf16: 128 rows x 128 columns per block, k-chunks of 128
-constexpr int kRows = 128;
-constexpr int kCols = 128;
-constexpr int kKc = 128;
-constexpr int kLd = kKc + 8;   // padded row of the xk tile (bf16)
-constexpr int kLdW = kCols + 8;  // padded row of the w2 slice (bf16)
-constexpr size_t kSmemBf16 = (size_t)(kRows * kLd + 2 * kKc * kLdW) * sizeof(bf16);
+// bf16: two consumer warpgroups and a producer warpgroup (one thread of it
+// issues the copies), which gives its registers up to the consumers
+constexpr int kFwdThreads = kConsumers + 128;
+constexpr int kFwdProducerRegs = 40, kFwdConsumerRegs = 232;
+constexpr int kATile = 128 * 128;  // bytes of xk's K tile: [128 rows][64 h]
+constexpr int kAHalf = 64 * 128;   // a consumer warpgroup's 64 rows of it
+constexpr int kAResident = 4;      // K tiles of xk an item holds: Hk <= 256
+constexpr int kMaxStages = 8;
+constexpr int kOrder0 = 2, kOrder1 = 3;  // named barriers (0: __syncthreads)
+constexpr long long kChunkRows = 1LL << 30;  // rows a launch takes: TMA's coordinates are 32-bit
+
+struct FwdLayout {
+  int nkt;          // K tiles of 64 h
+  int kb;           // h rows of a w2 box: 32 at Hk <= 32, else 64
+  int stage_bytes;  // four w2 boxes [kb h][64 n] (two fields), and xk's K tile when it streams
+  int stages;
+  bool a_resident;  // xk's K tiles held for the item, in two buffers
+  size_t a, ring, bars, total;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int hk, int stages) {
+  FwdLayout L;
+  L.nkt = (hk + 63) / 64;
+  L.kb = hk <= 32 ? 32 : 64;
+  L.a_resident = L.nkt <= kAResident;
+  L.stage_bytes = 4 * L.kb * 128 + (L.a_resident ? 0 : kATile);
+  L.stages = stages;
+  L.a = 0;
+  L.ring = L.a + (L.a_resident ? 2 * (size_t)L.nkt * kATile : 0);
+  L.bars = L.ring + (size_t)stages * L.stage_bytes;
+  L.total = 1024 + L.bars + (2 * (size_t)stages + 4) * 8;
+  return L;
+}
+
+// the deepest ring, up to 8 stages, that fits (3 at the least, at any Hk)
+int fwd_stages(int hk) {
+  int s = kMaxStages;
+  while (s > 2 && fwd_layout(hk, s).total > kMaxSmem) --s;
+  return s;
+}
+
+// Out's bf16 values of one item's rows ra, ra + 8 from the f32 fold,
+// masked at ragged R and Hn.
+__device__ __forceinline__ void store_rows(const float (&acc)[64], bf16* __restrict__ out, long long ra,
+                                           long long rows, int n0, int hn, int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    if (col >= hn) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long r = ra + 8 * half;
+      if (r >= rows) continue;
+      bf16* dst = out + r * hn + col;
+      const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+      if ((hn & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        dst[0] = __float2bfloat16_rn(v0);
+        if (col + 1 < hn) dst[1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+// x0[r, i] for the thread's two rows (0 past the rows or the fields).
+struct X0Pair {
+  bf16 a, b;
+};
+
+__device__ __forceinline__ X0Pair load_x0(const bf16* __restrict__ x0, long long ra, long long rows, int m,
+                                          int i) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  X0Pair x{zero, zero};
+  if (i < m) {
+    if (ra < rows) x.a = x0[ra * m + i];
+    if (ra + 8 < rows) x.b = x0[(ra + 8) * m + i];
+  }
+  return x;
+}
+
+// Items (128-row tile, 128-wide n block), n block fastest. A step is two
+// fields i, i + 1: one product of N = 256 whose accumulator holds t_i and
+// t_{i+1} side by side (an odd m's last step has a second field of zeros
+// or an old box, folded with x0 = 0). NKT > 0 (Hk <= 192): xk held and a
+// step one window of NKT K tiles of KS slices each, so the K loop unrolls;
+// 0 (Hk > 192, where the ring holds fewer stages than a step has K tiles;
+// past 256 xk's K tiles stream with w2's): a step in windows of at most
+// `stages` K tiles (ptxas serialises the wgmma of a loop it cannot unroll,
+// so only these shapes take NKT = 0).
+template <int NKT, int KS>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    cin_layer_bf16_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                          const bf16* __restrict__ x0, bf16* __restrict__ out, long long rows, int hk, int m,
+                          int hn, int stages, long long items, int nnb) {
+  extern __shared__ __align__(1024) unsigned char smem_fwd[];
+  unsigned char* smem = (unsigned char*)(((uintptr_t)smem_fwd + 1023) & ~(uintptr_t)1023);
+  const FwdLayout L = fwd_layout(hk, stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  uint64_t* a_full = empty + stages;  // one per xk buffer
+  uint64_t* a_empty = a_full + 2;
+  const int box = L.kb * 128;  // bytes of one w2 box
+  const int steps = (m + 1) / 2;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&a_full[b], 1);
+      mbar_init(&a_empty[b], kConsumers / 32);
+    }
+    mbar_fence_init();
+  }
+  if (m & 1) {  // an odd m's last step reads its second field from an old box or zeros: finite
+    for (int o = tid * 16; o < stages * L.stage_bytes; o += kFwdThreads * 16)
+      *reinterpret_cast<uint4*>(smem + L.ring + o) = make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {  // producer: per item xk, per step two fields' w2
+    setmaxnreg_dec<kFwdProducerRegs>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      int it = 0, nt = 0;
+      for (long long item = blockIdx.x; item < items; item += gridDim.x, ++nt) {
+        const int row0 = (int)(item / nnb) * kTileRows;
+        const int n0 = (int)(item % nnb) * 128;
+        const int halves = n0 + 64 < hn ? 2 : 1;  // boxes of 64 n a field that hold columns of out
+        if (L.a_resident) {
+          const int b = nt & 1;
+          mbar_wait(&a_empty[b], ((nt >> 1) & 1) ^ 1);
+          mbar_expect_tx(&a_full[b], L.nkt * kATile);
+          for (int kt = 0; kt < L.nkt; ++kt)
+            tma_load_2d(smem + L.a + (size_t)(b * L.nkt + kt) * kATile, &mx, &a_full[b], kt * 64, row0);
+        }
+        for (int i = 0; i < m; i += 2) {
+          const int fields = i + 1 < m ? 2 : 1;
+          for (int kt = 0; kt < L.nkt; ++kt, ++it) {
+            const int s = it % stages;
+            unsigned char* st = smem + L.ring + (size_t)s * L.stage_bytes;
+            mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+            mbar_expect_tx(&full[s], fields * halves * box + (L.a_resident ? 0 : kATile));
+            for (int f = 0; f < fields; ++f)
+              for (int h = 0; h < halves; ++h)
+                tma_load_3d(st + (2 * f + h) * box, &mw, &full[s], n0 + 64 * h, i + f, kt * 64);
+            if (!L.a_resident) tma_load_2d(st + 4 * box, &mx, &full[s], kt * 64, row0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kFwdConsumerRegs>();
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rl = wg * 64 + (warp & 3) * 16 + g;  // tile rows rl, rl + 8 of this thread
+  const int nkt = NKT ? NKT : L.nkt;
+  const int window = NKT ? NKT : stages;
+  float acc[64];
+  float tt[128];  // t_i, t_{i+1}; a step's first K slice overwrites it (scale-d 0)
+  int it = 0, nt = 0, turn = 0;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x, ++nt) {
+    const long long ra = (item / nnb) * kTileRows + rl;
+    const int b = nt & 1;
+    const unsigned char* at = smem + L.a + (size_t)b * L.nkt * kATile;
+    if (L.a_resident) mbar_wait(&a_full[b], (nt >> 1) & 1);
+#pragma unroll
+    for (int c = 0; c < 64; ++c) acc[c] = 0.f;
+    X0Pair x_i = load_x0(x0, ra, rows, m, 0), x_j = load_x0(x0, ra, rows, m, 1);
+    for (int step = 0; step < steps; ++step) {
+      // the next step's x0, loaded ahead
+      const X0Pair n_i = load_x0(x0, ra, rows, m, 2 * step + 2);
+      const X0Pair n_j = load_x0(x0, ra, rows, m, 2 * step + 3);
+      // the step's products for the warpgroup's 64 rows: its K tiles in
+      // windows of at most `window` (one when NKT > 0), a window's stages
+      // waited for together, its products issued unbroken and its stages
+      // released once they retire. The warpgroups take turns, a window a
+      // turn, so one folds while the other's products run, and both release
+      // a window before the ring must refill it
+      for (int k0 = 0; k0 < nkt; k0 += window, ++turn) {
+        const int k1 = k0 + window < nkt ? k0 + window : nkt;
+        if (wg == 1) bar_sync(kOrder1, kConsumers);
+        else if (turn > 0) bar_sync(kOrder0, kConsumers);
+#pragma unroll
+        for (int kt = k0; kt < k1; ++kt) mbar_wait(&full[(it + kt) % stages], ((it + kt) / stages) & 1);
+        fence_regs(tt);
+        wgmma_fence();
+#pragma unroll
+        for (int kt = k0; kt < k1; ++kt) {
+          const unsigned char* st = smem + L.ring + (size_t)((it + kt) % stages) * L.stage_bytes;
+          const unsigned char* a = L.a_resident ? at + kt * kATile : st + 4 * box;
+          const uint64_t da = desc_k128(a + wg * kAHalf), db = desc_mn128(st, box);
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) wgmma_ss_n256_mn(tt, da + 2 * ks, db + 128 * ks, kt | ks);
+        }
+        wgmma_commit();
+        bar_arrive(wg == 0 ? kOrder1 : kOrder0, kConsumers);
+        wgmma_wait<0>();
+        fence_regs(tt);
+        if (lane == 0) {
+          for (int kt = k0; kt < k1; ++kt) mbar_arrive(&empty[(it + kt) % stages]);
+        }
+      }
+      it += nkt;
+      // the fold, in f32 and field order: acc += t_i * x0[r, i], then t_{i+1}
+      const float fa = __bfloat162float(x_i.a), fb = __bfloat162float(x_i.b);
+      const float ga = __bfloat162float(x_j.a), gb = __bfloat162float(x_j.b);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        acc[4 * j] = fmaf(tt[4 * j], fa, acc[4 * j]);
+        acc[4 * j + 1] = fmaf(tt[4 * j + 1], fa, acc[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(tt[4 * j + 2], fb, acc[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(tt[4 * j + 3], fb, acc[4 * j + 3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        acc[4 * j] = fmaf(tt[64 + 4 * j], ga, acc[4 * j]);
+        acc[4 * j + 1] = fmaf(tt[64 + 4 * j + 1], ga, acc[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(tt[64 + 4 * j + 2], gb, acc[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(tt[64 + 4 * j + 3], gb, acc[4 * j + 3]);
+      }
+      x_i = n_i;
+      x_j = n_j;
+    }
+    // every product of the item has retired: xk's buffer is the producer's
+    if (L.a_resident && lane == 0) mbar_arrive(&a_empty[b]);
+    store_rows(acc, out, ra, rows, (int)(item % nnb) * 128, hn, t);
+  }
+  if (wg == 0 && turn > 0) bar_sync(kOrder0, kConsumers);  // warpgroup 1's last turn
+}
+
+struct FwdPlan {
+  int stages;
+  long long chunk;  // rows a launch takes
+  TmaRows x, w;     // a chunk's xk and w2 as TMA reads them (cin2_common.cuh)
+  size_t total;     // scratch bytes: the padded copies
+};
+
+void fwd_plan(FwdPlan* P, const void* xk, const void* w2, long long rows, int hk, int m, int hn) {
+  P->stages = fwd_stages(hk);
+  P->chunk = rows < kChunkRows ? rows : kChunkRows;
+  Scratch S;
+  P->w = S.rows(w2, (long long)hk * m, hn);
+  P->x = S.rows(xk, P->chunk, hk);
+  P->total = S.total;
+}
+
+template <int NKT, int KS>
+int fwd_launch(const CUtensorMap& mx, const CUtensorMap& mw, const bf16* x0, bf16* out, long long rows,
+               int hk, int m, int hn, int stages, long long items, int nnb, int grid, size_t smem,
+               cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(cin_layer_bf16_kernel<NKT, KS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cin_layer_bf16_kernel<NKT, KS><<<grid, kFwdThreads, smem, st>>>(mx, mw, x0, out, rows, hk, m, hn, stages,
+                                                                  items, nnb);
+  return (int)cudaGetLastError();
+}
+
+int cin_layer_bf16(int device, const bf16* xk, const bf16* x0, const bf16* w2, bf16* out,
+                   unsigned char* scratch, long long rows, int hk, int m, int hn, cudaStream_t st) {
+  int sms = 0;
+  int e = multiprocessors(device, &sms);
+  if (e) return e;
+  FwdPlan P;
+  fwd_plan(&P, xk, w2, rows, hk, m, hn);
+  const FwdLayout L = fwd_layout(hk, P.stages);
+  const int nnb = (hn + 127) / 128;
+  // where the ring holds a step (Hk <= 192): one window, unrolled
+  const int key = L.a_resident && P.stages >= L.nkt ? L.nkt * 8 + L.kb / 16 : 0;
+  for (long long r0 = 0; r0 < rows; r0 += P.chunk) {
+    const long long n = rows - r0 < P.chunk ? rows - r0 : P.chunk;
+    TmaRows ins[2] = {P.w, P.x};
+    ins[0].copy = P.w.copy && r0 == 0;  // w2's copy serves every chunk
+    ins[1].src = xk + r0 * hk;
+    ins[1].outer = n;
+    if ((e = tma_copy(ins, 2, scratch, st))) return e;
+    CUtensorMap mx, mw;
+    if ((e = make_map_bf16(&mx, ins[1].at(scratch), hk, n, P.x.pitch, 128))) return e;
+    if ((e = make_map_bf16_3d(&mw, P.w.at(scratch), hn, m, hk, P.w.pitch, (long long)m * P.w.pitch, 1,
+                              L.kb)))
+      return e;
+    const long long items = (n + kTileRows - 1) / kTileRows * nnb;
+    const int grid = (int)(items < sms ? items : sms);
+    const bf16* x0c = x0 + r0 * m;
+    bf16* outc = out + r0 * hn;
+#define RM_FWD(NKT, KS) \
+  fwd_launch<NKT, KS>(mx, mw, x0c, outc, n, hk, m, hn, P.stages, items, nnb, grid, L.total, st)
+    switch (key) {
+      case 8 + 2: e = RM_FWD(1, 2); break;
+      case 8 + 4: e = RM_FWD(1, 4); break;
+      case 16 + 4: e = RM_FWD(2, 4); break;
+      case 24 + 4: e = RM_FWD(3, 4); break;
+      default: e = RM_FWD(0, 4);
+    }
+#undef RM_FWD
+    if (e) return e;
+  }
+  return 0;
+}
+
 // f32: 128 rows x 128 columns per block, threads of kTmF x 8 outputs (16
 // threads across), K in tiles of 16, xk^T staged per 64 of Hk (73 KB of
 // shared memory a block: two blocks an SM leave 100 KB of L1 for x0)
@@ -82,123 +426,6 @@ constexpr int kStagesF = 3;      // the ring of w2 tiles
 constexpr int kPerA = kBkF * kBmF / kThreadsF;  // a thread's share of an A tile: one row, kPerA k
 constexpr size_t kSmemF32 =
     (size_t)(kKcF * kLdXF + 2 * kBkF * kBmF + kStagesF * kBkF * kBnF) * sizeof(float);
-
-__global__ void __launch_bounds__(kThreads, 1)
-    cin_layer_bf16_kernel(const bf16* __restrict__ xk, const bf16* __restrict__ x0,
-                          const bf16* __restrict__ w2, bf16* __restrict__ out, long long rows,
-                          int hk, int m, int hn) {
-  extern __shared__ uint4 smem_raw[];
-  bf16* sx = reinterpret_cast<bf16*>(smem_raw);  // xk rows, one k-chunk
-  bf16* sw = sx + kRows * kLd;                   // two buffers of the w2 slice
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int wr = warp >> 1, wc = warp & 1;  // 4 x 2 warps of 32 rows x 64 columns
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int n0 = blockIdx.y * kCols;
-  const int ncols = min(kCols, hn - n0);
-  const int nkc = (hk + kKc - 1) / kKc;
-  const int stages = m * nkc;  // stage s: field s / nkc, k-chunk s % nkc
-  const long long ld_w = (long long)m * hn;
-  long long r[2][2];  // the thread's rows: m-tile, upper/lower half of the C fragment
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    r[mt][0] = row0 + wr * 32 + mt * 16 + grp;
-    r[mt][1] = r[mt][0] + 8;
-  }
-
-  // w2[k-chunk, field i's columns n0..] of stage s into buffer s & 1
-  auto issue_w = [&](int s) {
-    const int i = s / nkc, k0 = (s - i * nkc) * kKc;
-    const int kw = min(kKc, hk - k0);
-    rm::stage_tile(sw + (s & 1) * kKc * kLdW, kLdW,
-                         w2 + (long long)k0 * ld_w + (long long)i * hn + n0, ld_w, kw, ncols,
-                         ((kw + 15) >> 4) * 16, kCols);
-    rm::cp_async_commit();
-  };
-
-  float acc[2][8][4], t[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-  issue_w(0);
-  for (int s = 0; s < stages; ++s) {
-    const int i = s / nkc, kc = s - i * nkc;
-    const int k0 = kc * kKc;
-    const int kw = min(kKc, hk - k0);
-    const int ksteps = (kw + 15) >> 4;
-    rm::cp_async_wait_all();
-    __syncthreads();  // stage s's slice has landed; every warp is done with stage s - 1
-    const bool new_x = s == 0 || nkc > 1;
-    if (new_x) {
-      rm::stage_tile(sx, kLd, xk + row0 * hk + k0, hk, rows - row0, kw, kRows, ksteps * 16);
-      rm::cp_async_wait_all();
-    }
-    if (s + 1 < stages) issue_w(s + 1);  // lands while this stage multiplies
-    if (new_x) __syncthreads();
-    const bool last = kc == nkc - 1;
-    float xv[2][2] = {};  // x0[r, i], loaded ahead of the products
-    if (last) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if (r[mt][h] < rows) xv[mt][h] = __bfloat162float(x0[r[mt][h] * m + i]);
-    }
-    if (kc == 0) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) t[mt][j][0] = t[mt][j][1] = t[mt][j][2] = t[mt][j][3] = 0.f;
-    }
-    const bf16* swb = sw + (s & 1) * kKc * kLdW;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) rm::load_a(a[mt], sx, kLd, wr * 32 + mt * 16, ks * 16, lane);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b[4];
-        rm::load_b_kn(b, swb, kLdW, ks * 16, wc * 64 + np * 16, lane);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          rm::mma_bf16(t[mt][2 * np], a[mt], b[0], b[1]);
-          rm::mma_bf16(t[mt][2 * np + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-    if (last) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[mt][j][0] = fmaf(t[mt][j][0], xv[mt][0], acc[mt][j][0]);
-          acc[mt][j][1] = fmaf(t[mt][j][1], xv[mt][0], acc[mt][j][1]);
-          acc[mt][j][2] = fmaf(t[mt][j][2], xv[mt][1], acc[mt][j][2]);
-          acc[mt][j][3] = fmaf(t[mt][j][3], xv[mt][1], acc[mt][j][3]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = wc * 64 + j * 8 + tig * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (r[mt][h] >= rows) continue;
-        bf16* dst = out + r[mt][h] * hn + n0 + c;
-        const float v0 = acc[mt][j][2 * h], v1 = acc[mt][j][2 * h + 1];
-        if (c + 1 < ncols && (hn & 1) == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          if (c < ncols) dst[0] = __float2bfloat16_rn(v0);
-          if (c + 1 < ncols) dst[1] = __float2bfloat16_rn(v1);
-        }
-      }
-    }
-}
 
 __global__ void __launch_bounds__(kThreadsF, 2)
     cin_layer_f32_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
@@ -351,29 +578,42 @@ __global__ void __launch_bounds__(kThreadsF, 2)
 }
 
 }  // namespace
+}  // namespace rm
 
+using namespace rm;
+
+// Scratch bytes rm_cin_layer_forward needs for these inputs (bf16: padded
+// copies of the inputs TMA cannot read as they lie; f32: none), or -1 for
+// sizes it does not take.
+extern "C" long long rm_cin_layer_forward_scratch(const void* xk, const void* w2, long long rows,
+                                                  int hk, int m, int hn, int is_bf16) {
+  if (hk < 1 || m < 1 || hn < 1 || rows < 0) return -1;
+  if (!is_bf16) return 0;
+  FwdPlan P;
+  fwd_plan(&P, xk, w2, rows, hk, m, hn);
+  return (long long)P.total;
+}
+
+// xk [rows, hk], x0 [rows, m], w2 [hk, m*hn] row-major, all bf16 or all
+// f32 -> out [rows, hn]; scratch of rm_cin_layer_forward_scratch bytes,
+// 1024-byte aligned.
 extern "C" int rm_cin_layer_forward(int device, const void* xk, const void* x0,
-                                    const void* w2, void* out, long long rows, int hk,
-                                    int m, int hn, int is_bf16, void* stream) {
+                                    const void* w2, void* out, void* scratch, long long rows,
+                                    int hk, int m, int hn, int is_bf16, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (hk < 1 || m < 1 || hn < 1 || rows < 0) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
-    err = cudaFuncSetAttribute(cin_layer_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBf16);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((rows + kRows - 1) / kRows), (unsigned)((hn + kCols - 1) / kCols));
-    cin_layer_bf16_kernel<<<grid, kThreads, kSmemBf16, st>>>(
-        (const bf16*)xk, (const bf16*)x0, (const bf16*)w2, (bf16*)out, rows, hk, m, hn);
-  } else {
-    err = cudaFuncSetAttribute(cin_layer_f32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemF32);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((unsigned)((rows + kBmF - 1) / kBmF), (unsigned)((hn + kBnF - 1) / kBnF));
-    cin_layer_f32_kernel<<<grid, kThreadsF, kSmemF32, st>>>(
-        (const float*)xk, (const float*)x0, (const float*)w2, (float*)out, rows, hk, m, hn);
+    return cin_layer_bf16(device, (const bf16*)xk, (const bf16*)x0, (const bf16*)w2, (bf16*)out,
+                          (unsigned char*)scratch, rows, hk, m, hn, st);
   }
+  err = cudaFuncSetAttribute(cin_layer_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemF32);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((rows + kBmF - 1) / kBmF), (unsigned)((hn + kBnF - 1) / kBnF));
+  cin_layer_f32_kernel<<<grid, kThreadsF, kSmemF32, st>>>(
+      (const float*)xk, (const float*)x0, (const float*)w2, (float*)out, rows, hk, m, hn);
   return (int)cudaGetLastError();
 }

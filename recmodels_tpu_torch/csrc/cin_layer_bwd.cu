@@ -521,19 +521,10 @@ __global__ void cin_bwd_gw_sum_kernel(const float* __restrict__ part, bf16* __re
 // ------------------------------------------------------------------ plan
 struct Plan {
   int stages, tiles, pairs, nhb, nnb, slices, kt_total;
-  int hk8, hn8;                 // row pitches of the padded copies
-  long long rows8;              // row pitch of x0^T
-  bool pad_g, pad_x, pad_w;     // inputs copied before the kernels read them
-  size_t part, x0t, gp, xp, wp, total;
+  long long rows8;  // row pitch of x0^T
+  size_t part, x0t, total;
+  TmaRows g, x, w;  // the inputs as TMA reads them (cin2_common.cuh)
 };
-
-bool tma_ready(const void* p, long long pitch) {
-  return ((reinterpret_cast<uintptr_t>(p) & 15) == 0) && pitch % 8 == 0;
-}
-
-int sm_count(int device, int* sms) {
-  return (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-}
 
 // -1 if the kernels do not take these sizes
 int plan(Plan* P, int sms, const void* g, const void* xk, const void* w2, long long rows, int hk,
@@ -552,21 +543,15 @@ int plan(Plan* P, int sms, const void* g, const void* xk, const void* w2, long l
   s = s > P->kt_total ? P->kt_total : s;
   P->slices = (int)(s < 1 ? 1 : s);
   if (blocks * P->slices > 0x7fffffffLL || rows > 0x7fffffffLL - kTileRows) return -1;
-  P->hk8 = (hk + 7) / 8 * 8;
-  P->hn8 = (hn + 7) / 8 * 8;
-  P->pad_g = !tma_ready(g, hn);
-  P->pad_x = !tma_ready(xk, hk);
-  P->pad_w = !tma_ready(w2, hn);
   P->rows8 = (rows + 7) / 8 * 8;
-  if ((P->pad_g && rows * P->hn8 >= (1LL << 31)) || (P->pad_x && rows * P->hk8 >= (1LL << 31)) ||
-      (P->pad_w && (long long)hk * m * P->hn8 >= (1LL << 31)) || P->rows8 * m >= (1LL << 31))
-    return -1;
-  P->part = 0;
-  P->x0t = align1k((size_t)P->slices * hk * m * hn * 4);
-  P->gp = P->x0t + align1k((size_t)m * P->rows8 * 2);
-  P->xp = P->gp + (P->pad_g ? align1k((size_t)rows * P->hn8 * 2) : 0);
-  P->wp = P->xp + (P->pad_x ? align1k((size_t)rows * P->hk8 * 2) : 0);
-  P->total = P->wp + (P->pad_w ? (size_t)hk * m * P->hn8 * 2 : 0);
+  if (P->rows8 * m >= (1LL << 31)) return -1;
+  Scratch S;
+  P->part = S.take((size_t)P->slices * hk * m * hn * 4);
+  P->x0t = S.take((size_t)m * P->rows8 * 2);
+  P->g = S.rows(g, rows, hn);
+  P->x = S.rows(xk, rows, hk);
+  P->w = S.rows(w2, (long long)hk * m, hn);
+  P->total = S.total;
   return 0;
 }
 
@@ -596,7 +581,7 @@ extern "C" long long rm_cin_layer_backward_scratch(int device, const void* g, co
                                                    int hn) {
   int sms = 0;
   Plan P;
-  if (sm_count(device, &sms) || plan(&P, sms, g, xk, w2, rows, hk, m, hn)) return -1;
+  if (multiprocessors(device, &sms) || plan(&P, sms, g, xk, w2, rows, hk, m, hn)) return -1;
   return (long long)P.total;
 }
 
@@ -610,7 +595,7 @@ extern "C" int rm_cin_layer_backward(int device, const void* g, const void* xk, 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int sms = 0;
-  int e = sm_count(device, &sms);
+  int e = multiprocessors(device, &sms);
   if (e) return e;
   Plan P;
   if (plan(&P, sms, g, xk, w2, rows, hk, m, hn)) return (int)cudaErrorInvalidValue;
@@ -619,35 +604,16 @@ extern "C" int rm_cin_layer_backward(int device, const void* g, const void* xk, 
   if (rows == 0) return (int)cudaMemsetAsync(gw, 0, e_total * sizeof(bf16), st);
   unsigned char* base = (unsigned char*)scratch;
   float* part = (float*)(base + P.part);
-  // inputs as TMA reads them: rows of 16-byte multiples at 16-byte bases
-  const bf16* gt = (const bf16*)g;
-  const bf16* xt = (const bf16*)xk;
-  const bf16* wt = (const bf16*)w2;
-  long long g_pitch = hn, x_pitch = hk, w_pitch = hn;
   // x0^T [m][rows8], the gw kernel's per-row scales by TMA (the rows kernel
   // writes it)
   bf16* x0t = (bf16*)(base + P.x0t);
-  Perm jobs[3];
-  int njobs = 0;
-  if (P.pad_g) {
-    gt = (const bf16*)(base + P.gp);
-    g_pitch = P.hn8;
-    jobs[njobs++] = Perm{(const bf16*)g, (bf16*)gt, 1, (int)rows, P.hn8, 1, (int)rows, hn, 0, hn, 1};
-  }
-  if (P.pad_x) {
-    xt = (const bf16*)(base + P.xp);
-    x_pitch = P.hk8;
-    jobs[njobs++] = Perm{(const bf16*)xk, (bf16*)xt, 1, (int)rows, P.hk8, 1, (int)rows, hk, 0, hk, 1};
-  }
-  if (P.pad_w) {
-    wt = (const bf16*)(base + P.wp);
-    w_pitch = P.hn8;
-    jobs[njobs++] = Perm{(const bf16*)w2, (bf16*)wt, hk, m, P.hn8, hk, m, hn, (long long)m * hn, hn, 1};
-  }
-  if (njobs) {
-    e = cin2_permute(jobs, njobs, st);
-    if (e) return e;
-  }
+  // inputs as TMA reads them: rows of 16-byte multiples at 16-byte bases
+  const TmaRows ins[3] = {P.g, P.x, P.w};
+  if ((e = tma_copy(ins, 3, base, st))) return e;
+  const bf16* gt = P.g.at(base);
+  const bf16* xt = P.x.at(base);
+  const bf16* wt = P.w.at(base);
+  const long long g_pitch = P.g.pitch, x_pitch = P.x.pitch, w_pitch = P.w.pitch;
   CUtensorMap mg_rows, mx_rows, mw, mx_gw, mg_gw, mx0;
   if ((e = make_map_bf16(&mg_rows, gt, hn, rows, g_pitch, 128))) return e;
   if ((e = make_map_bf16(&mx_rows, xt, hk, rows, x_pitch, 128))) return e;

@@ -52,8 +52,8 @@ _SIGNATURES = {
     # device, table, m, v, ids, grads, n, rows, d, grads_bf16,
     # lr, bc1, bc2, b1, 1 - b1, b2, 1 - b2, eps, stream
     "rm_adam_update": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I] + [_F] * 8 + [_P],
-    # device, xk, x0, w2, out, rows, hk, m, hn, is_bf16, stream
-    "rm_cin_layer_forward": [_I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # device, xk, x0, w2, out, scratch, rows, hk, m, hn, is_bf16, stream
+    "rm_cin_layer_forward": [_I] + [_P] * 5 + [_L, _I, _I, _I, _I, _P],
     # device, g, xk, x0, w2, gxk, gx0, gw, scratch, rows, hk, m, hn, stream
     "rm_cin_layer_backward": [_I] + [_P] * 8 + [_L, _I, _I, _I, _P],
     # device, x, out, batch, a, b, elem_bytes, stream
@@ -71,6 +71,8 @@ _RESTYPES = {
     "rm_cin2_forward_scratch": ([_I] * 6, _L),
     # device, b, d, m, h1, h2 -> scratch bytes of rm_cin2_backward, or -1
     "rm_cin2_backward_scratch": ([_I] * 6, _L),
+    # xk, w2, rows, hk, m, hn, is_bf16 -> scratch bytes of rm_cin_layer_forward, or -1
+    "rm_cin_layer_forward_scratch": ([_P, _P, _L, _I, _I, _I, _I], _L),
     # device, g, xk, w2, rows, hk, m, hn -> scratch bytes of rm_cin_layer_backward, or -1
     "rm_cin_layer_backward_scratch": ([_I, _P, _P, _P, _L, _I, _I, _I], _L),
     "rm_error_string": ([_I], ctypes.c_char_p),

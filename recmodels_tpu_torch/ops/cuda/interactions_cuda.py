@@ -409,11 +409,16 @@ def cin_layer_forward(xk2: torch.Tensor, x02: torch.Tensor, w2: torch.Tensor) ->
         require(f"cin_layer_forward {what}", t, FLOAT_DTYPES, 2, dev_t, align=t.element_size())
         if t.dtype != dt:
             raise TypeError(f"cin_layer_forward: {what} is {t.dtype}, xk is {dt}")
+    lib = build.library()
+    is_bf16 = int(dt == torch.bfloat16)
+    # bf16: scratch for padded copies of inputs the kernel's TMA cannot read as they lie
+    scratch_bytes = lib.rm_cin_layer_forward_scratch(xk2.data_ptr(), w2.data_ptr(), rows, hk, m, hn, is_bf16)
+    scratch = torch.empty((max(scratch_bytes, 1),), dtype=torch.uint8, device=dev_t)
     out = torch.empty((rows, hn), dtype=dt, device=dev_t)
     dev, stream = device_and_stream(dev_t)
-    err = build.library().rm_cin_layer_forward(
-        dev, xk2.data_ptr(), x02.data_ptr(), w2.data_ptr(), out.data_ptr(), rows, hk, m, hn,
-        int(dt == torch.bfloat16), stream,
+    err = lib.rm_cin_layer_forward(
+        dev, xk2.data_ptr(), x02.data_ptr(), w2.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, hk,
+        m, hn, is_bf16, stream,
     )
     build.check(err, "cin_layer_forward")
     cin_layer_forward.launches += 1

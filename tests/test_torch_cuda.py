@@ -274,7 +274,11 @@ def _layer_inputs(cuda, rows, hk, m, hn, dtype, seed):
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cin_layer_forward_kernel(cuda, rows, hk, m, hn, dtype):
-    xk2, x02, w2 = _layer_inputs(cuda, rows, hk, m, hn, dtype, 8)
+    _check_cin_layer_forward(*_layer_inputs(cuda, rows, hk, m, hn, dtype, 8))
+
+
+def _check_cin_layer_forward(xk2, x02, w2):
+    rows, hn, dtype = xk2.shape[0], w2.shape[1] // x02.shape[1], xk2.dtype
     before = K.cin_layer_forward.launches
     got = K.cin_layer_forward(xk2, x02, w2)
     torch.cuda.synchronize()
@@ -285,6 +289,49 @@ def test_cin_layer_forward_kernel(cuda, rows, hk, m, hn, dtype):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item()
     assert torch.equal(got, K.cin_layer_forward(xk2, x02, w2))  # no atomics: runs repeat
+
+
+@pytest.mark.parametrize("rows,hk,m,hn", [
+    (4096, 26, 26, 128),   # layer 1: 52-byte rows of xk, padded first; 32-row w2 boxes
+    (300, 100, 26, 100),   # CIN(100,100): w2's 200-byte field stride and xk padded first
+    (260, 16, 26, 8),      # Hk below one 32-row box, Hn below one 64-wide box
+    (1000, 40, 3, 20),     # one K tile of 64 h, three of its four K slices past Hk
+    (500, 256, 6, 128),    # four K tiles held, a ring of 6
+    (300, 384, 5, 128),    # six K tiles streamed with xk's through a ring of 7
+    (300, 512, 5, 128),    # eight K tiles through a ring of 7: two windows a field
+    (400, 128, 7, 384),    # three n blocks
+    (700, 192, 4, 130),    # three K tiles; the last n block two columns wide
+    (500, 128, 1, 128),    # one field
+    (300, 64, 300, 64),    # fields in the hundreds
+    (50, 128, 26, 128),    # fewer rows than one 128-row tile
+    (16384, 128, 26, 128), # the training step's layer 2 at 16,384 rows
+])
+def test_cin_layer_forward_bf16_kernel_edges(cuda, rows, hk, m, hn):
+    """The bf16 kernel (wgmma, w2 by TMA) at the edges of its tiles, ring
+    and windows, and on the inputs it copies before reading them."""
+    _check_cin_layer_forward(*_layer_inputs(cuda, rows, hk, m, hn, torch.bfloat16, 15))
+
+
+def test_cin_layer_forward_bf16_kernel_on_views_off_16_bytes(cuda):
+    """xk, x0 and w2 whose data starts 2 bytes past a 16-byte boundary: TMA
+    cannot read xk and w2 as they lie, so the kernel copies them first."""
+    xk2, x02, w2 = _layer_inputs(cuda, 300, 128, 5, 128, torch.bfloat16, 16)
+
+    def off(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    _check_cin_layer_forward(off(xk2), off(x02), off(w2))
+
+
+def test_cin_layer_forward_bf16_kernel_on_no_rows(cuda):
+    xk2, x02, w2 = _layer_inputs(cuda, 0, 128, 26, 128, torch.bfloat16, 17)
+    before = K.cin_layer_forward.launches
+    got = K.cin_layer_forward(xk2, x02, w2)
+    torch.cuda.synchronize()
+    assert K.cin_layer_forward.launches == before + 1 and got.shape == (0, 128)
 
 
 @pytest.mark.parametrize("rows,hk,m,hn", [

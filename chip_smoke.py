@@ -25,14 +25,16 @@ Phases, each on its own lines:
                gathered rows (DeepFM's [16384, 26, 16] bf16, FM's [8192, 26,
                16] f32) and the DCN cross stack (x0 [16384, 429], 3 layers,
                bf16 and f32). A kernel shorter than about 0.1 ms (the gather,
-               both fanouts, the dim-1 updates, the transpose, the FM term,
+               both fanouts, the updates, the transpose, the FM term,
                the cross stack), its plain version and its library call are
                timed with a cold L2 and, by torch.profiler, warm; the rest
                by CUDA events over back-to-back calls (the CIN layer also
                by torch.profiler; the fused CIN forward and backward, the
                bf16 layer forward and the layer backward also launch by
                launch, by torch.profiler; the layer backward beside the JAX
-               package's einsum backward);
+               package's einsum backward); the gather and the updates also
+               print sector_bound_ms, the distinct 32-byte sectors of device
+               memory their inputs and outputs touch over the memory rate;
   4. serving:  full-width bf16 xDeepFM (26 x 1e5 ids, dim 16, CIN(128,128),
                DNN(400,400)) initialised from a seed (with weights under which
                each kernel's output moves the logits), exported, loaded with
@@ -303,6 +305,33 @@ def bound_ms(nbytes: float, flops: float = 0.0,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def range_sectors(t: torch.Tensor) -> int:
+    """32-byte sectors of device memory that all of contiguous ``t`` spans."""
+    if t.numel() == 0:
+        return 0
+    start = t.data_ptr()
+    return (start + t.numel() * t.element_size() - 1) // 32 - start // 32 + 1
+
+
+def row_sectors(t: torch.Tensor, ids: torch.Tensor) -> int:
+    """Distinct 32-byte sectors of device memory that the rows of row-major
+    ``t`` ([R, d] or [R]) at the kept ids (0 <= id < R) touch."""
+    row_bytes = t.element_size() * (t.shape[1] if t.dim() > 1 else 1)
+    u = torch.unique(ids.long())
+    u = u[(u >= 0) & (u < t.shape[0])]
+    first = (t.data_ptr() + u * row_bytes) // 32
+    last = (t.data_ptr() + (u + 1) * row_bytes - 1) // 32
+    span = torch.arange(int((last - first).max().item()) + 1, device=u.device)
+    every = first[:, None] + span[None, :]
+    return torch.unique(every[every <= last[:, None]]).numel()
+
+
+def sector_bound_ms(sectors: int) -> float:
+    """The least time to move ``sectors`` 32-byte sectors at the memory rate:
+    what a launch that reads or writes whole sectors can reach."""
+    return sectors * 32 / PEAK_BYTES_PER_S * 1e3
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max |got - want|, max |want|) in f32."""
     got, want = got.float(), want.float()
@@ -503,20 +532,19 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
         err = max((a.cpu() - b).abs().max().item() for a, b in zip((table, mom, vel), cpu))
         check(err == 0.0, f"sorted_adam_update {label or 'd16 '}bit-exact against the CPU plain version ({err})")
         b_ms, b_by = bound_ms(n * 4 + grads.numel() * 2 + touched * d * 4 * 6)
-        update.update({f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by})
+        # each touched sector of the table, m and v read once and written once
+        sectors = range_sectors(sorted_ids) + range_sectors(grads) + 2 * sum(
+            row_sectors(t, sorted_ids) for t in (table, mom, vel))
+        update.update({f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+                       f"{label}sector_bound_ms": sector_bound_ms(sectors)})
         kernel = lambda: sorted_adam_update(table, mom, vel, sorted_ids, grads, **hyper)  # noqa: E731
         plain = lambda: sorted_adam_update_reference(table, mom, vel, sorted_ids, grads, **hyper)  # noqa: E731
         library = adam_library_step(table, sorted_ids, grads, hyper["lr"])
-        if d == 1:  # shorter than its launch: device time
-            update.update(short_times(kernel, plain, library, label))
-        else:
-            update.update({f"{label}ms": time_ms(kernel), f"{label}plain_ms": time_ms(plain, iters=5),
-                           f"{label}library_ms": time_ms(library, iters=10)})
+        update.update(short_times(kernel, plain, library, label))
         del table, mom, vel, grads, cpu
     report["sorted_adam_update"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/adam_update.cu",
-        replaces="recmodels_tpu/embedding/pallas_update.py:559", tol=0.0,
-        timing="unprefixed keys: CUDA events over back-to-back calls; dim1_ keys: " + SHORT_TIMING, **update,
+        replaces="recmodels_tpu/embedding/pallas_update.py:559", tol=0.0, timing=SHORT_TIMING, **update,
     )
 
     # 9. cin_layer_forward: x0 [262144, 26] N(0, 1) and the model's initial
@@ -778,10 +806,11 @@ def main() -> int:
     n = gids.numel()
     touched = torch.unique(gids).numel()
     b_ms, b_by = bound_ms(touched * (DIM + 1) * 4 + n * 4 + n * (DIM + 1) * 2)
+    sectors = row_sectors(table, gids) + range_sectors(gids) + range_sectors(got)
     report["gather_rows"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/gather.cu",
         replaces="recmodels_tpu/embedding/pallas_gather.py:180", max_abs_err=err, tol=0.0,
-        bound_ms=b_ms, bound_by=b_by, timing=SHORT_TIMING,
+        bound_ms=b_ms, bound_by=b_by, sector_bound_ms=sector_bound_ms(sectors), timing=SHORT_TIMING,
         **short_times(lambda: gather_rows(table, gids, torch.bfloat16),
                       lambda: gather_rows_reference(table, gids, torch.bfloat16),
                       lambda: torch.index_select(table, 0, gids.reshape(-1)).to(torch.bfloat16)),
@@ -905,22 +934,22 @@ def main() -> int:
         check(err == 0.0, f"sorted_adagrad_update {label or 'd17 '}bit-exact against the CPU plain version ({err})")
         touched = torch.unique(sorted_ids).numel()
         b_ms, b_by = bound_ms(n * 4 + grads.numel() * 2 + touched * d1 * 4 * 4, 0.0)
-        update.update({f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by})
+        # each touched sector of the table and acc read once and written once
+        sectors = (range_sectors(sorted_ids) + range_sectors(grads)
+                   + 2 * (row_sectors(upd_table, sorted_ids) + row_sectors(upd_acc, sorted_ids)))
+        update.update({f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+                       f"{label}sector_bound_ms": sector_bound_ms(sectors)})
         kernel = lambda: sorted_adagrad_update(upd_table, upd_acc, sorted_ids, grads, lr, eps)  # noqa: E731
         plain = lambda: sorted_adagrad_update_reference(  # noqa: E731
             upd_table, upd_acc, sorted_ids, grads, lr, eps)
         library = adagrad_library_step(upd_table, sorted_ids, grads, lr, eps)
-        if d1 == 1:  # shorter than its launch: device time
-            update.update(short_times(kernel, plain, library, label))
-        else:
-            update.update({f"{label}ms": time_ms(kernel), f"{label}plain_ms": time_ms(plain, iters=5),
-                           f"{label}library_ms": time_ms(library, iters=10)})
+        update.update(short_times(kernel, plain, library, label))
         del upd_table, upd_acc, grads, t_cpu, a_cpu
     report["sorted_adagrad_update"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/adagrad_update.cu",
         replaces="recmodels_tpu/embedding/pallas_update.py:427",
         also_replaces="recmodels_tpu/embedding/pallas_update.py:296 (the dim1_ keys)",
-        timing="unprefixed keys: CUDA events over back-to-back calls; dim1_ keys: " + SHORT_TIMING,
+        timing=SHORT_TIMING,
         tol=0.0, **update,
     )
     del table
@@ -937,10 +966,12 @@ def main() -> int:
             warm = "".join(f", {what} warm {r[pre + key]:.4f} ms" for what, key in (
                 ("kernel", "warm_ms"), ("plain", "plain_warm_ms"), ("library", "library_warm_ms"))
                 if r.get(pre + key) is not None)
+            sector = (f", sector bound {r[pre + 'sector_bound_ms']:.4f} ms"
+                      if pre + "sector_bound_ms" in r else "")
             print(f"{name}{' ' + pre[:-1] if pre else ''}: max err {r[pre + 'max_abs_err']:.6g}{tol}; kernel "
                   f"{r[pre + 'ms']:.4f} ms, plain {r[pre + 'plain_ms']:.4f} ms, library "
                   f"{'-' if lib is None else format(lib, '.4f') + ' ms'}{warm}, bound "
-                  f"{r[pre + 'bound_ms']:.4f} ms ({r[pre + 'bound_by']}) on {card}")
+                  f"{r[pre + 'bound_ms']:.4f} ms ({r[pre + 'bound_by']}){sector} on {card}")
 
     # -------------------------------------------------------------- serving
     serving_phase("full-width bf16 xDeepFM", cfg, engine, (gather_rows, split_fused_rows, cin2_forward),

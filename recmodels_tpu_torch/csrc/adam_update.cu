@@ -16,61 +16,45 @@
 // per call from the global step. A row is touched when its id is in the
 // stream, whatever its grads sum to: an id whose grads sum to 0 still decays
 // its moments (lazy Adam's membership rule). Rows not in the stream keep
-// their bits; ids >= R (sentinels) are skipped; bf16 grads widen exactly to
-// f32. Every operation is an explicitly rounded IEEE intrinsic, so nvcc
-// contracts nothing into an FMA and the result equals the CPU plain version
-// bit for bit given the same sum order and the same f32 constants.
+// their bits; ids < 0 or >= R (sentinels) are skipped; bf16 grads widen
+// exactly to f32. Every operation is an explicitly rounded IEEE intrinsic, so
+// nvcc contracts nothing into an FMA and the result equals the CPU plain
+// version bit for bit given the same sum order and the same f32 constants.
 //
 // Bound on this card: bytes. It reads the ids and the grads and reads and
-// writes each touched row of the table, m and v.
+// writes each touched row of the table, m and v; at d = 16 the 64-byte rows
+// are whole sectors, so the sector floor is the byte bound. The card moves
+// such scattered rows well below its peak rate: a bare read-modify-write of
+// the same rows of three arrays takes about 1.6 times the byte bound
+// (recmodels_tpu_torch/probes/sparse_update_rows.py).
 //
-// Design: the TPU kernel sweeps the whole table with a one-hot MXU
-// contraction; here, as in the Adagrad kernel, one thread per (stream
-// position, column). The thread at a run's start (ids[k] != ids[k-1]) walks
-// the run in order, sums its column and updates that element of the table,
-// m and v; every other thread returns at once. No atomics, no cap on a run.
+// Design (sorted_update_common.cuh, shared with the Adagrad kernel): the TPU
+// kernel sweeps the whole table with a one-hot MXU contraction. A first port
+// gave each (stream position, column) a thread that walked its run when it
+// started one, three dependent trips to memory a thread. Here 128 threads
+// own a tile of 32 positions: one coalesced read of its ids, a ballot for
+// the run starts, then each thread loads four columns of m, v and the table
+// (float4, at d = 16 with aligned bases) before it sums the run and updates
+// them. No atomics, no cap on a run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "sorted_update_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-struct AdamConsts {
+struct AdamStep {
+  static constexpr int kArrays = 3;  // table, m, v
   float lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2, eps;
+  // s: one column of the table, m and v
+  __device__ __forceinline__ void apply(float g, float (&s)[kArrays]) const {
+    const float mn = __fadd_rn(__fmul_rn(b1, s[1]), __fmul_rn(one_minus_b1, g));
+    const float vn = __fadd_rn(__fmul_rn(b2, s[2]), __fmul_rn(__fmul_rn(one_minus_b2, g), g));
+    s[1] = mn;
+    s[2] = vn;
+    const float num = __fmul_rn(-lr, __fdiv_rn(mn, bc1));
+    const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, bc2)), eps);
+    s[0] = __fadd_rn(s[0], __fdiv_rn(num, den));
+  }
 };
-
-template <typename G>
-__global__ void adam_update_kernel(float* __restrict__ table,
-                                   float* __restrict__ m,
-                                   float* __restrict__ v,
-                                   const int* __restrict__ ids,
-                                   const G* __restrict__ grads, long long n,
-                                   long long rows, int d, AdamConsts c) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= n * d) return;
-  const long long k = t / d;
-  const int col = (int)(t - k * d);
-  const int id = __ldg(ids + k);
-  if (id < 0 || id >= rows) return;  // sentinel
-  if (k > 0 && __ldg(ids + k - 1) == id) return;  // not the run's start
-  float g = 0.f;
-  for (long long j = k; j < n && __ldg(ids + j) == id; ++j)
-    g = __fadd_rn(g, to_f32(grads[j * d + col]));
-  const long long e = (long long)id * d + col;
-  const float mn = __fadd_rn(__fmul_rn(c.b1, m[e]), __fmul_rn(c.one_minus_b1, g));
-  const float vn =
-      __fadd_rn(__fmul_rn(c.b2, v[e]), __fmul_rn(__fmul_rn(c.one_minus_b2, g), g));
-  m[e] = mn;
-  v[e] = vn;
-  const float num = __fmul_rn(-c.lr, __fdiv_rn(mn, c.bc1));
-  const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, c.bc2)), c.eps);
-  table[e] = __fadd_rn(table[e], __fdiv_rn(num, den));
-}
 
 }  // namespace
 
@@ -84,23 +68,15 @@ extern "C" int rm_adam_update(int device, void* table, void* m, void* v,
                               float bc1, float bc2, float b1,
                               float one_minus_b1, float b2, float one_minus_b2,
                               float eps, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (d < 1) return (int)cudaErrorInvalidValue;
-  const long long total = n * d;
-  if (total == 0) return 0;
-  const AdamConsts c{lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2, eps};
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (grads_bf16) {
-    adam_update_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (float*)table, (float*)m, (float*)v, (const int*)ids,
-        (const __nv_bfloat16*)grads, n, rows, d, c);
-  } else {
-    adam_update_kernel<float><<<blocks, threads, 0, s>>>(
-        (float*)table, (float*)m, (float*)v, (const int*)ids,
-        (const float*)grads, n, rows, d, c);
-  }
-  return (int)cudaGetLastError();
+  sorted_update::Args<AdamStep> a{};
+  a.state[0] = (float*)table;
+  a.state[1] = (float*)m;
+  a.state[2] = (float*)v;
+  a.ids = (const int*)ids;
+  a.grads = grads;
+  a.n = n;
+  a.rows = rows;
+  a.d = d;
+  a.op = AdamStep{lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2, eps};
+  return sorted_update::launch(a, grads_bf16, device, stream);
 }

@@ -23,6 +23,11 @@ Rows not in the stream are not touched; ids >= R (sentinels) are skipped;
 bf16 grads widen exactly to f32. The kernels round every operation as the
 CPU does (no FMA; the constants are the same f32 values), so kernel and
 plain version agree bit for bit when they sum in the same order.
+
+Both kernels are one template (``csrc/sorted_update_common.cuh``): a warp
+takes 32 stream positions at a time, and a run of one id belongs to the
+warp whose positions hold its first; that warp sums all of it in stream
+order, past its 32 positions where the run goes on.
 """
 
 from __future__ import annotations
@@ -84,7 +89,8 @@ def sorted_adagrad_update(table: torch.Tensor, acc: torch.Tensor, sorted_ids: to
     require("sorted_adagrad_update table", table, (torch.float32,), nd, dev_t, align=4)
     require("sorted_adagrad_update acc", acc, (torch.float32,), nd, dev_t, align=4)
     require("sorted_adagrad_update ids", sorted_ids, (torch.int32,), 1, dev_t, align=4)
-    require("sorted_adagrad_update grads", grads_sorted, GRAD_DTYPES, nd, dev_t, align=2)
+    require("sorted_adagrad_update grads", grads_sorted, GRAD_DTYPES, nd, dev_t,
+            align=grads_sorted.element_size())
     d = 1 if nd == 1 else table.shape[1]
     n = sorted_ids.shape[0]
     if acc.shape != table.shape or grads_sorted.shape != (n, *table.shape[1:]):
@@ -158,7 +164,8 @@ def sorted_adam_update(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     for what, t in (("table", table), ("m", m), ("v", v)):
         require(f"sorted_adam_update {what}", t, (torch.float32,), nd, dev_t, align=4)
     require("sorted_adam_update ids", sorted_ids, (torch.int32,), 1, dev_t, align=4)
-    require("sorted_adam_update grads", grads_sorted, GRAD_DTYPES, nd, dev_t, align=2)
+    require("sorted_adam_update grads", grads_sorted, GRAD_DTYPES, nd, dev_t,
+            align=grads_sorted.element_size())
     n = sorted_ids.shape[0]
     if (m.shape != table.shape or v.shape != table.shape
             or grads_sorted.shape != (n, *table.shape[1:])):

@@ -1,7 +1,7 @@
 """Model registry (port of ``recmodels_tpu/models/__init__.py``).
 
 xDeepFM, FM, DeepFM and DCN are ported; the other five models of the JAX
-zoo are registered by name and raise until ROADMAP.md's queue 1, item 9
+zoo are registered by name and raise until ROADMAP.md's queue 1, item 3
 ports them."""
 
 from recmodels_tpu_torch.models.base import CTRModel, wide_schema
@@ -17,7 +17,7 @@ NOT_PORTED = ("lr", "pnn", "widedeep", "nfm", "afm")
 def build_model(name: str, schema, **kwargs) -> CTRModel:
     if name in NOT_PORTED:
         raise NotImplementedError(
-            f"model '{name}' is not ported yet: ROADMAP.md, queue 1, item 9"
+            f"model '{name}' is not ported yet: ROADMAP.md, queue 1, item 3"
         )
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model '{name}'; have {sorted(MODEL_REGISTRY)}")

@@ -133,14 +133,26 @@ def test_split_fused_rows_backward_kernel(cuda, b, dtype):
     assert torch.equal(got, K.split_fused_rows_backward_reference(g_dm, g_ws))
 
 
-def _stream(cuda, rows, dim, n, hot, grad_dtype, seed=3):
-    """Sorted ids with a hot id taking ``hot`` of the stream and sentinels
-    (ids >= rows) at the tail; the table, acc and grads."""
+def _stream(cuda, rows, dim, n, hot, grad_dtype, seed=3, layout=None):
+    """Sorted ids with a hot id taking ``hot`` of the stream and, in streams
+    of 5 or more, sentinels (ids >= rows) at the tail; the table, acc and
+    grads. ``layout`` ("run", start, length): one id holds exactly the
+    positions [start, start + length), smaller ids before it and larger
+    after; ("sentinels",): every id is a sentinel."""
     g = _gen(cuda, seed)
     ids = torch.randint(0, rows, (n,), generator=g, device=cuda, dtype=torch.int32)
     ids[torch.rand((n,), generator=g, device=cuda) < hot] = rows // 3
     ids = torch.sort(ids).values
-    ids[-3:] = torch.tensor([rows, rows, rows + 7], dtype=torch.int32, device=cuda)
+    if layout is not None and layout[0] == "run":
+        _, start, length = layout
+        mid, end = rows // 2, start + length
+        ids[:start] = torch.sort(ids[:start] % mid).values
+        ids[start:end] = mid
+        ids[end:] = torch.sort(mid + 1 + ids[end:] % (rows - mid - 1)).values
+    if layout == ("sentinels",):
+        ids += rows
+    if n >= 5:
+        ids[-3:] = torch.tensor([rows, rows, rows + 7], dtype=torch.int32, device=cuda)
     shape = (rows,) if dim == 1 else (rows, dim)
     table = torch.randn(shape, generator=g, device=cuda)
     acc = torch.rand(shape, generator=g, device=cuda) + 0.1
@@ -148,30 +160,76 @@ def _stream(cuda, rows, dim, n, hot, grad_dtype, seed=3):
     return table, acc, ids, grads
 
 
-@pytest.mark.parametrize("rows,dim,n,hot", [
-    (5000, 17, 5, 0.0),
-    (5000, 17, 3001, 0.0),
-    (5000, 17, 3001, 0.6),   # a run of ~1,800 duplicates
-    (2000, 1, 4000, 0.3),    # a dim-1 table
-    (300, 5, 20000, 0.9),    # nearly every position a duplicate
-])
+def _off16(t, nbytes):
+    """A copy of ``t`` whose data starts ``nbytes`` past a 16-byte boundary,
+    a slice of a larger buffer as a caller's view would be."""
+    es = t.element_size()
+    buf = torch.empty(t.numel() + 32 // es, dtype=t.dtype, device=t.device)
+    start = (-buf.data_ptr() % 16 + nbytes) // es
+    view = buf[start:start + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == nbytes
+    return view
+
+
+def _placed(layout, grads, *state):
+    """``grads`` and the state arrays where ``layout`` ("views", grad
+    elements, state bytes) puts them: the grads that many elements (2 bytes
+    each in bf16) and the state that many bytes off 16; else aligned copies."""
+    g_elems, s_bytes = layout[1:] if layout is not None and layout[0] == "views" else (0, 0)
+    return (_off16(grads, g_elems * grads.element_size()), *(_off16(t, s_bytes) for t in state))
+
+
+# Streams for the update kernels: (rows, dim, n, hot, layout). The kernels
+# take 32 stream positions a warp at a time (csrc/sorted_update_common.cuh):
+# runs from a tile's last lane (position 31) cross one or two tile edges, a
+# run of 2,000 spans about 60 tiles, and past 8 KB of grads a tile (d = 65
+# in f32, d = 300) the grads are read from device memory.
+_UPDATE_CASES = [
+    (5000, 17, 5, 0.0, None),
+    (5000, 17, 3001, 0.0, None),
+    (5000, 17, 3001, 0.6, None),   # a run of ~1,800 duplicates
+    (2000, 1, 4000, 0.3, None),    # a dim-1 table
+    (300, 5, 20000, 0.9, None),    # nearly every position a duplicate
+    (5000, 16, 3001, 0.0, None),
+    (5000, 32, 3001, 0.3, None),
+    (3000, 64, 3001, 0.3, None),
+    (700, 65, 2000, 0.3, None),
+    (500, 300, 1000, 0.3, None),
+    *[(5000, d, 4000, 0.0, ("run", 31, length)) for d in (1, 16, 17) for length in (33, 64, 65)],
+    (5000, 17, 4000, 0.0, ("run", 95, 2000)),
+    (5000, 16, 4000, 0.0, ("run", 95, 2000)),
+    (5000, 17, 0, 0.0, None),
+    (5000, 17, 1, 0.0, None),
+    (5000, 17, 300, 0.0, ("sentinels",)),
+    *[(5000, d, 3001, 0.3, ("views", g_elems, s_bytes))
+      for d, g_elems, s_bytes in ((16, 1, 4), (17, 1, 4), (1, 1, 4), (16, 1, 0), (16, 0, 4))],
+]
+
+
+@pytest.mark.parametrize("rows,dim,n,hot,layout", _UPDATE_CASES)
 @pytest.mark.parametrize("grad_dtype", [torch.bfloat16, torch.float32])
-def test_adagrad_update_kernel_is_bit_exact(cuda, rows, dim, n, hot, grad_dtype):
+def test_adagrad_update_kernel_is_bit_exact(cuda, rows, dim, n, hot, layout, grad_dtype):
     """Against the plain version on the CPU, which sums each run in stream
     order as the kernel does; every operation rounds the same way, so the
-    two agree bit for bit. Rows outside the stream keep their bits."""
-    table, acc, ids, grads = _stream(cuda, rows, dim, n, hot, grad_dtype)
+    two agree bit for bit. Rows outside the stream keep their bits; a second
+    call from the same state gives the same bits."""
+    table, acc, ids, grads = _stream(cuda, rows, dim, n, hot, grad_dtype, layout=layout)
+    grads, table, acc = _placed(layout, grads, table, acc)
     t_cpu, a_cpu = table.cpu(), acc.cpu()
     sorted_adagrad_update_reference(t_cpu, a_cpu, ids.cpu(), grads.cpu(), 0.05, 1e-8)
-    t0 = table.clone()
+    t0, a0 = table.clone(), acc.clone()
+    _, t1, a1 = _placed(layout, grads, table, acc)
     before = sorted_adagrad_update.launches
     sorted_adagrad_update(table, acc, ids, grads, 0.05, 1e-8)
     torch.cuda.synchronize()
     assert sorted_adagrad_update.launches == before + 1
     assert torch.equal(table.cpu(), t_cpu) and torch.equal(acc.cpu(), a_cpu)
     touched = torch.zeros(rows, dtype=torch.bool, device=cuda)
-    touched[ids[ids < rows].long()] = True
+    touched[ids[(ids >= 0) & (ids < rows)].long()] = True
     assert torch.equal(table[~touched], t0[~touched])
+    sorted_adagrad_update(t1, a1, ids, grads, 0.05, 1e-8)
+    assert torch.equal(t1, table) and torch.equal(a1, acc)
 
 
 @pytest.mark.parametrize("b,d,m,h1,h2", _CIN2_SHAPES + [(1100, 16, 26, 128, 128)])  # several slices
@@ -213,43 +271,46 @@ def test_product_function_on_the_card(cuda):
                                rtol=2 ** -7, atol=1e-5)
 
 
-@pytest.mark.parametrize("rows,dim,n,hot", [
-    (5000, 16, 3001, 0.0),
-    (5000, 17, 3001, 0.6),   # a run of ~1,800 duplicates
-    (2000, 1, 4000, 0.3),    # a dim-1 table
-    (300, 5, 20000, 0.9),    # nearly every position a duplicate
-])
+@pytest.mark.parametrize("rows,dim,n,hot,layout", _UPDATE_CASES)
 @pytest.mark.parametrize("grad_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("step", [0, 5])
-def test_adam_update_kernel_is_bit_exact(cuda, rows, dim, n, hot, grad_dtype, step):
+def test_adam_update_kernel_is_bit_exact(cuda, rows, dim, n, hot, layout, grad_dtype, step):
     """Lazy Adam against the plain version on the CPU (the same f32
     constants, runs summed in stream order, every operation rounded the same
     way): bit for bit. An id whose grads sum to exactly 0 still decays its
-    moments; rows outside the stream keep their bits."""
-    table, acc, ids, grads = _stream(cuda, rows, dim, n, hot, grad_dtype, seed=7)
+    moments; rows outside the stream keep their bits; a second call from the
+    same state gives the same bits."""
+    table, acc, ids, grads = _stream(cuda, rows, dim, n, hot, grad_dtype, seed=7, layout=layout)
     m = acc - 0.6
     v = acc * 0.01
     # the first id's run: grads summing to exactly 0 (x and -x, or zeros)
-    x = grads[0].clone()
-    grads[ids == ids[0]] = 0
-    if ids[1] == ids[0]:
-        grads[0], grads[1] = x, -x
+    zero_run = n > 0 and ids[0] < rows
+    if zero_run:
+        x = grads[0].clone()
+        grads[ids == ids[0]] = 0
+        if n > 1 and ids[1] == ids[0]:
+            grads[0], grads[1] = x, -x
+    grads, table, m, v = _placed(layout, grads, table, m, v)
     hyper = dict(lr=1e-2, bc1=bias_correction(0.9, step + 1), bc2=bias_correction(0.999, step + 1),
                  b1=0.9, b2=0.999, eps=1e-8)
     cpu = [t.cpu() for t in (table, m, v)]
     sorted_adam_update_reference(*cpu, ids.cpu(), grads.cpu(), **hyper)
     t0, m0 = table.clone(), m.clone()
+    _, *again = _placed(layout, grads, table, m, v)
     before = sorted_adam_update.launches
     sorted_adam_update(table, m, v, ids, grads, **hyper)
     torch.cuda.synchronize()
     assert sorted_adam_update.launches == before + 1
     for got, want in zip((table, m, v), cpu):
         assert torch.equal(got.cpu(), want)
-    zero_run = ids[0].long()
-    assert not torch.equal(m[zero_run], m0[zero_run])  # decayed: 0.9 * m
+    if zero_run:
+        first = ids[0].long()
+        assert not torch.equal(m[first], m0[first])  # decayed: 0.9 * m
     touched = torch.zeros(rows, dtype=torch.bool, device=cuda)
-    touched[ids[ids < rows].long()] = True
+    touched[ids[(ids >= 0) & (ids < rows)].long()] = True
     assert torch.equal(table[~touched], t0[~touched]) and torch.equal(m[~touched], m0[~touched])
+    sorted_adam_update(*again, ids, grads, **hyper)
+    assert all(torch.equal(a, b) for a, b in zip(again, (table, m, v)))
 
 
 def _layer_inputs(cuda, rows, hk, m, hn, dtype, seed):

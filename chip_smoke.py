@@ -13,8 +13,10 @@ Phases, each on its own lines:
                16, CIN(128,128)): the gather, the fanout and the CIN forward of
                serving, the fanout and CIN backward and the sparse Adagrad
                update of training (on the 2,600,960 x 17 table and on a dim-1
-               table of as many rows); its time, the plain version's, a single
-               PyTorch call's where one computes the same function, and its
+               table of as many rows), both fanouts also in f32 (the f32
+               xDeepFM path's [16384, 26, 17] rows); its time, the plain
+               version's, a single PyTorch call's where one computes the
+               same function, and its
                bound (the larger of bytes over the memory rate and operations
                over the peak rate, from the H100 SXM data sheet); then the
                kernels of the slice-3 path: lazy Adam (on a 2,600,960 x 16
@@ -816,20 +818,31 @@ def main() -> int:
                       lambda: torch.index_select(table, 0, gids.reshape(-1)).to(torch.bfloat16)),
     )
 
-    # 2. split_fused_rows on the gathered rows [16384, 26, 17] bf16
-    full = got
-    x_dm, ws = split_fused_rows(full, DIM)
-    x_ref, ws_ref = split_fused_rows_reference(full, DIM)
-    check(torch.equal(x_dm, x_ref), "split_fused_rows x_dm exact")
-    err, scale = rel_err(ws, ws_ref)
-    check(ws.shape == (BATCH,) and err <= F32_REL_TOL * max(scale, 1.0),
-          f"split_fused_rows wide_sum {err} <= {F32_REL_TOL} * max(|ref|, 1)")
-    b_ms, b_by = bound_ms(full.numel() * 2 + x_dm.numel() * 2 + ws.numel() * 4, BATCH * m)
+    # 2. split_fused_rows on the gathered rows [16384, 26, 17] bf16, then
+    # the f32 xDeepFM path's f32 rows (f32_ keys); no single PyTorch call
+    # computes both outputs, so the row has no library time
+    fanout = {}
+    for label, dt in (("", torch.bfloat16), ("f32_", torch.float32)):
+        full = got if dt == torch.bfloat16 else gather_rows(table, gids, dt)
+        x_dm, ws = split_fused_rows(full, DIM)
+        x_ref, ws_ref = split_fused_rows_reference(full, DIM)
+        check(torch.equal(x_dm, x_ref), f"split_fused_rows {dt} x_dm exact")
+        err, scale = rel_err(ws, ws_ref)
+        check(ws.shape == (BATCH,) and err <= F32_REL_TOL * max(scale, 1.0),
+              f"split_fused_rows {dt} wide_sum {err} <= {F32_REL_TOL} * max(|ref|, 1)")
+        x2, ws2 = split_fused_rows(full, DIM)
+        check(torch.equal(x2, x_dm) and torch.equal(ws2, ws), f"split_fused_rows {dt} repeats bit for bit")
+        b_ms, b_by = bound_ms(full.numel() * dt.itemsize + x_dm.numel() * dt.itemsize + ws.numel() * 4,
+                              BATCH * m)
+        fanout.update({f"{label}max_abs_err": err, f"{label}tol": F32_REL_TOL * max(scale, 1.0),
+                       f"{label}bound_ms": b_ms, f"{label}bound_by": b_by})
+        fanout.update(short_times(lambda: split_fused_rows(full, DIM),
+                                  lambda: split_fused_rows_reference(full, DIM), prefix=label))
+        del full, x_dm, ws, x_ref, ws_ref, x2, ws2
     report["split_fused_rows"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/split_fused.cu",
-        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:881", max_abs_err=err,
-        tol=F32_REL_TOL * max(scale, 1.0), bound_ms=b_ms, bound_by=b_by, timing=SHORT_TIMING,
-        **short_times(lambda: split_fused_rows(full, DIM), lambda: split_fused_rows_reference(full, DIM)),
+        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:881", timing=SHORT_TIMING,
+        library_none="two outputs (x_dm and wide_sum) that no single PyTorch call computes", **fanout,
     )
 
     # 3. cin2_forward: x0 [262144, 26] N(0, 1), the model's initial CIN weights
@@ -862,21 +875,35 @@ def main() -> int:
                                      calls=10),
     )
 
-    # 4. split_fused_rows_backward: g_dm [16384, 16, 26] bf16, g_ws [16384] f32
-    g_dm = torch.randn((BATCH, DIM, m), generator=gen, device=dev).to(torch.bfloat16)
+    # 4. split_fused_rows_backward: g_dm [16384, 16, 26] bf16, g_ws [16384]
+    # f32, then the same g_dm in f32 (f32_ keys: no new draws, so the later
+    # phases see the generator where they always have); its library call is
+    # one torch.cat
+    fanout_bwd = {}
+    g_dm_bf16 = torch.randn((BATCH, DIM, m), generator=gen, device=dev).to(torch.bfloat16)
     g_ws = torch.randn((BATCH,), generator=gen, device=dev)
-    got = split_fused_rows_backward(g_dm, g_ws)
-    check(torch.equal(got, split_fused_rows_backward_reference(g_dm, g_ws)),
-          "split_fused_rows_backward exact")
-    b_ms, b_by = bound_ms(g_dm.numel() * 2 + g_ws.numel() * 4 + got.numel() * 2, 0.0)
+    for label, dt in (("", torch.bfloat16), ("f32_", torch.float32)):
+        g_dm = g_dm_bf16.to(dt)
+        got = split_fused_rows_backward(g_dm, g_ws)
+        check(torch.equal(got, split_fused_rows_backward_reference(g_dm, g_ws)),
+              f"split_fused_rows_backward {dt} exact")
+        check(torch.equal(split_fused_rows_backward(g_dm, g_ws), got),
+              f"split_fused_rows_backward {dt} repeats bit for bit")
+        library = lambda: torch.cat(  # noqa: E731
+            (g_dm.transpose(1, 2), g_ws.to(g_dm.dtype)[:, None, None].expand(BATCH, m, 1)), 2)
+        check(torch.equal(library(), got), f"split_fused_rows_backward {dt}: the library call computes the same")
+        b_ms, b_by = bound_ms(g_dm.numel() * dt.itemsize + g_ws.numel() * 4 + got.numel() * dt.itemsize, 0.0)
+        fanout_bwd.update({f"{label}max_abs_err": 0.0, f"{label}tol": 0.0,
+                           f"{label}bound_ms": b_ms, f"{label}bound_by": b_by})
+        fanout_bwd.update(short_times(lambda: split_fused_rows_backward(g_dm, g_ws),
+                                      lambda: split_fused_rows_backward_reference(g_dm, g_ws),
+                                      library, prefix=label))
+        del g_dm, got
+    del g_dm_bf16, g_ws
     report["split_fused_rows_backward"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/split_fused.cu",
-        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:939", max_abs_err=0.0, tol=0.0,
-        bound_ms=b_ms, bound_by=b_by, timing=SHORT_TIMING,
-        **short_times(lambda: split_fused_rows_backward(g_dm, g_ws),
-                      lambda: split_fused_rows_backward_reference(g_dm, g_ws)),
+        replaces="recmodels_tpu/ops/pallas/interactions_tpu.py:939", timing=SHORT_TIMING, **fanout_bwd,
     )
-    del g_dm, g_ws, got
 
     # 5. cin2_backward on the forward's x0, x1, Q and pool grads N(0, 1)
     x1, q = outs[0], outs[3]

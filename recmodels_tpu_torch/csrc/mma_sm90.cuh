@@ -1,5 +1,6 @@
 // Helpers shared by the generic CIN layer kernels (cin_layer.cu,
-// cin_layer_bwd.cu) and the transpose (transpose.cu): bf16 tensor-core
+// cin_layer_bwd.cu), the transpose (transpose.cu) and the fanout
+// (split_fused.cu): bf16 tensor-core
 // products with mma.sync (m16n8k16, f32 accumulate), whose fragment layouts
 // the PTX ISA documents, fed by ldmatrix from shared memory; cp.async
 // copies; and a tile loader that zero-fills what lies outside the matrix.
@@ -79,6 +80,12 @@ __device__ __forceinline__ void load_b_nk(uint32_t b[4], const bf16* s, int ld, 
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// The first `bytes` (0 to 16) of the 16 at src; the rest of dst is zeroed.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -44,10 +44,21 @@ FLOAT_DTYPES = (torch.bfloat16, torch.float32)
 # ------------------------------------------------------- fused-row fanout
 split_fused_rows_reference = interactions.split_fused_rows
 
+# an example's [m, D+1] rows are staged whole in a block's shared memory
+SPLIT_FUSED_MAX_EXAMPLE_BYTES = 48 * 1024
+
+
+def _check_example_bytes(what: str, m: int, d: int, dtype: torch.dtype) -> None:
+    nbytes = m * (d + 1) * dtype.itemsize
+    if nbytes > SPLIT_FUSED_MAX_EXAMPLE_BYTES:
+        raise ValueError(f"{what} kernel: an example's rows [{m}, {d + 1}] of {dtype} take {nbytes} bytes; "
+                         f"it takes examples within {SPLIT_FUSED_MAX_EXAMPLE_BYTES} bytes")
+
 
 def split_fused_rows(full: torch.Tensor, emb_dim: int):
     """[B, m, D+1] rows (bf16 or f32) -> (x_dm [B, D, m] in the same dtype,
-    wide_sum [B] f32)."""
+    wide_sum [B] f32). Any shape on the CPU; on CUDA an example's rows
+    within ``SPLIT_FUSED_MAX_EXAMPLE_BYTES``."""
     if full.device.type == "cpu":
         return split_fused_rows_reference(full, emb_dim)
     dev_t = cuda_device(full, "split_fused_rows")
@@ -55,6 +66,7 @@ def split_fused_rows(full: torch.Tensor, emb_dim: int):
     b, m, d1 = full.shape
     if d1 != emb_dim + 1:
         raise ValueError(f"split_fused_rows: rows of {d1}, expected emb_dim + 1 = {emb_dim + 1}")
+    _check_example_bytes("split_fused_rows", m, emb_dim, full.dtype)
     x_dm = torch.empty((b, emb_dim, m), dtype=full.dtype, device=dev_t)
     wide_sum = torch.empty((b,), dtype=torch.float32, device=dev_t)
     dev, stream = device_and_stream(dev_t)
@@ -83,7 +95,8 @@ def split_fused_rows_backward_reference(g_dm: torch.Tensor, g_ws: torch.Tensor) 
 
 def split_fused_rows_backward(g_dm: torch.Tensor, g_ws: torch.Tensor) -> torch.Tensor:
     """Backward of ``split_fused_rows``: same arguments and result as
-    ``split_fused_rows_backward_reference``."""
+    ``split_fused_rows_backward_reference``; on CUDA the same limit on an
+    example."""
     if g_dm.device.type == "cpu":
         return split_fused_rows_backward_reference(g_dm, g_ws)
     dev_t = cuda_device(g_dm, "split_fused_rows_backward")
@@ -92,6 +105,7 @@ def split_fused_rows_backward(g_dm: torch.Tensor, g_ws: torch.Tensor) -> torch.T
     b, d, m = g_dm.shape
     if g_ws.shape != (b,):
         raise ValueError(f"split_fused_rows_backward: g_ws {tuple(g_ws.shape)}, expected ({b},)")
+    _check_example_bytes("split_fused_rows_backward", m, d, g_dm.dtype)
     out = torch.empty((b, m, d + 1), dtype=g_dm.dtype, device=dev_t)
     dev, stream = device_and_stream(dev_t)
     err = build.library().rm_split_fused_rows_backward(

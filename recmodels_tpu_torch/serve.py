@@ -58,6 +58,12 @@ def export_model(out_dir: str, cfg: TrainConfig, engine: Engine, state: TrainSta
         f.write(cfg.to_json())
 
 
+def _dense_template(engine: Engine):
+    """The engine's model's dense parameters on the CPU, from a fixed seed:
+    the tree and shapes an artifact's dense leaves must have."""
+    return engine.model.init_dense(torch.Generator().manual_seed(0), "cpu")
+
+
 def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
                     emb_tables: Mapping[str, np.ndarray], device="cuda") -> TrainState:
     """The port's parameters from the JAX package's, as numpy arrays:
@@ -70,7 +76,7 @@ def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
     Raises ``ValueError`` unless the leaf count and every shape match this
     engine's model."""
     device = resolve_device(device)
-    template = engine.model.init_dense(torch.Generator().manual_seed(0), "cpu")
+    template = _dense_template(engine)
     want = [tuple(t.shape) for t in leaves(template)]
     got = [tuple(np.shape(a)) for a in dense_leaves]
     if got != want:
@@ -189,13 +195,19 @@ class Predictor:
 def load_predictor(model_dir: str, device="cuda") -> Predictor:
     """Rebuild the model from an artifact (the JAX package's or this one's)
     and return a scorer on ``device``; raises if ``device`` is CUDA and no
-    card is present."""
+    card is present, and ``ValueError`` when the artifact's ``treedef`` is
+    not the model's (as the JAX loader does)."""
     device = resolve_device(device)
     with open(os.path.join(model_dir, "model.json")) as f:
         cfg = TrainConfig.from_json(f.read())
     model = build_model(cfg.model, build_schema(cfg), **cfg.model_kwargs())
     engine = Engine(model)
     with np.load(os.path.join(model_dir, "params.npz")) as data:
+        stored, model_tree = str(data["treedef"]), treedef_str(_dense_template(engine))
+        if stored != model_tree:
+            raise ValueError(
+                f"artifact/model structure mismatch:\n  artifact {stored}\n  model    {model_tree}"
+            )
         n_dense = sum(1 for k in data.files if k.startswith("dense/"))
         leaves = [data[f"dense/{i}"] for i in range(n_dense)]
         tables: dict[str, Any] = {k: data[k] for k in data.files if k.startswith("emb/")}

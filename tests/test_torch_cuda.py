@@ -55,17 +55,48 @@ def test_gather_kernel_is_exact(cuda, n_ids, out_dtype):
     assert torch.equal(got, gather_rows_reference(table, ids, out_dtype))
 
 
-@pytest.mark.parametrize("b", [1, 17, 300])
+# (b, m, d): the fanout's periods are the least run of whole examples whose
+# input and output span whole 16-byte chunks (4 examples at m = 26, d = 16 in
+# bf16, 2 in f32; 8 at m = 7, d = 3 in bf16), its groups up to 16 KB of periods
+_FANOUT_SHAPES = [
+    (1, 26, 16), (17, 26, 16), (300, 26, 16),
+    (0, 26, 16),
+    (3, 26, 16),       # less than a period
+    (4, 26, 16),       # one bf16 period
+    (5, 26, 16),       # a ragged period
+    (16384, 26, 16),   # more groups than resident blocks
+    (16387, 26, 16),   # and a ragged tail
+    (37, 26, 32),      # bench.py --dim 32: 1,716-byte rows
+    (41, 26, 1),
+    (23, 7, 3),        # odd sizes: 8-example periods in bf16
+    (3, 12, 1023),     # f32 rows at the 48 KB limit (the plain path)
+    (3, 24, 1023),     # bf16 rows at the limit; f32 past it
+    (2, 25, 1023),     # past the limit in both
+]
+
+
+def _fanout_takes(m, d, dtype):
+    return m * (d + 1) * dtype.itemsize <= K.SPLIT_FUSED_MAX_EXAMPLE_BYTES
+
+
+@pytest.mark.parametrize("b,m,d", _FANOUT_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_split_fused_rows_kernel(cuda, b, dtype):
-    full = torch.randn((b, 26, 17), generator=_gen(cuda), device=cuda).to(dtype)
+def test_split_fused_rows_kernel(cuda, b, m, d, dtype):
+    full = torch.randn((b, m, d + 1), generator=_gen(cuda), device=cuda).to(dtype)
     before = K.split_fused_rows.launches
-    x_dm, ws = K.split_fused_rows(full, 16)
+    if not _fanout_takes(m, d, dtype):
+        with pytest.raises(ValueError, match="it takes examples within 49152 bytes"):
+            K.split_fused_rows(full, d)
+        assert K.split_fused_rows.launches == before
+        return
+    x_dm, ws = K.split_fused_rows(full, d)
     torch.cuda.synchronize()
     assert K.split_fused_rows.launches == before + 1
-    x_ref, ws_ref = K.split_fused_rows_reference(full, 16)
+    x_ref, ws_ref = K.split_fused_rows_reference(full, d)
     assert torch.equal(x_dm, x_ref) and ws.shape == (b,)
     torch.testing.assert_close(ws, ws_ref, rtol=1e-5, atol=1e-5)  # f32 sums in another order
+    x2, ws2 = K.split_fused_rows(full, d)
+    assert torch.equal(x2, x_dm) and torch.equal(ws2, ws)
 
 
 _CIN2_SHAPES = [
@@ -120,17 +151,23 @@ def test_cin_stack_dm_flat_f32_runs_the_layer_kernel(cuda):
     torch.testing.assert_close(gx, gp, rtol=F32_REL_TOL, atol=F32_REL_TOL * gp.abs().max().item())
 
 
-@pytest.mark.parametrize("b", [1, 17, 300])
+@pytest.mark.parametrize("b,m,d", _FANOUT_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_split_fused_rows_backward_kernel(cuda, b, dtype):
+def test_split_fused_rows_backward_kernel(cuda, b, m, d, dtype):
     g = _gen(cuda, 2)
-    g_dm = torch.randn((b, 16, 26), generator=g, device=cuda).to(dtype)
+    g_dm = torch.randn((b, d, m), generator=g, device=cuda).to(dtype)
     g_ws = torch.randn((b,), generator=g, device=cuda)
     before = K.split_fused_rows_backward.launches
+    if not _fanout_takes(m, d, dtype):
+        with pytest.raises(ValueError, match="it takes examples within 49152 bytes"):
+            K.split_fused_rows_backward(g_dm, g_ws)
+        assert K.split_fused_rows_backward.launches == before
+        return
     got = K.split_fused_rows_backward(g_dm, g_ws)
     torch.cuda.synchronize()
     assert K.split_fused_rows_backward.launches == before + 1
     assert torch.equal(got, K.split_fused_rows_backward_reference(g_dm, g_ws))
+    assert torch.equal(K.split_fused_rows_backward(g_dm, g_ws), got)
 
 
 def _stream(cuda, rows, dim, n, hot, grad_dtype, seed=3, layout=None):

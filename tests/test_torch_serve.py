@@ -197,6 +197,26 @@ def test_structure_mismatch_rejected(trained, tmp_path):
         load_predictor(art, device="cpu")
 
 
+def test_treedef_mismatch_rejected_by_both_loaders(trained, tmp_path):
+    """An artifact whose stored tree names other keys than the model's, with
+    every leaf's shape unchanged, is refused by JAX's loader and the port's
+    alike."""
+    art = tmp_path / "renamed"
+    art.mkdir()
+    with open(os.path.join(trained["art"], "model.json")) as f:
+        (art / "model.json").write_text(f.read())
+    with np.load(os.path.join(trained["art"], "params.npz")) as data:
+        arrays = {k: data[k] for k in data.files}
+    tree = str(arrays["treedef"])
+    assert "'mlp'" in tree
+    arrays["treedef"] = np.array(tree.replace("'mlp'", "'mlq'"))
+    np.savez(art / "params.npz", **arrays)
+    with pytest.raises(ValueError, match="structure mismatch"):
+        jload(str(art))
+    with pytest.raises(ValueError, match="structure mismatch"):
+        load_predictor(str(art), device="cpu")
+
+
 def test_entry_points_default_to_cuda(trained, monkeypatch):
     """With no GPU, the defaults raise rather than fall back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

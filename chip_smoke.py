@@ -26,7 +26,10 @@ Phases, each on its own lines:
                then those of slice 4: the FM term on the stride-17 view of
                gathered rows (DeepFM's [16384, 26, 16] bf16, FM's [8192, 26,
                16] f32) and the DCN cross stack (x0 [16384, 429], 3 layers,
-               bf16 and f32). A kernel shorter than about 0.1 ms (the gather,
+               bf16 and f32, each with a SHA-256 of its output's bytes); the
+               gather also at each other instance the paths launch (f32
+               rows, slice 3's 16-column and 1-column tables, 33-column rows
+               of dim 32, requests of 26 and 26,000 ids). A kernel shorter than about 0.1 ms (the gather,
                both fanouts, the updates, the transpose, the FM term,
                the cross stack), its plain version and its library call are
                timed with a cold L2 and, by torch.profiler, warm; the rest
@@ -92,6 +95,7 @@ alone, without the package beside it.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -724,12 +728,14 @@ def slice4_kernels(report: dict, card: str, gen: torch.Generator) -> None:
                   "summed in the kernel's order")
             del in_order
         check(torch.equal(got, dcn_cross_stack_forward(x0, w, bias)), "dcn_cross_stack repeats bit for bit")
+        digest = hashlib.sha256(got.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        print(f"dcn_cross_stack {label or 'bf16_'}output sha256 {digest}")
         esize = x0.element_size()
         b_ms, b_by = bound_ms((2 * x0.numel() + w.numel() + bias.numel()) * esize,
                               5 * N_CROSS * x0.numel(), PEAK_F32_FLOP_PER_S)
         dcn.update({
             f"{label}max_abs_err": err, f"{label}tol": rel, f"{label}max_rel_err": worst,
-            f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+            f"{label}bound_ms": b_ms, f"{label}bound_by": b_by, f"{label}sha256": digest,
             **short_times(lambda: dcn_cross_stack_forward(x0, w, bias),
                           lambda: dcn_cross_stack_forward_reference(x0, w, bias), prefix=label),
         })
@@ -796,27 +802,46 @@ def main() -> int:
     print("== kernels (flagship shapes; the slice-3 paths' after the first six, then slice 4's)")
     report = {}
 
-    # 1. gather: 26 x 1e5 ids (2,600,960 rows of 17 f32), batch-order ids
+    # 1. gather: 26 x 1e5 ids (2,600,960 rows of 17 f32), batch-order ids;
+    # then the other instances the paths launch, made from the same table
+    # and ids (no new draws): f32 rows (f32 xDeepFM, FM), the table's first
+    # 16 columns and its last (slice 3's two tables), the table with its
+    # first 16 columns again (33 columns, dim 32's rows) and the first 26
+    # and 26,000 ids (served requests of 1 and 1,000 examples); each bit for
+    # bit its plain version, and its library call index_select and the cast
     table = torch.randn((rows, DIM + 1), generator=gen, device=dev) * 0.05
     gids = engine.collections["emb"].group_row_ids(ids)["d17"]
-    got = gather_rows(table, gids, torch.bfloat16)
-    want = gather_rows_reference(table, gids, torch.bfloat16)
-    err = (got.float() - want.float()).abs().max().item()
-    check(torch.equal(got, want), f"gather bf16 rows bit-exact (max err {err})")
-    check(torch.equal(gather_rows(table, gids, torch.float32),
-                      gather_rows_reference(table, gids, torch.float32)), "gather f32 rows bit-exact")
-    n = gids.numel()
-    touched = torch.unique(gids).numel()
-    b_ms, b_by = bound_ms(touched * (DIM + 1) * 4 + n * 4 + n * (DIM + 1) * 2)
-    sectors = row_sectors(table, gids) + range_sectors(gids) + range_sectors(got)
+    gather = {}
+    instances = (("", table, gids, torch.bfloat16), ("f32_", table, gids, torch.float32),
+                 ("d16_", table[:, :DIM].contiguous(), gids, torch.bfloat16),
+                 ("d1_", table[:, DIM:].contiguous(), gids, torch.bfloat16),
+                 ("d33_", torch.cat([table, table[:, :DIM]], 1), gids, torch.bfloat16),
+                 ("req1_", table, gids.reshape(-1)[:m], torch.bfloat16),
+                 ("req1000_", table, gids.reshape(-1)[:1000 * m], torch.bfloat16))
+    for label, t, i, dt in instances:
+        rows_i = gather_rows(t, i, dt)
+        ref = gather_rows_reference(t, i, dt)
+        err = (rows_i.float() - ref.float()).abs().max().item()
+        what = f"gather {label[:-1] or 'd17'} {dt}"
+        check(torch.equal(rows_i, ref), f"{what} rows bit-exact (max err {err})")
+        check(torch.equal(gather_rows(t, i, dt), rows_i), f"{what} repeats bit for bit")
+        n, d1 = i.numel(), t.shape[1]
+        b_ms, b_by = bound_ms(torch.unique(i).numel() * d1 * 4 + n * 4 + rows_i.numel() * dt.itemsize)
+        sectors = row_sectors(t, i) + range_sectors(i) + range_sectors(rows_i)
+        gather.update({f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+                       f"{label}sector_bound_ms": sector_bound_ms(sectors)})
+        gather.update(short_times(lambda: gather_rows(t, i, dt), lambda: gather_rows_reference(t, i, dt),
+                                  lambda: torch.index_select(t, 0, i.reshape(-1)).to(dt), prefix=label))
+        del rows_i, ref
+    del instances
     report["gather_rows"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/gather.cu",
-        replaces="recmodels_tpu/embedding/pallas_gather.py:180", max_abs_err=err, tol=0.0,
-        bound_ms=b_ms, bound_by=b_by, sector_bound_ms=sector_bound_ms(sectors), timing=SHORT_TIMING,
-        **short_times(lambda: gather_rows(table, gids, torch.bfloat16),
-                      lambda: gather_rows_reference(table, gids, torch.bfloat16),
-                      lambda: torch.index_select(table, 0, gids.reshape(-1)).to(torch.bfloat16)),
+        replaces="recmodels_tpu/embedding/pallas_gather.py:180", tol=0.0, timing=SHORT_TIMING,
+        shapes="unprefixed keys: 425,984 batch-order ids into the 2,600,960 x 17 f32 table, bf16 rows; "
+               "f32_: f32 rows; d16_, d1_: the table's first 16 columns and its last; d33_: the table "
+               "and its first 16 columns again; req1_, req1000_: the first 26 and 26,000 ids", **gather,
     )
+    got = gather_rows(table, gids, torch.bfloat16)  # the fanout's input
 
     # 2. split_fused_rows on the gathered rows [16384, 26, 17] bf16, then
     # the f32 xDeepFM path's f32 rows (f32_ keys); no single PyTorch call

@@ -55,6 +55,54 @@ def test_gather_kernel_is_exact(cuda, n_ids, out_dtype):
     assert torch.equal(got, gather_rows_reference(table, ids, out_dtype))
 
 
+def _gather_checked(table, ids, out_dtype):
+    """One launch, bit for bit the plain version, and a second call the same."""
+    before = gather_rows.launches
+    got = gather_rows(table, ids, out_dtype)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert got.shape == (*ids.shape, table.shape[1]) and got.dtype == out_dtype
+    assert torch.equal(got, gather_rows_reference(table, ids, out_dtype))
+    assert torch.equal(gather_rows(table, ids, out_dtype), got)
+
+
+# a warp's tile is 32 ids, its output whole 16-byte chunks (d1 = 1 takes
+# a thread an id): n runs across those edges, to the flagship's 425,984
+# ids and past it to a ragged last tile
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 26, 26_000, 425_984, 425_987])
+@pytest.mark.parametrize("d1", [1, 16, 17, 33])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gather_kernel_at_tile_edges(cuda, n, d1, out_dtype):
+    g = _gen(cuda, 19)
+    rows = 200_003
+    table = torch.randn((rows, d1), generator=g, device=cuda) * 3
+    ids = torch.randint(0, rows, (n,), generator=g, device=cuda, dtype=torch.int32)
+    if n:
+        ids[-1] = rows - 1
+    _gather_checked(table, ids, out_dtype)
+
+
+@pytest.mark.parametrize("n", [9, 26_000, 425_987])
+@pytest.mark.parametrize("d1", [1, 17])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("which", ["first", "last"])
+def test_gather_kernel_one_id_throughout(cuda, n, d1, out_dtype, which):
+    g = _gen(cuda, 20)
+    rows = 5000
+    table = torch.randn((rows, d1), generator=g, device=cuda)
+    ids = torch.full((n,), 0 if which == "first" else rows - 1, dtype=torch.int32, device=cuda)
+    _gather_checked(table, ids, out_dtype)
+
+
+@pytest.mark.parametrize("d1", [3, 5, 20, 34, 40, 65])  # from 34: past the tiles, a thread a value
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gather_kernel_other_row_widths(cuda, d1, out_dtype):
+    g = _gen(cuda, 21)
+    table = torch.randn((3000, d1), generator=g, device=cuda)
+    ids = torch.randint(0, 3000, (1000, 26), generator=g, device=cuda, dtype=torch.int32)
+    _gather_checked(table, ids, out_dtype)
+
+
 # (b, m, d): the fanout's periods are the least run of whole examples whose
 # input and output span whole 16-byte chunks (4 examples at m = 26, d = 16 in
 # bf16, 2 in f32; 8 at m = 7, d = 3 in bf16), its groups up to 16 KB of periods
@@ -598,11 +646,20 @@ def test_fm_pairwise_kernel_refuses_a_view_without_unit_stride(cuda):
         K.fm_pairwise_forward(x)
 
 
+# the staged rows go in periods of 8 bf16 or 4 f32 rows at d = 429 and
+# groups of two periods, fewer when the batch is small
 @pytest.mark.parametrize("b,d,n_layers", [
     (1, 429, 3),      # DCN's width, odd: bf16 rows 858 bytes apart
+    (7, 429, 3),      # less than a bf16 period
+    (8, 429, 3),      # one bf16 period
+    (9, 429, 3),
     (97, 429, 3),     # ragged B
+    (16384, 429, 3),  # DCN's batch: more groups than resident blocks
+    (16387, 429, 3),  # and a ragged tail
+    (40, 845, 3),     # --dim 32
     (300, 5, 2),
     (33, 1024, 6),    # the largest d of the register path; in f32 w and b fill the 48 KB exactly
+    (33, 1024, 12),   # in bf16 w and b fill the 48 KB (f32: the wide-row path)
     (20, 429, 0),     # no layers: x0
     (61, 1053, 3),    # bench.py --model dcn --dim 40: the wide-row path
     (40, 1677, 3),    # --dim 64
@@ -633,6 +690,29 @@ def test_dcn_cross_kernel(cuda, b, d, n_layers, dtype):
     if dtype == torch.bfloat16:
         assert torch.equal(got, K.dcn_cross_stack_in_kernel_order(x0, w, bias))
     assert torch.equal(got, K.dcn_cross_stack_forward(x0, w, bias))  # no atomics: runs repeat
+
+
+@pytest.mark.parametrize("b,d,n_layers", [
+    (9, 429, 3), (97, 429, 3), (16387, 429, 3),
+    (33, 1024, 12),  # in bf16 w and b fill the 48 KB (f32: the wide-row path)
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dcn_cross_kernel_on_a_view_off_16_bytes(cuda, b, d, n_layers, dtype):
+    """x0 whose base is off 16 bytes takes the unaligned route (a warp a
+    row in device memory): the same bits as the staged rows of an aligned
+    copy, in bf16 those of the plain version in the kernel's order."""
+    g = _gen(cuda, 22)
+    flat = torch.randn((b * d + 8,), generator=g, device=cuda).to(dtype)
+    x0 = flat[3:3 + b * d].view(b, d)
+    assert x0.data_ptr() % 16
+    w = (torch.randn((n_layers, d), generator=g, device=cuda) / d ** 0.5).to(dtype)
+    bias = (torch.randn((n_layers, d), generator=g, device=cuda) * 0.1).to(dtype)
+    got = K.dcn_cross_stack_forward(x0, w, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.dcn_cross_stack_forward(x0.clone(), w, bias))
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, K.dcn_cross_stack_in_kernel_order(x0, w, bias))
+    assert torch.equal(got, K.dcn_cross_stack_forward(x0, w, bias))
 
 
 def test_cin2_takes_matches_the_kernels_own_check(cuda):

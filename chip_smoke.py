@@ -44,9 +44,13 @@ Phases, each on its own lines:
                DNN(400,400)) initialised from a seed (with weights under which
                each kernel's output moves the logits), exported, loaded with
                load_predictor(device="cuda") and asked requests of 1, 1,000 and
-               16,384 examples; every serving kernel must have launched, the
-               logits must be finite and match the same artifact served on the
-               CPU by the plain path; throughput at 16,384;
+               16,384 examples (padded to the buckets 256, 1,024 and 16,384,
+               each a CUDA graph captured at its first request); every
+               serving kernel must have launched, the logits must be finite,
+               match eager Engine.logits on each unpadded request and the
+               same artifact served on the CPU by the plain path; each
+               bucket's eager and captured events per request; throughput at
+               16,384;
   5. training: the same model trained with Engine.train_step at 16,384
                (dense Adam lr 1e-3, sparse Adagrad lr 1e-2) for 30 steps of the
                synthetic stream; every kernel of the step must have launched,
@@ -54,7 +58,15 @@ Phases, each on its own lines:
                at 1,024 examples must match the CPU plain path's step (loss,
                Adam moments, which hold the dense grads, the touched rows of
                the table and acc, untouched rows bit for bit); the step's device time,
-               examples/s and profile;
+               examples/s and profile; then the captured step: 30 steps
+               through Engine.jit_train_step (an eager warm-up, the capture,
+               replays) in lockstep with 30 eager steps from one start state
+               on the same batches (whether the bits agree, and every loss and
+               the final state within the one-step check's tolerances), one
+               jit_train_scan of 30 steps (its losses bit for bit the stepwise
+               captured run's), and the captured step's events per step over
+               10 back-to-back calls beside the eager events and kernel time,
+               with a profile of replays;
   6. training, slice 3: bf16 xDeepFM with CIN(128,128,128), the wide column
                in its own dim-1 table (fuse_wide=False) and lazy Adam on both
                tables (lr 1e-2), 30 steps at 16,384: the gather, the transpose,
@@ -64,7 +76,9 @@ Phases, each on its own lines:
                path's step (loss, dense Adam moments, each table's m and v on
                touched rows; the table moves by the Adam step of its own
                moments, bit for bit; untouched rows bit for bit); the step's
-               event time, kernel time, busy share and profile; then one dense-Adam
+               event time, kernel time, busy share, launches and profile (the
+               two tables share one sort of their ids); the captured step as
+               in 5 (no scan); then one dense-Adam
                ("adam_dense") table update on the card, run twice from one
                state (identical bits) and held against the CPU;
   7. slice 4, for each of full-width bf16 DeepFM (DNN(400,400,400)), bf16
@@ -73,8 +87,8 @@ Phases, each on its own lines:
                1e-3, sparse Adagrad lr 1e-2): serving as in 4 (requests of
                1, 1,000 and the batch, 16,384 or FM's 8,192; the FM term, or
                the cross layers' own share (x_L - x0) . w_out, must move the
-               logits), then training as in 5, 30 steps at the same batch;
-               then f32 xDeepFM (bench.py --no-bf16: CIN(128,128),
+               logits), then training as in 5, 30 steps at the same batch, and
+               its captured step (no scan); then f32 xDeepFM (bench.py --no-bf16: CIN(128,128),
                DNN(400,400), the engine's defaults, batch 16,384) the same
                way: its CIN runs through the layer kernel, which must
                launch exactly twice a training step;
@@ -196,10 +210,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile(fn, calls: int = 3, top: int = 12) -> tuple[float, float]:
+def profile(fn, calls: int = 3, top: int = 12) -> tuple[float, float, int]:
     """Print the device time per call of the kernels ``fn`` runs, from
     torch.profiler, and the share of the window the device was busy; return
-    the kernels' time per call (ms) and that share."""
+    the kernels' time per call (ms), that share and the kernel launches per
+    call."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -225,8 +240,9 @@ def profile(fn, calls: int = 3, top: int = 12) -> tuple[float, float]:
           f"({busy / wall_ms:.1%}), {calls} calls")
     for ms, count, name in rows[:top]:
         print(f"profile: {ms:.4f} ms/call x{count} {name[:90]}")
-    print(f"profile: {sum(r[1] for r in rows)} kernel launches per call")
-    return busy / calls, busy / wall_ms
+    launches = sum(r[1] for r in rows)
+    print(f"profile: {launches} kernel launches per call")
+    return busy / calls, busy / wall_ms, launches
 
 
 def cold_ms(fn, iters: int = 20) -> float:
@@ -488,15 +504,16 @@ def adam_library_step(table, ids, grads, lr):
     return opt.step
 
 
-def adam_step_of(before_table, m, v, lr: float, step: int) -> torch.Tensor:
+def adam_step_of(before_table, m, v, scalars: torch.Tensor) -> torch.Tensor:
     """The table after lazy Adam's step from its new moments m and v (on the
-    CPU, in the update's order of operations and f32 constants)."""
-    from recmodels_tpu_torch.embedding.update import adam_constants, bias_correction
+    CPU, in the update's order of operations and f32 constants), with the
+    step's [lr, bc1, bc2] as the card computed them."""
+    from recmodels_tpu_torch.embedding.update import adam_constants
 
-    c = adam_constants(lr, bias_correction(0.9, step + 1), bias_correction(0.999, step + 1),
-                       0.9, 0.999, 1e-8)
-    den = torch.sqrt((v / c["bc2"]).double()).float() + c["eps"]
-    return before_table + (-c["lr"] * (m / c["bc1"])) / den
+    c = adam_constants(0.9, 0.999, 1e-8)
+    lr, bc1, bc2 = scalars.cpu().unbind()
+    den = torch.sqrt((v / bc2).double()).float() + c["eps"]
+    return before_table + (-lr * (m / bc1)) / den
 
 
 def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) -> None:
@@ -504,7 +521,7 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
     shapes; adds their rows to ``report``."""
     from recmodels_tpu_torch.embedding.optim import slot_sorted_ids
     from recmodels_tpu_torch.embedding.update import (
-        bias_correction, sorted_adam_update, sorted_adam_update_reference,
+        adam_scalars, sorted_adam_update, sorted_adam_update_reference,
     )
     from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
         cin_layer_backward, cin_layer_backward_einsum, cin_layer_backward_reference, cin_layer_forward,
@@ -517,13 +534,15 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
     rows, m = grp.alloc_rows, engine3.model.schema.n_slots
 
     # 7. sorted_adam_update: the batch's sorted stream (425,984 ids) into the
-    # 2,600,960 x 16 table, then a dim-1 table; bf16 grads N(0, 0.01), step 30
+    # 2,600,960 x 16 table, then a dim-1 table; bf16 grads N(0, 0.01), step
+    # 30, the block [lr, bc1, bc2] computed on the card from a step tensor
+    # and read by the kernel from device memory
     sorted_ids, _, _ = slot_sorted_ids(coll.group_row_ids(ids)[grp.name])
     n = sorted_ids.numel()
     touched = torch.unique(sorted_ids).numel()
-    step = 30
-    hyper = dict(lr=1e-2, bc1=bias_correction(0.9, step + 1), bc2=bias_correction(0.999, step + 1),
-                 b1=0.9, b2=0.999, eps=1e-8)
+    scalars = adam_scalars(torch.tensor(1e-2, device=dev), torch.tensor(30, dtype=torch.int32, device=dev),
+                           0.9, 0.999)
+    hyper = dict(scalars=scalars, b1=0.9, b2=0.999, eps=1e-8)
     update = {}
     for label, d in (("", DIM), ("dim1_", 1)):
         shape = (rows, d) if d > 1 else (rows,)
@@ -532,7 +551,7 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
         vel = mom * mom * 10.0 + 1e-10  # a history: sqrt(v) outgrows |m|, as Adam's moments do
         grads = (torch.randn((n, *shape[1:]), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
         cpu = [t.cpu() for t in (table, mom, vel)]
-        sorted_adam_update_reference(*cpu, sorted_ids.cpu(), grads.cpu(), **hyper)
+        sorted_adam_update_reference(*cpu, sorted_ids.cpu(), grads.cpu(), **{**hyper, "scalars": scalars.cpu()})
         sorted_adam_update(table, mom, vel, sorted_ids, grads, **hyper)
         torch.cuda.synchronize()
         err = max((a.cpu() - b).abs().max().item() for a, b in zip((table, mom, vel), cpu))
@@ -545,7 +564,7 @@ def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) 
                        f"{label}sector_bound_ms": sector_bound_ms(sectors)})
         kernel = lambda: sorted_adam_update(table, mom, vel, sorted_ids, grads, **hyper)  # noqa: E731
         plain = lambda: sorted_adam_update_reference(table, mom, vel, sorted_ids, grads, **hyper)  # noqa: E731
-        library = adam_library_step(table, sorted_ids, grads, hyper["lr"])
+        library = adam_library_step(table, sorted_ids, grads, 1e-2)
         update.update(short_times(kernel, plain, library, label))
         del table, mom, vel, grads, cpu
     report["sorted_adam_update"] = dict(
@@ -968,10 +987,12 @@ def main() -> int:
     del bwd, x1, q, g1p, g2p, x02
 
     # 6. sorted_adagrad_update: the batch's sorted stream (425,984 ids) into
-    # the 2,600,960 x 17 table, bf16 grads N(0, 0.01); then a dim-1 table
+    # the 2,600,960 x 17 table, bf16 grads N(0, 0.01); then a dim-1 table;
+    # lr read by the kernel from device memory
     sorted_ids, _, _ = slot_sorted_ids(gids)
     n = sorted_ids.numel()
     lr, eps = 1e-2, 1e-8
+    lr_t = torch.tensor(lr, device=dev)
     update = {}
     for label, d1 in (("", DIM + 1), ("dim1_", 1)):
         shape = (rows, d1) if d1 > 1 else (rows,)
@@ -979,8 +1000,8 @@ def main() -> int:
         upd_acc = torch.full(shape, 0.1, device=dev) + torch.rand(shape, generator=gen, device=dev)
         grads = (torch.randn((n, *shape[1:]), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
         t_cpu, a_cpu = upd_table.cpu(), upd_acc.cpu()
-        sorted_adagrad_update_reference(t_cpu, a_cpu, sorted_ids.cpu(), grads.cpu(), lr, eps)
-        sorted_adagrad_update(upd_table, upd_acc, sorted_ids, grads, lr, eps)
+        sorted_adagrad_update_reference(t_cpu, a_cpu, sorted_ids.cpu(), grads.cpu(), lr_t.cpu(), eps)
+        sorted_adagrad_update(upd_table, upd_acc, sorted_ids, grads, lr_t, eps)
         torch.cuda.synchronize()
         err = max((upd_table.cpu() - t_cpu).abs().max().item(), (upd_acc.cpu() - a_cpu).abs().max().item())
         check(err == 0.0, f"sorted_adagrad_update {label or 'd17 '}bit-exact against the CPU plain version ({err})")
@@ -991,9 +1012,9 @@ def main() -> int:
                    + 2 * (row_sectors(upd_table, sorted_ids) + row_sectors(upd_acc, sorted_ids)))
         update.update({f"{label}max_abs_err": err, f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
                        f"{label}sector_bound_ms": sector_bound_ms(sectors)})
-        kernel = lambda: sorted_adagrad_update(upd_table, upd_acc, sorted_ids, grads, lr, eps)  # noqa: E731
+        kernel = lambda: sorted_adagrad_update(upd_table, upd_acc, sorted_ids, grads, lr_t, eps)  # noqa: E731
         plain = lambda: sorted_adagrad_update_reference(  # noqa: E731
-            upd_table, upd_acc, sorted_ids, grads, lr, eps)
+            upd_table, upd_acc, sorted_ids, grads, lr_t, eps)
         library = adagrad_library_step(upd_table, sorted_ids, grads, lr, eps)
         update.update(short_times(kernel, plain, library, label))
         del upd_table, upd_acc, grads, t_cpu, a_cpu
@@ -1031,7 +1052,7 @@ def main() -> int:
     launches = training_phase(
         "full-width bf16 xDeepFM, Adam 1e-3 + sparse Adagrad 1e-2", engine, schema, BATCH,
         (gather_rows, split_fused_rows, cin2_forward, sorted_adagrad_update, split_fused_rows_backward,
-         cin2_backward), 11, card, gen)
+         cin2_backward), 11, card, gen, scan=True)
     launches3 = training3_phase(engine3, schema, card, gen)
     adam_dense_check(engine3, ids, card, gen)
     paths = {"slice2": launches, "slice3": launches3}
@@ -1142,6 +1163,26 @@ def serving_phase(title: str, cfg, engine, kernels, terms, dense_np, ids_np, car
             check(size >= TERM_MIN_TOLS * tol, f"{name} moves the logits by >= {TERM_MIN_TOLS} tols")
         del cpu_pred
 
+        # the captured scorer: one graph a bucket, each request's logits
+        # against eager Engine.logits on the unpadded request
+        check(sorted(pred._buckets) == sorted({pred._bucket(size) for size in answers})
+              and all(bk.graph is not None for bk in pred._buckets.values()),
+              f"one graph a bucket {sorted(pred._buckets)}")
+        for size, got in answers.items():
+            with torch.inference_mode():
+                eager = pred.engine.logits(pred.state, dense[:size], ids[:size]).cpu()
+            err, scale = rel_err(torch.as_tensor(got), eager)
+            print(f"captured Predictor at {size} (bucket {pred._bucket(size)}) vs eager Engine.logits: max err "
+                  f"{err:.6g}, max |ref| {scale:.6g}, tol {LOGIT_REL_TOL * scale:.6g}")
+            check(err <= LOGIT_REL_TOL * scale, f"captured Predictor at {size} matches eager Engine.logits")
+        for size, bucket in sorted(pred._buckets.items()):
+            with torch.inference_mode():
+                eager_ms = time_ms(lambda: pred.engine.logits(pred.state, bucket.dense, bucket.ids), iters=10)
+            replay_ms = time_ms(bucket.graph.replay, iters=10)
+            print(f"serving bucket {size} ({title}): eager Engine.logits {eager_ms:.4f} ms, captured replay "
+                  f"{replay_ms:.4f} ms per request (CUDA events, 10 back-to-back), {size / replay_ms * 1e3:.0f} "
+                  f"examples/s captured, on {card}")
+
         with torch.inference_mode():
             logits_ms = time_ms(lambda: pred.engine.logits(pred.state, dense, ids), iters=10)
         t_host = []
@@ -1152,21 +1193,23 @@ def serving_phase(title: str, cfg, engine, kernels, terms, dense_np, ids_np, car
         predict_ms = float(np.median(t_host)) * 1e3
         print(f"Engine.logits at {n} ({title}): {logits_ms:.4f} ms device time, "
               f"{n / logits_ms * 1e3:.0f} examples/s on {card}")
-        print(f"predict_logits at {n} (numpy in and out): {predict_ms:.4f} ms median of 5, "
-              f"{n / predict_ms * 1e3:.0f} examples/s on {card}")
+        print(f"predict_logits at {n} (numpy in and out, padded to its bucket, one replay): {predict_ms:.4f} ms "
+              f"median of 5, {n / predict_ms * 1e3:.0f} examples/s on {card}")
         with torch.inference_mode():
             profile(lambda: pred.engine.logits(pred.state, dense, ids))
     return launches
 
 
 def training_phase(title: str, engine, schema, batch_size: int, kernels, seed: int, card: str,
-                   gen: torch.Generator, rows_scale: float = 10.0) -> dict[str, int]:
+                   gen: torch.Generator, rows_scale: float = 10.0, scan: bool = False) -> dict[str, int]:
     """Train ``engine``'s model (one table, sparse Adagrad) on the card for
     TRAIN_STEPS steps of the synthetic stream (``seed``) at ``batch_size``;
     every kernel in ``kernels`` must launch on every step and the loss must
     fall; one step from live weights at TRAIN_CHECK_BATCH must match the CPU
-    plain path's step. Returns each kernel's launches over the TRAIN_STEPS
-    steps (the counts are set to 0 just before them and read just after)."""
+    plain path's step; then the captured step on the same batches
+    (``captured_phase``, with ``jit_train_scan`` where ``scan``). Returns
+    each kernel's launches over the TRAIN_STEPS eager steps (the counts are
+    set to 0 just before them and read just after)."""
     from recmodels_tpu_torch.data import SyntheticSource
 
     print(f"== training ({title})")
@@ -1215,10 +1258,114 @@ def training_phase(title: str, engine, schema, batch_size: int, kernels, seed: i
     print(f"Engine.train_step ({name}) at {batch_size} one at a time (host clock to synchronize): "
           f"{host_ms:.4f} ms median of 5, {batch_size / host_ms * 1e3:.0f} examples/s on {card}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    busy, _ = profile(lambda: engine.train_step(state, dense, ids, labels), top=20)
+    busy, _, per_step = profile(lambda: engine.train_step(state, dense, ids, labels), top=20)
     print(f"Engine.train_step ({name}) at {batch_size}: {busy:.4f} ms of kernel time per step "
-          f"(profiler), {batch_size / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
+          f"(profiler), {batch_size / busy * 1e3:.0f} examples/s if the host kept the card busy, "
+          f"{per_step} kernel launches a step, on {card}")
+    del state
+    captured_phase(title, engine, batches, card, step_ms, busy, scan=scan)
     return launches
+
+
+def named_tensors(tree, prefix: str = ""):
+    """(path, tensor) for every tensor of a state, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from named_tensors(v, f"{prefix}{k}/")
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_tensors(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_tensors(v, f"{prefix}{i}/")
+
+
+def captured_phase(title: str, engine, batches, card: str, eager_ms: float, kernel_ms: float,
+                   scan: bool = False) -> None:
+    """TRAIN_STEPS steps through ``Engine.jit_train_step`` (an eager warm-up,
+    the capture and its replay, then replays) against as many eager
+    ``train_step``s from one start state (``engine.init(seed=SEED)``, cloned)
+    on the same batches, in lockstep. Prints whether the bits agree and, if
+    not, the first step and tensor that differ; every step's loss must agree
+    within LOGIT_REL_TOL of max |logit|, and every tensor of the final state
+    within STEP_REL_TOL of its largest change over the run (the one-step
+    check's tolerances); the captured losses must be finite and fall. Where
+    ``scan``, one ``jit_train_scan`` of TRAIN_STEPS steps from the same start
+    must give the stepwise captured losses bit for bit. Then the captured
+    step's events per step over 10 back-to-back calls beside the eager
+    events and kernel time, and a profile of replays. The wrappers' launch
+    counts see the warm-up and the capture, not the replays: the kernels
+    show they ran by the state changing as the eager run's did."""
+    print(f"== captured training ({title})")
+    dev = torch.device("cuda")
+    eager = engine.init(seed=SEED, device=dev)
+    captured, start = to_device(eager, dev), to_device(eager, dev)
+    ts = engine.jit_train_step()
+    first_diff = None
+    losses_e, losses_c = [], []
+    t0 = time.perf_counter()
+    for k, (dense, ids, labels) in enumerate(batches):
+        eager, me = engine.train_step(eager, dense, ids, labels)
+        captured, mc = ts(captured, dense, ids, labels)
+        losses_e.append(me["loss"])
+        losses_c.append(mc["loss"])
+        if first_diff is None:
+            if not torch.equal(me["loss"], mc["loss"]):
+                first_diff = (k, "loss")
+            for (name, a), (_, b) in zip(named_tensors(eager), named_tensors(captured)):
+                if first_diff is None and not torch.equal(a, b):
+                    first_diff = (k, name)
+    wall = time.perf_counter() - t0
+    check(ts.graphs == 1, f"one graph captured ({ts.graphs})")
+    if first_diff is None:
+        print(f"captured vs eager over {len(batches)} steps: the bits agree (every loss and every state "
+              f"tensor after every step); {wall:.3f} s for both runs, capture included")
+    else:
+        print(f"captured vs eager over {len(batches)} steps: the bits differ, first at step {first_diff[0]} "
+              f"in {first_diff[1]}")
+    le, lc = torch.stack(losses_e).cpu(), torch.stack(losses_c).cpu()
+    print("captured losses: " + " ".join(f"{v:.5f}" for v in lc.tolist()))
+    check(bool(torch.isfinite(lc).all()), "finite captured losses")
+    check(lc[-5:].mean() < lc[:5].mean(), "the captured loss falls over the steps")
+    dense, ids, _ = batches[0]
+    with torch.no_grad():
+        max_logit = engine.logits(eager, dense[:TRAIN_CHECK_BATCH], ids[:TRAIN_CHECK_BATCH]).abs().max().item()
+    loss_err = (lc - le).abs().max().item()
+    check(loss_err <= LOGIT_REL_TOL * max_logit,
+          f"captured losses within {LOGIT_REL_TOL} of max |logit| of the eager ones ({loss_err:.6g})")
+    worst = (0.0, "")
+    for (name, e), (_, c), (_, s0) in zip(named_tensors(eager), named_tensors(captured), named_tensors(start)):
+        if not e.is_floating_point():
+            check(torch.equal(e, c), f"captured {name} equals the eager run's ({int(c)}, {int(e)})")
+            continue
+        err = (c - e).abs().max().item()
+        change = (e - s0).abs().max().item()
+        check(err <= STEP_REL_TOL * change, f"captured {name} within {STEP_REL_TOL} of its largest change "
+              f"(err {err:.6g}, change {change:.6g})")
+        if change > 0 and err / change >= worst[0]:
+            worst = (err / change, name)
+    print(f"captured vs eager: largest loss error {loss_err:.6g} (tol {LOGIT_REL_TOL * max_logit:.6g}); largest "
+          f"state error {worst[0]:.6g} of its tensor's change ({worst[1] or 'none'}), tol {STEP_REL_TOL}")
+    del eager, start
+    if scan:
+        scanned = engine.init(seed=SEED, device=dev)
+        stacked = [torch.stack([b[i] for b in batches]) for i in range(3)]
+        scanned, m = engine.jit_train_scan()(scanned, *stacked)
+        check(torch.equal(m["losses"].cpu(), lc), f"jit_train_scan of {len(batches)} steps gives the stepwise "
+              "captured losses bit for bit")
+        print(f"jit_train_scan, K = {len(batches)}: losses bit for bit the stepwise captured run's")
+        del scanned, stacked, m
+    dense, ids, labels = batches[-1]
+    n = dense.shape[0]
+    step_ms = time_ms(lambda: ts(captured, dense, ids, labels), iters=10)
+    busy, share, per_step = profile(lambda: ts(captured, dense, ids, labels), top=12)
+    print(f"captured step ({title}) at {n}: {step_ms:.4f} ms per step (CUDA events, 10 back-to-back calls of "
+          f"jit_train_step: batch copied in, one replay, loss copied out), {n / step_ms * 1e3:.0f} examples/s; "
+          f"eager {eager_ms:.4f} ms; kernels {kernel_ms:.4f} ms (eager profile), {busy:.4f} ms in the replay's "
+          f"profile ({share:.1%} busy, {per_step} launches); on {card}")
+    del captured
 
 
 def one_step_check(engine, state, batch, gen: torch.Generator, rows_scale: float = 10.0, dim: int = DIM):
@@ -1282,7 +1429,7 @@ def training3_phase(engine3, schema, card: str, gen: torch.Generator) -> dict[st
     read just after)."""
     from recmodels_tpu_torch.data import SyntheticSource
     from recmodels_tpu_torch.embedding.gather import gather_rows
-    from recmodels_tpu_torch.embedding.update import sorted_adam_update
+    from recmodels_tpu_torch.embedding.update import adam_scalars, sorted_adam_update
     from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
         cin_layer_backward, cin_layer_forward, transpose_minor2,
     )
@@ -1357,7 +1504,8 @@ def training3_phase(engine3, schema, card: str, gen: torch.Generator) -> dict[st
         for k, name in ((1, "m"), (2, "v")):
             errs[f"{coll_name}/{name}"] = check_step(f"{coll_name} table's {name}, touched rows",
                                                      gpu[k][touched], cpu[k][touched], old[k][touched])
-        want = adam_step_of(old[0][touched], gpu[1][touched], gpu[2][touched], engine3.emb_lr, before.step)
+        scalars = adam_scalars(torch.tensor(engine3.emb_lr, device=dev), before.step.to(dev), 0.9, 0.999)
+        want = adam_step_of(old[0][touched], gpu[1][touched], gpu[2][touched], scalars)
         check(torch.equal(gpu[0][touched], want),
               f"{coll_name} table moved by the Adam step of its moments, bit for bit")
         check(all(torch.equal(a[~touched], o[~touched]) and torch.equal(c[~touched], o[~touched])
@@ -1374,11 +1522,13 @@ def training3_phase(engine3, schema, card: str, gen: torch.Generator) -> dict[st
     print(f"Engine.train_step (slice 3) at {BATCH}: {step_ms:.4f} ms per step (CUDA events, 10 "
           f"back-to-back steps), {BATCH / step_ms * 1e3:.0f} examples/s on {card}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    busy, share = profile(lambda: engine3.train_step(state, dense, ids, labels), top=24)
+    busy, share, per_step = profile(lambda: engine3.train_step(state, dense, ids, labels), top=24)
     print(f"Engine.train_step (slice 3) at {BATCH}: {busy:.4f} ms of kernel time per step (profiler), "
           f"{BATCH / busy * 1e3:.0f} examples/s if the host kept the card busy, on {card}")
     print(f"slice-3 step: events {step_ms:.4f} ms, kernels {busy:.4f} ms, device busy {share:.1%} of the "
-          f"profiled window, on {card}")
+          f"profiled window, {per_step} kernel launches a step (one sort for both tables' ids), on {card}")
+    del state
+    captured_phase("slice 3", engine3, batches, card, step_ms, busy)
     return launches
 
 
@@ -1458,11 +1608,12 @@ def adam_dense_check(engine3, ids, card: str, gen: torch.Generator) -> None:
     mom = torch.randn(shape, generator=gen, device=dev) * 1e-3
     start = [torch.randn(shape, generator=gen, device=dev) * 0.05, mom, mom * mom * 10.0 + 1e-10]
     grads = (torch.randn((gids.numel(), DIM), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
-    step, lr = 30, 1e-2
+    step, lr = torch.tensor(30, dtype=torch.int32), torch.tensor(1e-2)
 
     def run(device):
         t, m, v = (x.to(device, copy=True) for x in start)
-        apply_updates(opt, t, {"m": m, "v": v}, gids.to(device), grads.to(device), step, lr)
+        apply_updates(opt, t, {"m": m, "v": v}, gids.to(device), grads.to(device), step.to(device),
+                      lr.to(device))
         return t, m, v
 
     runs = [run(dev), run(dev)]
@@ -1481,6 +1632,7 @@ def adam_dense_check(engine3, ids, card: str, gen: torch.Generator) -> None:
         check(not torch.equal(got[untouched], old[untouched]), f"adam_dense {name}: untouched rows move")
         print(f"adam_dense {name}: max err {err:.6g} against a largest change of {change:.6g}")
     t, m, v = runs[0]
+    step, lr = step.to(dev), lr.to(dev)
     ms = time_ms(lambda: apply_updates(opt, t, {"m": m, "v": v}, gids, grads, step, lr), iters=10)
     print(f"adam_dense update of the 2,600,960 x 16 table from {gids.numel()} ids: {ms:.4f} ms on {card} "
           f"(index_put_ accumulate: two runs bit-identical)")

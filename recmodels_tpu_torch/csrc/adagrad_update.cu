@@ -12,6 +12,7 @@
 //   g      = sum of the id's grads, in f32, in stream order (from 0)
 //   acc[k] = acc[k] + g*g
 //   w[k]   = w[k] - lr*g / (sqrt(acc[k]) + eps)
+// with lr read from device memory (as the TPU kernel reads it from SMEM).
 // Rows not in the stream are not touched (bit-identical); ids < 0 or >= R
 // (sentinels) are skipped; bf16 grads widen exactly to f32. Every operation
 // is an explicitly rounded IEEE intrinsic, so nvcc contracts nothing into an
@@ -44,8 +45,10 @@
 namespace {
 
 struct AdagradStep {
-  static constexpr int kArrays = 2;  // table, acc
+  static constexpr int kArrays = 2;   // table, acc
+  static constexpr int kScalars = 1;  // lr, from device memory
   float lr, eps;
+  __device__ __forceinline__ void bind(const float* s) { lr = s[0]; }
   // s: one column of the table and of acc
   __device__ __forceinline__ void apply(float g, float (&s)[kArrays]) const {
     const float a = __fadd_rn(s[1], __fmul_rn(g, g));
@@ -57,11 +60,12 @@ struct AdagradStep {
 }  // namespace
 
 // table, acc [rows, d] f32 (d = 1 for a dim-1 table), ids [n] i32 ascending,
-// grads [n, d] (bf16 when grads_bf16, else f32) in the ids' order.
+// grads [n, d] (bf16 when grads_bf16, else f32) in the ids' order; lr one f32
+// in device memory (pallas_update.py reads it from SMEM).
 extern "C" int rm_adagrad_update(int device, void* table, void* acc,
                                  const void* ids, const void* grads,
                                  long long n, long long rows, int d,
-                                 int grads_bf16, float lr, float eps,
+                                 int grads_bf16, const void* lr, float eps,
                                  void* stream) {
   sorted_update::Args<AdagradStep> a{};
   a.state[0] = (float*)table;
@@ -71,6 +75,7 @@ extern "C" int rm_adagrad_update(int device, void* table, void* acc,
   a.n = n;
   a.rows = rows;
   a.d = d;
-  a.op = AdagradStep{lr, eps};
+  a.op = AdagradStep{0.f, eps};
+  a.scalars = (const float*)lr;
   return sorted_update::launch(a, grads_bf16, device, stream);
 }

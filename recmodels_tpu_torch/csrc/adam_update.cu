@@ -12,8 +12,9 @@
 //   m[k] = b1*m[k] + (1-b1)*g
 //   v[k] = b2*v[k] + (1-b2)*g*g
 //   w[k] = w[k] + (-lr*(m[k]/bc1)) / (sqrt(v[k]/bc2) + eps)
-// where bc1 = 1 - b1^t and bc2 = 1 - b2^t come from the caller, computed once
-// per call from the global step. A row is touched when its id is in the
+// where lr, bc1 = 1 - b1^t and bc2 = 1 - b2^t are read from device memory,
+// computed on the card from the global step tensor, as the TPU kernel reads
+// its [lr, 1-b1^t, 1-b2^t, 0] block. A row is touched when its id is in the
 // stream, whatever its grads sum to: an id whose grads sum to 0 still decays
 // its moments (lazy Adam's membership rule). Rows not in the stream keep
 // their bits; ids < 0 or >= R (sentinels) are skipped; bf16 grads widen
@@ -42,8 +43,10 @@
 namespace {
 
 struct AdamStep {
-  static constexpr int kArrays = 3;  // table, m, v
+  static constexpr int kArrays = 3;   // table, m, v
+  static constexpr int kScalars = 3;  // lr, bc1, bc2, from device memory
   float lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2, eps;
+  __device__ __forceinline__ void bind(const float* s) { lr = s[0], bc1 = s[1], bc2 = s[2]; }
   // s: one column of the table, m and v
   __device__ __forceinline__ void apply(float g, float (&s)[kArrays]) const {
     const float mn = __fadd_rn(__fmul_rn(b1, s[1]), __fmul_rn(one_minus_b1, g));
@@ -59,15 +62,17 @@ struct AdamStep {
 }  // namespace
 
 // table, m, v [rows, d] f32 (d = 1 for a dim-1 table), ids [n] i32 ascending,
-// grads [n, d] (bf16 when grads_bf16, else f32) in the ids' order. The
-// constants arrive as f32: one_minus_b1 = f32(1 - b1) rounded from the
-// double, as JAX rounds its Python constants.
+// grads [n, d] (bf16 when grads_bf16, else f32) in the ids' order;
+// scalars the f32 block [lr, bc1, bc2] in device memory, computed on the
+// card from the step tensor (pallas_update.py's [lr, 1-b1^t, 1-b2^t, 0]).
+// The optimizer's constants arrive by value as f32: one_minus_b1 = f32(1 -
+// b1) rounded from the double, as JAX rounds its Python constants.
 extern "C" int rm_adam_update(int device, void* table, void* m, void* v,
                               const void* ids, const void* grads, long long n,
-                              long long rows, int d, int grads_bf16, float lr,
-                              float bc1, float bc2, float b1,
-                              float one_minus_b1, float b2, float one_minus_b2,
-                              float eps, void* stream) {
+                              long long rows, int d, int grads_bf16,
+                              const void* scalars, float b1, float one_minus_b1,
+                              float b2, float one_minus_b2, float eps,
+                              void* stream) {
   sorted_update::Args<AdamStep> a{};
   a.state[0] = (float*)table;
   a.state[1] = (float*)m;
@@ -77,6 +82,7 @@ extern "C" int rm_adam_update(int device, void* table, void* m, void* v,
   a.n = n;
   a.rows = rows;
   a.d = d;
-  a.op = AdamStep{lr, bc1, bc2, b1, one_minus_b1, b2, one_minus_b2, eps};
+  a.op = AdamStep{0.f, 0.f, 0.f, b1, one_minus_b1, b2, one_minus_b2, eps};
+  a.scalars = (const float*)scalars;
   return sorted_update::launch(a, grads_bf16, device, stream);
 }

@@ -7,6 +7,10 @@
 // The stream is ids [n] (int32, ascending; ids < 0 or >= R are sentinels and
 // are skipped) and grads [n, d] (bf16 or f32) in the same order; the state is
 // Op::kArrays row-major [R, d] f32 arrays, the table first, updated in place.
+// The values that change from step to step (lr, the bias corrections) are
+// Op::kScalars f32 values in device memory, as the TPU kernels read them from
+// a scalar operand: a CUDA graph of a training step then replays the values
+// the step computed, not those of the step it was captured on.
 // For each distinct kept id the grads of its run are summed in f32 in stream
 // order from 0, and Op::apply updates each column of its rows once.
 //
@@ -23,7 +27,9 @@
 //
 // Per tile:
 // 1. The group reads the ids of positions [base - 1, base + 64) into shared
-//    memory in one coalesced pass.
+//    memory in one coalesced pass; the block's first threads read the
+//    Op::kScalars values of the step (lr; Adam's bias corrections) once, and
+//    Op::bind takes them after the barrier.
 // 2. Its first warp finds the run starts by a ballot of id != previous id
 //    and gives each run its rank in a compacted list (id, start, end) by a
 //    popc prefix. A run ends at the next start, or for the tile's last run
@@ -71,7 +77,8 @@ struct Args {
   const void* grads;
   long long n, rows;
   int d;
-  Op op;
+  Op op;                      // its by-value constants
+  const float* scalars;       // Op::kScalars f32 values in device memory
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -118,14 +125,19 @@ __global__ void __launch_bounds__(kBlock) sorted_update_kernel(const Args<Op> a,
     else __syncthreads();
   };
 
-  // 1. the ids of [base - 1, base + 64)
+  // 1. the step's scalars (once a block, from device memory, so a CUDA graph
+  // replays the values of its step) and the ids of [base - 1, base + 64)
+  __shared__ float scalars[Op::kScalars];
+  if (threadIdx.x < Op::kScalars) scalars[threadIdx.x] = a.scalars[threadIdx.x];
   if (live) {
     for (int l = tid; l < kIds; l += group) {
       const long long p = base - 1 + l;
       sid[slot][l] = p >= 0 && p < a.n ? a.ids[p] : 0;
     }
   }
-  sync();
+  __syncthreads();
+  Op op = a.op;
+  op.bind(scalars);
 
   // 2. the tile's runs, by its group's first warp
   if (live && tid < 32) {
@@ -207,7 +219,7 @@ __global__ void __launch_bounds__(kBlock) sorted_update_kernel(const Args<Op> a,
         float y[kArrays];
 #pragma unroll
         for (int q = 0; q < kArrays; ++q) y[q] = x[k][q][v];
-        a.op.apply(g[v], y);
+        op.apply(g[v], y);
 #pragma unroll
         for (int q = 0; q < kArrays; ++q) x[k][q][v] = y[q];
       }

@@ -13,6 +13,11 @@ order and updates the table and its state in place.
 * ``"adam"``: lazy Adam. The moments of touched rows (ids in the stream,
   whatever their grads sum to) decay and update; untouched rows keep their
   bits. The bias corrections use the global step, as in the JAX package.
+
+The global step is a 0-d int32 tensor and the learning rate a 0-d f32
+tensor, both on the table's device: the bias corrections are computed there
+(``update.bias_corrections``) and the kernels read lr and them from device
+memory, so a CUDA graph of the training step replays each step's values.
 * ``"adam_dense"``: dense Adam over the whole table, the JAX package's
   dense route: a dense f32 grad of the table's shape, then Adam on every
   row, so untouched rows decay too. The JAX package runs it in XLA with no
@@ -28,7 +33,9 @@ from typing import Callable, Dict
 
 import torch
 
-from recmodels_tpu_torch.embedding.update import bias_correction, sorted_adagrad_update, sorted_adam_update
+from recmodels_tpu_torch.embedding.update import (
+    adam_scalars, bias_corrections, device_constant, sorted_adagrad_update, sorted_adam_update,
+)
 
 
 def slot_sorted_ids(ids_2d: torch.Tensor):
@@ -93,7 +100,8 @@ class SparseOptimizer:
     hyper: Dict[str, float]
 
 
-def _adam_dense_update(table, state, ids_flat, grads_flat, step: int, lr: float, h) -> None:
+def _adam_dense_update(table, state, ids_flat, grads_flat, step: torch.Tensor, lr: torch.Tensor,
+                       h) -> None:
     """Dense Adam over the full table, in place, in the JAX package's order
     of operations (``optim.dense_adam``)."""
     b1, b2, eps = h["b1"], h["b2"], h["eps"]
@@ -102,30 +110,39 @@ def _adam_dense_update(table, state, ids_flat, grads_flat, step: int, lr: float,
     m, v = state["m"], state["v"]
     m.copy_(b1 * m + (1.0 - b1) * g)
     v.copy_(b2 * v + (1.0 - b2) * g * g)
-    m_hat = m / bias_correction(b1, step + 1)
-    v_hat = v / bias_correction(b2, step + 1)
+    bc1, bc2 = bias_corrections(device_constant((b1, b2), step.device), step + 1).unbind()
+    m_hat = m / bc1
+    v_hat = v / bc2
     table.sub_(lr * m_hat / (torch.sqrt(v_hat) + eps))
 
 
-def apply_updates(opt: SparseOptimizer, table, state, ids_2d, grads_flat, step: int, lr: float):
+def needs_sort(opt: SparseOptimizer) -> bool:
+    """Whether ``apply_updates`` runs ``opt`` on the sorted id stream."""
+    return opt.name != "adam_dense"
+
+
+def apply_updates(opt: SparseOptimizer, table, state, ids_2d, grads_flat, step: torch.Tensor,
+                  lr: torch.Tensor, sorted_stream=None):
     """One group's update, in place on ``table`` and ``state``; returns both.
 
     ``ids_2d``: the [B, n_g] global row ids; ``grads_flat``: their grad rows
     in b-major order, [B*n_g, dim] ([B*n_g] for a dim-1 table); ``step``:
-    the global step before this update (Adam's bias corrections use
-    t = step + 1). Adagrad and lazy Adam take the per-slot sort, the grad
-    permute and the sorted-stream update (the CUDA kernels on the card);
-    dense Adam takes the dense route."""
+    the global step before this update, a 0-d int32 tensor (Adam's bias
+    corrections use t = step + 1); ``lr``: a 0-d f32 tensor; both on the
+    table's device. Adagrad and lazy Adam take the per-slot sort
+    (``sorted_stream``: ``slot_sorted_ids(ids_2d)``, when the caller has
+    it already for another group of the same ids), the grad permute and the
+    sorted-stream update (the CUDA kernels on the card); dense Adam takes
+    the dense route."""
     h = opt.hyper
-    if opt.name == "adam_dense":
+    if not needs_sort(opt):
         _adam_dense_update(table, state, ids_2d.reshape(-1), grads_flat, step, lr, h)
         return table, state
-    sorted_ids, order, _ = slot_sorted_ids(ids_2d)
+    sorted_ids, order, _ = slot_sorted_ids(ids_2d) if sorted_stream is None else sorted_stream
     grads_sorted = torch.index_select(grads_flat, 0, order.long())
     if opt.name == "adam":
-        sorted_adam_update(table, state["m"], state["v"], sorted_ids, grads_sorted, lr,
-                           bias_correction(h["b1"], step + 1), bias_correction(h["b2"], step + 1),
-                           h["b1"], h["b2"], h["eps"])
+        sorted_adam_update(table, state["m"], state["v"], sorted_ids, grads_sorted,
+                           adam_scalars(lr, step, h["b1"], h["b2"]), h["b1"], h["b2"], h["eps"])
     else:
         sorted_adagrad_update(table, state["acc"], sorted_ids, grads_sorted, lr, h["eps"])
     return table, state

@@ -19,6 +19,13 @@ summed in f32 in stream order into g, then
   A row is touched when its id is in the stream, so an id whose grads sum to
   0 still decays its moments.
 
+The values that change from step to step come as f32 tensors on the table's
+device, as the TPU kernels read them from a scalar operand: Adagrad's lr (one
+value) and lazy Adam's block ``[lr, bc1, bc2]`` (``adam_scalars``, computed
+there from the step tensor). The kernels read them from device memory and the
+plain versions with tensor ops, so a CUDA graph of a step replays the values
+of the step it runs. The optimizer's constants (eps; b1, b2) stay by value.
+
 Rows not in the stream are not touched; ids >= R (sentinels) are skipped;
 bf16 grads widen exactly to f32. The kernels round every operation as the
 CPU does (no FMA; the constants are the same f32 values), so kernel and
@@ -31,6 +38,8 @@ order, past its 32 positions where the run goes on.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -61,10 +70,17 @@ def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def _require_scalars(what: str, t: torch.Tensor, n: int, device: torch.device) -> None:
+    """Raise unless ``t`` holds ``n`` contiguous f32 values on ``device``."""
+    if t.device != device or t.dtype != torch.float32 or t.numel() != n or not t.is_contiguous():
+        raise ValueError(f"{what}: {n} contiguous f32 values on {device} expected, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def sorted_adagrad_update_reference(table: torch.Tensor, acc: torch.Tensor,
                                     sorted_ids: torch.Tensor, grads_sorted: torch.Tensor,
-                                    lr: float, eps: float) -> None:
-    """Plain version, in place."""
+                                    lr: torch.Tensor, eps: float) -> None:
+    """Plain version, in place; ``lr`` a 0-d f32 tensor."""
     uids, gsum = _run_sums(table, sorted_ids, grads_sorted)
     a = acc[uids] + gsum * gsum
     acc[uids] = a
@@ -72,10 +88,11 @@ def sorted_adagrad_update_reference(table: torch.Tensor, acc: torch.Tensor,
 
 
 def sorted_adagrad_update(table: torch.Tensor, acc: torch.Tensor, sorted_ids: torch.Tensor,
-                          grads_sorted: torch.Tensor, lr: float, eps: float) -> None:
+                          grads_sorted: torch.Tensor, lr: torch.Tensor, eps: float) -> None:
     """Update ``table`` and ``acc`` ([R, d] or [R] f32) in place from int32
     ``sorted_ids`` [N] (ascending, duplicates and sentinels >= R allowed)
-    and ``grads_sorted`` ([N, d] or [N], bf16 or f32) in the same order.
+    and ``grads_sorted`` ([N, d] or [N], bf16 or f32) in the same order,
+    at the learning rate ``lr``, a 0-d f32 tensor on the table's device.
 
     A CPU table takes the plain version; a CUDA table launches the kernel
     (or raises on what the kernel does not take)."""
@@ -91,6 +108,7 @@ def sorted_adagrad_update(table: torch.Tensor, acc: torch.Tensor, sorted_ids: to
     require("sorted_adagrad_update ids", sorted_ids, (torch.int32,), 1, dev_t, align=4)
     require("sorted_adagrad_update grads", grads_sorted, GRAD_DTYPES, nd, dev_t,
             align=grads_sorted.element_size())
+    _require_scalars("sorted_adagrad_update lr", lr, 1, dev_t)
     d = 1 if nd == 1 else table.shape[1]
     n = sorted_ids.shape[0]
     if acc.shape != table.shape or grads_sorted.shape != (n, *table.shape[1:]):
@@ -101,7 +119,7 @@ def sorted_adagrad_update(table: torch.Tensor, acc: torch.Tensor, sorted_ids: to
     dev, stream = device_and_stream(dev_t)
     err = build.library().rm_adagrad_update(
         dev, table.data_ptr(), acc.data_ptr(), sorted_ids.data_ptr(), grads_sorted.data_ptr(),
-        n, table.shape[0], d, int(grads_sorted.dtype == torch.bfloat16), lr, eps, stream,
+        n, table.shape[0], d, int(grads_sorted.dtype == torch.bfloat16), lr.data_ptr(), eps, stream,
     )
     build.check(err, "sorted_adagrad_update")
     sorted_adagrad_update.launches += 1
@@ -110,10 +128,30 @@ def sorted_adagrad_update(table: torch.Tensor, acc: torch.Tensor, sorted_ids: to
 sorted_adagrad_update.launches = 0  # kernel launches since the count was last set to 0
 
 
-def bias_correction(decay: float, count: int) -> float:
-    """1 - decay^count in f32 (optax's ``1 - decay**count`` and the JAX
-    package's lazy Adam, both on an f32 decay and count)."""
-    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+@functools.lru_cache(maxsize=None)
+def device_constant(values, device: torch.device) -> torch.Tensor:
+    """``values`` (a float, or a tuple of them) as f32 on ``device``, made
+    once a device and never written: the constants a step reads from device
+    memory (the sparse lr, Adam's decays). The first, eager step makes them,
+    outside any CUDA graph capture."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def bias_corrections(decays: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """``1 - decays**count`` in f32 on the tensors' device, from an integer
+    ``count`` tensor: optax's ``1 - decay**count`` and the JAX package's lazy
+    Adam (``1 - b1**t``), both on f32 decays and an f32 count. Read from the
+    count where it lies, so a CUDA graph replays its own step's values."""
+    return 1.0 - torch.pow(decays, count)
+
+
+def adam_scalars(lr: torch.Tensor, step: torch.Tensor, b1: float, b2: float) -> torch.Tensor:
+    """Lazy Adam's f32 block ``[lr, bc1, bc2]`` on the step tensor's device:
+    bc = 1 - b^t at t = step + 1 (``step``: the 0-d int32 global step before
+    the update; ``lr``: a 0-d f32 tensor), as ``pallas_update.py`` builds
+    its ``[lr, 1-b1^t, 1-b2^t, 0]`` operand."""
+    decays = device_constant((b1, b2), step.device)
+    return torch.cat((lr.reshape(1), bias_corrections(decays, step + 1)))
 
 
 def _f32(x: float) -> float:
@@ -121,41 +159,43 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def adam_constants(lr: float, bc1: float, bc2: float, b1: float, b2: float, eps: float) -> dict:
-    """The f32 constants both lazy-Adam versions use: each value rounded to
-    f32 once, with ``1 - b`` computed in double first, as JAX rounds the
-    Python constants of ``optim.sparse_adam``."""
-    return dict(lr=_f32(lr), bc1=_f32(bc1), bc2=_f32(bc2), b1=_f32(b1), one_minus_b1=_f32(1.0 - b1),
-                b2=_f32(b2), one_minus_b2=_f32(1.0 - b2), eps=_f32(eps))
+def adam_constants(b1: float, b2: float, eps: float) -> dict:
+    """The by-value f32 constants both lazy-Adam versions use: each value
+    rounded to f32 once, with ``1 - b`` computed in double first, as JAX
+    rounds the Python constants of ``optim.sparse_adam``."""
+    return dict(b1=_f32(b1), one_minus_b1=_f32(1.0 - b1), b2=_f32(b2), one_minus_b2=_f32(1.0 - b2),
+                eps=_f32(eps))
 
 
 def sorted_adam_update_reference(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                                 sorted_ids: torch.Tensor, grads_sorted: torch.Tensor, lr: float,
-                                 bc1: float, bc2: float, b1: float, b2: float, eps: float) -> None:
+                                 sorted_ids: torch.Tensor, grads_sorted: torch.Tensor,
+                                 scalars: torch.Tensor, b1: float, b2: float, eps: float) -> None:
     """Plain version of lazy Adam, in place, in the kernel's order of
-    operations."""
-    c = adam_constants(lr, bc1, bc2, b1, b2, eps)
+    operations; ``scalars`` the f32 block [lr, bc1, bc2]."""
+    c = adam_constants(b1, b2, eps)
+    lr, bc1, bc2 = scalars.unbind()
     uids, gsum = _run_sums(table, sorted_ids, grads_sorted)
     mn = c["b1"] * m[uids] + c["one_minus_b1"] * gsum
     vn = c["b2"] * v[uids] + c["one_minus_b2"] * gsum * gsum
     m[uids] = mn
     v[uids] = vn
-    num = -c["lr"] * (mn / c["bc1"])
-    table[uids] = table[uids] + num / (_sqrt_f32(vn / c["bc2"]) + c["eps"])
+    num = -lr * (mn / bc1)
+    table[uids] = table[uids] + num / (_sqrt_f32(vn / bc2) + c["eps"])
 
 
 def sorted_adam_update(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
-                       sorted_ids: torch.Tensor, grads_sorted: torch.Tensor, lr: float,
-                       bc1: float, bc2: float, b1: float, b2: float, eps: float) -> None:
+                       sorted_ids: torch.Tensor, grads_sorted: torch.Tensor,
+                       scalars: torch.Tensor, b1: float, b2: float, eps: float) -> None:
     """Lazy Adam: update ``table``, ``m`` and ``v`` ([R, d] or [R] f32) in
     place from int32 ``sorted_ids`` [N] (ascending, duplicates and sentinels
     >= R allowed) and ``grads_sorted`` ([N, d] or [N], bf16 or f32) in the
-    same order; ``bc1``/``bc2`` are the bias corrections of this step.
+    same order; ``scalars`` is this step's f32 block [lr, bc1, bc2] on the
+    table's device (``adam_scalars``).
 
     A CPU table takes the plain version; a CUDA table launches the kernel
     (or raises on what the kernel does not take)."""
     if table.device.type == "cpu":
-        sorted_adam_update_reference(table, m, v, sorted_ids, grads_sorted, lr, bc1, bc2, b1, b2, eps)
+        sorted_adam_update_reference(table, m, v, sorted_ids, grads_sorted, scalars, b1, b2, eps)
         return
     dev_t = cuda_device(table, "sorted_adam_update")
     nd = table.dim()
@@ -166,6 +206,7 @@ def sorted_adam_update(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     require("sorted_adam_update ids", sorted_ids, (torch.int32,), 1, dev_t, align=4)
     require("sorted_adam_update grads", grads_sorted, GRAD_DTYPES, nd, dev_t,
             align=grads_sorted.element_size())
+    _require_scalars("sorted_adam_update scalars", scalars, 3, dev_t)
     n = sorted_ids.shape[0]
     if (m.shape != table.shape or v.shape != table.shape
             or grads_sorted.shape != (n, *table.shape[1:])):
@@ -173,12 +214,12 @@ def sorted_adam_update(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
             f"sorted_adam_update: table {tuple(table.shape)}, m {tuple(m.shape)}, v {tuple(v.shape)}, "
             f"ids {tuple(sorted_ids.shape)} and grads {tuple(grads_sorted.shape)} do not fit together"
         )
-    c = adam_constants(lr, bc1, bc2, b1, b2, eps)
+    c = adam_constants(b1, b2, eps)
     dev, stream = device_and_stream(dev_t)
     err = build.library().rm_adam_update(
         dev, table.data_ptr(), m.data_ptr(), v.data_ptr(), sorted_ids.data_ptr(),
         grads_sorted.data_ptr(), n, table.shape[0], 1 if nd == 1 else table.shape[1],
-        int(grads_sorted.dtype == torch.bfloat16), c["lr"], c["bc1"], c["bc2"], c["b1"],
+        int(grads_sorted.dtype == torch.bfloat16), scalars.data_ptr(), c["b1"],
         c["one_minus_b1"], c["b2"], c["one_minus_b2"], c["eps"], stream,
     )
     build.check(err, "sorted_adam_update")

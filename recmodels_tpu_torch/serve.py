@@ -11,6 +11,10 @@ Usage:
     from recmodels_tpu_torch.serve import load_predictor
     pred = load_predictor(model_dir)              # on the GPU
     probs = pred.predict_proba(dense, ids)        # any batch size
+
+The Predictor pads each request to a power-of-two bucket from ``min_bucket``
+(256), as the JAX package's does; on the card each bucket's ``Engine.logits``
+is a CUDA graph, captured at the bucket's first request and replayed after.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from recmodels_tpu_torch.models import build_model
+from recmodels_tpu_torch.train.capture import capture, warm_up
 from recmodels_tpu_torch.train.engine import Engine, TrainState, resolve_device
 from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
 from recmodels_tpu_torch.utils.tree import leaves, unflatten
@@ -95,7 +100,8 @@ def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
             if t.shape != shape:
                 raise ValueError(f"artifact/model structure mismatch: {key} {t.shape}, expected {shape}")
             emb_params[name][g.name] = torch.tensor(t, device=device)
-    return TrainState(step=0, dense_params=dense_params, emb_params=emb_params)
+    return TrainState(step=torch.zeros((), dtype=torch.int32, device=device),
+                      dense_params=dense_params, emb_params=emb_params)
 
 
 def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.ndarray],
@@ -150,20 +156,81 @@ def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.nd
                 tensors[k] = torch.tensor(a, device=table.device)
             out[name][g.name] = tensors
     return state._replace(
-        step=int(step),
-        dense_opt={"count": int(count), "mu": moments[0], "nu": moments[1]},
+        step=torch.tensor(int(step), dtype=torch.int32, device=state.step.device),
+        dense_opt={"count": torch.tensor(int(count), dtype=torch.int32, device=state.step.device),
+                   "mu": moments[0], "nu": moments[1]},
         emb_opt=out,
     )
 
 
-class Predictor:
-    """Forward-only scorer: numpy in, numpy out, any batch size."""
+class _Bucket:
+    """One bucket's static inputs, its graph and the graph's logits."""
 
-    def __init__(self, engine: Engine, state: TrainState, device: torch.device):
+    def __init__(self, dense: torch.Tensor, ids: torch.Tensor):
+        self.dense, self.ids = dense, ids
+        self.graph = None
+        self.out = None
+
+
+class Predictor:
+    """Forward-only scorer: numpy in, numpy out, any batch size.
+
+    Each request is padded with zero rows to a power-of-two bucket from
+    ``min_bucket`` (the JAX package's buckets, so the number of shapes stays
+    logarithmic) and the padded rows are sliced off the output. On the card
+    each bucket's ``Engine.logits`` is captured as a CUDA graph at its first
+    request (after one eager run on a side stream) and replayed; the bucket
+    graphs share one memory pool, as they never run at once, and read the
+    tensors of the state they captured, so assigning another ``state``
+    drops them. On the CPU the padded request runs eagerly."""
+
+    def __init__(self, engine: Engine, state: TrainState, device: torch.device,
+                 min_bucket: int = 256):
         self.engine = engine
         self.state = state
         self.device = device
+        self.min_bucket = min_bucket
         self._vocab = np.asarray(engine.model.schema.vocab_sizes, np.uint32)
+        self._buckets: dict[int, _Bucket] = {}
+        self._graph_state = state  # the state the bucket graphs read
+        self._pool = None
+        self._stream = None
+
+    def _bucket(self, n: int) -> int:
+        b = self.min_bucket
+        while b < n:
+            b *= 2
+        return b
+
+    def _logits(self, dense: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self.engine.logits(self.state, dense, ids)
+
+    def _replay(self, dense: np.ndarray, ids: np.ndarray) -> torch.Tensor:
+        """The logits of one padded request from its bucket's graph (the
+        graph's static output: read it before the next request)."""
+        if self.state is not self._graph_state:
+            self._buckets.clear()
+            self._pool = None
+            self._graph_state = self.state
+        b = dense.shape[0]
+        bucket = self._buckets.get(b)
+        if bucket is None:
+            bucket = self._buckets[b] = _Bucket(
+                torch.empty(dense.shape, dtype=torch.float32, device=self.device),
+                torch.empty(ids.shape, dtype=torch.int32, device=self.device))
+        bucket.dense.copy_(torch.from_numpy(dense))
+        bucket.ids.copy_(torch.from_numpy(ids))
+        if bucket.graph is None:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            run = lambda: self._logits(bucket.dense, bucket.ids)  # noqa: E731
+            warm_up(run, self._stream)
+            with torch.inference_mode():
+                bucket.graph, bucket.out = capture(run, self._pool, self._stream)
+            self._pool = bucket.graph.pool()
+        bucket.graph.replay()
+        return bucket.out
 
     def predict_logits(self, dense, ids) -> np.ndarray:
         """Raises ``ValueError`` unless ``ids`` is [B, n_slots] with each id in
@@ -180,11 +247,18 @@ class Predictor:
             raise ValueError(
                 f"id {ids[b, s]} of example {b} is outside slot {s}'s vocab [0, {self._vocab[s]})"
             )
-        dense_t = torch.as_tensor(np.asarray(dense, np.float32)).to(self.device)
-        ids_t = torch.from_numpy(ids).to(self.device)
-        with torch.inference_mode():
-            out = self.engine.logits(self.state, dense_t, ids_t)
-        return out.cpu().numpy()
+        dense = np.asarray(dense, np.float32)
+        n = ids.shape[0]
+        pad = self._bucket(n) - n
+        if pad:
+            dense = np.concatenate([dense, np.zeros((pad,) + dense.shape[1:], dense.dtype)])
+            ids = np.concatenate([ids, np.zeros((pad,) + ids.shape[1:], ids.dtype)])
+        if self.device.type == "cuda":
+            out = self._replay(dense, ids)
+        else:
+            out = self._logits(torch.from_numpy(dense).to(self.device),
+                               torch.from_numpy(ids).to(self.device))
+        return out[:n].cpu().numpy()
 
     def predict_proba(self, dense, ids) -> np.ndarray:
         return 1.0 / (1.0 + np.exp(-self.predict_logits(dense, ids)))
@@ -192,11 +266,12 @@ class Predictor:
     __call__ = predict_proba
 
 
-def load_predictor(model_dir: str, device="cuda") -> Predictor:
+def load_predictor(model_dir: str, min_bucket: int = 256, device="cuda") -> Predictor:
     """Rebuild the model from an artifact (the JAX package's or this one's)
-    and return a scorer on ``device``; raises if ``device`` is CUDA and no
-    card is present, and ``ValueError`` when the artifact's ``treedef`` is
-    not the model's (as the JAX loader does)."""
+    and return a scorer on ``device`` with buckets from ``min_bucket``;
+    raises if ``device`` is CUDA and no card is present, and ``ValueError``
+    when the artifact's ``treedef`` is not the model's (as the JAX loader
+    does)."""
     device = resolve_device(device)
     with open(os.path.join(model_dir, "model.json")) as f:
         cfg = TrainConfig.from_json(f.read())
@@ -212,4 +287,4 @@ def load_predictor(model_dir: str, device="cuda") -> Predictor:
         leaves = [data[f"dense/{i}"] for i in range(n_dense)]
         tables: dict[str, Any] = {k: data[k] for k in data.files if k.startswith("emb/")}
     state = params_from_jax(engine, leaves, tables, device)
-    return Predictor(engine, state, device)
+    return Predictor(engine, state, device, min_bucket)

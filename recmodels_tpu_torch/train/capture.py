@@ -1,0 +1,131 @@
+"""CUDA graphs of the training step and of the scorer: the port's counterpart
+of ``jax.jit`` over ``Engine.train_step`` and ``Engine.logits``.
+
+A step launches a hundred and more kernels, and the host's time to launch
+them exceeds the card's time to run them; a graph replays them all at one
+host call. What a replay needs from the code it replays:
+
+* every tensor it reads or writes keeps its address: the state is updated in
+  place (the step and Adam's count are device tensors, advanced in place),
+  the batch is copied into static input buffers before each replay, and the
+  outputs are static tensors that the next replay overwrites, so callers get
+  copies;
+* every value that changes between steps is read from device memory: lr and
+  the bias corrections (``embedding/update.py``); the kernels' routes, tensor
+  maps and scratch are fixed by shapes and addresses, which do not change.
+
+A graph is captured for one batch shape and one state (its tensors'
+addresses): a new shape gets a graph of its own, as JAX retraces, and a call
+with another state drops the graphs and captures again, so no replay writes
+into the tensors of a state other than the one it was given. A capture that
+fails raises; nothing falls back to eager steps on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from recmodels_tpu_torch.utils.tree import leaves
+
+
+def warm_up(fn: Callable, stream: torch.cuda.Stream):
+    """Run ``fn`` eagerly on ``stream``, ordered after the current stream's
+    work and before its later work: what a capture on ``stream`` needs run
+    once first (cuBLAS handles, the kernel library, cached constants)."""
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        out = fn()
+    current.wait_stream(stream)
+    return out
+
+
+def capture(fn: Callable, pool, stream: torch.cuda.Stream):
+    """(graph, ``fn``'s static outputs): ``fn`` captured on ``stream`` into a
+    CUDA graph whose memory comes from ``pool`` (None: a new pool). The
+    capture executes nothing; ``graph.replay()`` runs it on the current
+    stream."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        out = fn()
+    return graph, out
+
+
+def state_key(state) -> tuple:
+    """The address, shape and dtype of every tensor of ``state``: a graph
+    captured on one state replays only into a state with the same key."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in leaves(state)
+                 if isinstance(t, torch.Tensor))
+
+
+class _Shape:
+    """One batch shape's static input buffers and, on the card, its graph."""
+
+    def __init__(self, batch, device: torch.device):
+        self.inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=device) for t in batch)
+        self.warm = False
+        self.graph = None
+        self.loss = None  # the graph's static output
+
+
+class CapturedStep:
+    """``Engine.jit_train_step``'s callable: ``(state, dense, ids, labels) ->
+    (state, {'loss', 'overflow'})``, as ``Engine.train_step``.
+
+    On a CUDA state, for each batch shape: the first call copies the batch
+    into static buffers and runs the step eagerly on a side stream (a real
+    step of the sequence); the second copies it in, captures the step
+    (which executes nothing) and replays it once; later calls copy in and
+    replay. On a CPU state every call copies into the same buffers and runs
+    ``train_step`` on them. The loss handed back is a copy: the static
+    output changes at the next replay."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self._state = None  # state_key of the state the graphs write into
+        self._shapes: dict[tuple, _Shape] = {}
+        self._pool = None  # one memory pool for every shape's graph
+        self._stream = None
+
+    def __call__(self, state, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor):
+        loss = self.step(state, (dense, ids, labels))
+        return state, {"loss": loss.clone(), "overflow": 0}
+
+    @property
+    def graphs(self) -> int:
+        """How many graphs are captured (one per batch shape)."""
+        return sum(s.graph is not None for s in self._shapes.values())
+
+    def step(self, state, batch) -> torch.Tensor:
+        """One step of ``state`` on ``batch`` (dense, ids, labels); returns
+        the loss, on the card the graph's static output: copy it before the
+        next call."""
+        key = state_key(state)
+        if key != self._state:  # another state: its own buffers and graphs
+            self._shapes.clear()
+            self._pool = None
+            self._state = key
+        device = state.step.device
+        sig = tuple((tuple(t.shape), t.dtype) for t in batch)
+        shape = self._shapes.get(sig)
+        if shape is None:
+            shape = self._shapes[sig] = _Shape(batch, device)
+        for buf, t in zip(shape.inputs, batch):
+            buf.copy_(t)
+        run = lambda: self.engine.train_step(state, *shape.inputs)[1]["loss"]  # noqa: E731
+        if device.type != "cuda":
+            return run()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        if not shape.warm:
+            loss = warm_up(run, self._stream)
+            loss.record_stream(torch.cuda.current_stream(device))
+            shape.warm = True
+            return loss
+        if shape.graph is None:
+            shape.graph, shape.loss = capture(run, self._pool, self._stream)
+            self._pool = shape.graph.pool()
+        shape.graph.replay()
+        return shape.loss

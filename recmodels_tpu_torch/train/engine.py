@@ -10,10 +10,13 @@ sparse optimizer applies the row grads to the touched rows only (dense Adam:
 to every row).
 
 State is updated in place: ``train_step`` changes the tensors of the state
-it is given (the table and its accumulator alone are 354 MB at full width)
-and returns that state with its step advanced, as the JAX engine donates
-its state. Gradient accumulation, in-graph data generation, evaluation,
-schedules, weight decay and the sharded tables come with later slices.
+it is given (the table and its accumulator alone are 354 MB at full width),
+its 0-d int32 ``step`` included, and returns that state, as the JAX engine
+donates its state. ``jit_train_step`` and ``jit_train_scan``, named after
+their JAX counterparts, run the same step as one CUDA graph per batch shape
+(``train/capture.py``). Gradient accumulation, in-graph data generation,
+evaluation, schedules, weight decay and the sharded tables come with later
+slices.
 """
 
 from __future__ import annotations
@@ -27,8 +30,12 @@ import torch.nn.functional as F
 from recmodels_tpu_torch.data.schema import Schema
 from recmodels_tpu_torch.embedding.collection import EmbeddingCollection
 from recmodels_tpu_torch.embedding.gather import gather_rows
-from recmodels_tpu_torch.embedding.optim import SparseOptimizer, apply_updates, get_sparse_optimizer
+from recmodels_tpu_torch.embedding.optim import (
+    SparseOptimizer, apply_updates, get_sparse_optimizer, needs_sort, slot_sorted_ids,
+)
+from recmodels_tpu_torch.embedding.update import device_constant
 from recmodels_tpu_torch.models.base import CTRModel
+from recmodels_tpu_torch.train.capture import CapturedStep
 from recmodels_tpu_torch.train.optim import get_dense_optimizer
 from recmodels_tpu_torch.utils import tree
 
@@ -48,7 +55,7 @@ class TrainState(NamedTuple):
     """Parameters and optimizer states of a model on one device. A serving
     state leaves ``dense_opt`` and ``emb_opt`` None."""
 
-    step: int
+    step: torch.Tensor  # 0-d int32 on the state's device, advanced in place
     dense_params: Any
     emb_params: Dict[str, Dict[str, torch.Tensor]]  # {collection: {group: table}}
     dense_opt: Any = None  # the dense optimizer's state (train/optim.py)
@@ -93,15 +100,25 @@ class LocalTables:
     def apply_grads(self, emb_params, emb_opt, gids, grad_rows, step, lr):
         """Apply the row grads {coll: {group: [B, n_g, dim]}} to the tables
         and their optimizer states, in place; returns both. ``step`` is the
-        global step before this update (Adam's bias corrections)."""
+        global step before this update (Adam's bias corrections), a 0-d
+        int32 tensor, and ``lr`` a 0-d f32 tensor, on the tables' device.
+        Groups that share one ids tensor (``Engine._group_ids``) share its
+        sort, as JAX's CSE shares it."""
+        sorts = []  # (ids tensor, its slot_sorted_ids)
         for name, coll in self.collections.items():
             for g in coll.groups:
                 ids_2d = gids[name][g.name]
+                stream = None
+                if needs_sort(self.sparse_opt):
+                    stream = next((st for t, st in sorts if t is ids_2d), None)
+                    if stream is None:
+                        stream = slot_sorted_ids(ids_2d)
+                        sorts.append((ids_2d, stream))
                 gr = grad_rows[name][g.name]
                 # dim-1 tables are 1-D [rows]; their grads flatten to [N]
                 gr_flat = gr.reshape(-1) if g.dim == 1 else gr.reshape(-1, g.dim)
                 apply_updates(self.sparse_opt, emb_params[name][g.name], emb_opt[name][g.name],
-                              ids_2d, gr_flat, step, lr)
+                              ids_2d, gr_flat, step, lr, stream)
         return emb_params, emb_opt
 
 
@@ -164,7 +181,8 @@ class Engine:
             for t in emb_params["emb"].values():
                 t[:, -1] = 0.0  # the fused wide column starts at zero
         return TrainState(
-            step=0, dense_params=dense_params, emb_params=emb_params,
+            step=torch.zeros((), dtype=torch.int32, device=device),
+            dense_params=dense_params, emb_params=emb_params,
             dense_opt=self.dense_tx.init(list(tree.leaves(dense_params))),
             emb_opt=self.tables.init_opt(emb_params),
         )
@@ -212,9 +230,9 @@ class Engine:
                    labels: torch.Tensor):
         """One optimizer step on a batch (dense [B, n_dense] f32, ids [B,
         n_slots] int32 slot-local, labels [B] f32, on the state's device).
-        Updates the state's tensors in place and returns (state with the
-        step advanced, {'loss': mean BCE, a 0-d tensor; 'overflow': 0, as
-        local tables drop no lookups})."""
+        Updates the state's tensors in place, its step included, and returns
+        (state, {'loss': mean BCE, a 0-d tensor; 'overflow': 0, as local
+        tables drop no lookups})."""
         gids = self._group_ids(ids)
         with torch.no_grad():
             gathered = self.tables.gather(state.emb_params, gids, self._gather_dtype)
@@ -234,11 +252,11 @@ class Engine:
         g_dense, g_rows_flat = grads[: len(live)], iter(grads[len(live):])
         g_rows = {c: {g: next(g_rows_flat) for g in r} for c, r in rows.items()}
         with torch.no_grad():
-            dense_opt = self.dense_tx.update(params, list(g_dense), state.dense_opt, self.dense_lr)
+            self.dense_tx.update(params, list(g_dense), state.dense_opt, self.dense_lr)
             self.tables.apply_grads(state.emb_params, state.emb_opt, gids, g_rows, state.step,
-                                    self.emb_lr)
-        new_state = state._replace(step=state.step + 1, dense_opt=dense_opt)
-        return new_state, {"loss": loss.detach(), "overflow": 0}
+                                    device_constant(self.emb_lr, state.step.device))
+            state.step.add_(1)
+        return state, {"loss": loss.detach(), "overflow": 0}
 
     def train_scan(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
                    labels: torch.Tensor):
@@ -251,3 +269,29 @@ class Engine:
             losses.append(metrics["loss"])
         losses = torch.stack(losses)
         return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+
+    # ------------------------------------------------------------- capture
+    def jit_train_step(self) -> CapturedStep:
+        """``train_step`` as one CUDA graph per batch shape: a callable with
+        ``train_step``'s signature and results (``train/capture.py``). On a
+        CUDA state its first call for a shape runs the step eagerly, its
+        second captures the step and replays it, and later calls replay; a
+        state with other tensors captures again. On a CPU state it runs the
+        same static-buffer code without capture."""
+        return CapturedStep(self)
+
+    def jit_train_scan(self):
+        """``train_scan`` over ``jit_train_step``'s graph: K replays, batch k
+        copied in before replay k and loss k written into a [K] buffer on
+        the state's device. Returns (state, {'loss', 'losses', 'overflow'})
+        as ``train_scan``."""
+        steps = CapturedStep(self)
+
+        def train_scan(state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
+                       labels: torch.Tensor):
+            losses = torch.empty((dense.shape[0],), dtype=torch.float32, device=state.step.device)
+            for k in range(dense.shape[0]):
+                losses[k].copy_(steps.step(state, (dense[k], ids[k], labels[k])))
+            return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+
+        return train_scan

@@ -13,7 +13,7 @@ import torch
 
 from recmodels_tpu_torch.embedding.gather import gather_rows, gather_rows_reference
 from recmodels_tpu_torch.embedding.update import (
-    bias_correction, sorted_adagrad_update, sorted_adagrad_update_reference, sorted_adam_update,
+    adam_scalars, sorted_adagrad_update, sorted_adagrad_update_reference, sorted_adam_update,
     sorted_adam_update_reference,
 )
 from recmodels_tpu_torch.nn.mlp import ProductF32
@@ -301,19 +301,20 @@ def test_adagrad_update_kernel_is_bit_exact(cuda, rows, dim, n, hot, layout, gra
     call from the same state gives the same bits."""
     table, acc, ids, grads = _stream(cuda, rows, dim, n, hot, grad_dtype, layout=layout)
     grads, table, acc = _placed(layout, grads, table, acc)
+    lr = torch.tensor(0.05, device=cuda)  # read from device memory, as a captured step does
     t_cpu, a_cpu = table.cpu(), acc.cpu()
-    sorted_adagrad_update_reference(t_cpu, a_cpu, ids.cpu(), grads.cpu(), 0.05, 1e-8)
+    sorted_adagrad_update_reference(t_cpu, a_cpu, ids.cpu(), grads.cpu(), lr.cpu(), 1e-8)
     t0, a0 = table.clone(), acc.clone()
     _, t1, a1 = _placed(layout, grads, table, acc)
     before = sorted_adagrad_update.launches
-    sorted_adagrad_update(table, acc, ids, grads, 0.05, 1e-8)
+    sorted_adagrad_update(table, acc, ids, grads, lr, 1e-8)
     torch.cuda.synchronize()
     assert sorted_adagrad_update.launches == before + 1
     assert torch.equal(table.cpu(), t_cpu) and torch.equal(acc.cpu(), a_cpu)
     touched = torch.zeros(rows, dtype=torch.bool, device=cuda)
     touched[ids[(ids >= 0) & (ids < rows)].long()] = True
     assert torch.equal(table[~touched], t0[~touched])
-    sorted_adagrad_update(t1, a1, ids, grads, 0.05, 1e-8)
+    sorted_adagrad_update(t1, a1, ids, grads, lr, 1e-8)
     assert torch.equal(t1, table) and torch.equal(a1, acc)
 
 
@@ -376,10 +377,12 @@ def test_adam_update_kernel_is_bit_exact(cuda, rows, dim, n, hot, layout, grad_d
         if n > 1 and ids[1] == ids[0]:
             grads[0], grads[1] = x, -x
     grads, table, m, v = _placed(layout, grads, table, m, v)
-    hyper = dict(lr=1e-2, bc1=bias_correction(0.9, step + 1), bc2=bias_correction(0.999, step + 1),
-                 b1=0.9, b2=0.999, eps=1e-8)
+    # [lr, bc1, bc2] computed on the card from a step tensor
+    scalars = adam_scalars(torch.tensor(1e-2, device=cuda), torch.tensor(step, dtype=torch.int32, device=cuda),
+                           0.9, 0.999)
+    hyper = dict(scalars=scalars, b1=0.9, b2=0.999, eps=1e-8)
     cpu = [t.cpu() for t in (table, m, v)]
-    sorted_adam_update_reference(*cpu, ids.cpu(), grads.cpu(), **hyper)
+    sorted_adam_update_reference(*cpu, ids.cpu(), grads.cpu(), **{**hyper, "scalars": scalars.cpu()})
     t0, m0 = table.clone(), m.clone()
     _, *again = _placed(layout, grads, table, m, v)
     before = sorted_adam_update.launches
@@ -816,3 +819,165 @@ def test_fm_and_dcn_functions_on_the_card(cuda):
     for got, want in zip(*grads):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= 0.03 * want.float().abs().max().item()
+
+
+# ------------------------------------------------ captured steps and scorer
+def _small_engine(path):
+    """Small engines of every training path: slice 2 (CIN(32, 32), fused
+    wide column, Adagrad), slice 3 (CIN(128, 128, 128), unfused wide table,
+    lazy Adam), DeepFM, DCN and FM (slice 4), the flagship's dtypes."""
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.train.engine import Engine
+    from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
+
+    model = "xdeepfm" if path.startswith("slice") else path
+    kw = {"slice2": dict(cin_sizes=(32, 32)), "slice3": dict(cin_sizes=(128, 128, 128)),
+          "dcn": dict(n_cross=2)}.get(path, {})
+    cfg = TrainConfig(model=model, vocab_size=1000, embed_dim=16, hidden=(64, 64), bf16=path != "fm", **kw)
+    schema = build_schema(cfg)
+    opts = dict(sparse_optimizer="adam", fuse_wide=False) if path == "slice3" else {}
+    return Engine(build_model(model, schema, **cfg.model_kwargs()), **opts), schema, cfg
+
+
+def _card_batches(schema, n, cuda, batch=512, seed=3):
+    from recmodels_tpu_torch.data import SyntheticSource
+
+    it = iter(SyntheticSource(schema, batch_size=batch, seed=seed))
+    return [tuple(torch.as_tensor(a, device=cuda) for a in (b.dense, b.ids, b.labels))
+            for b in (next(it) for _ in range(n))]
+
+
+def _tensors(state):
+    from recmodels_tpu_torch.utils.tree import leaves
+
+    return [t for t in leaves(state) if isinstance(t, torch.Tensor)]
+
+
+@pytest.mark.parametrize("path", ["slice2", "slice3", "deepfm", "dcn", "fm"])
+def test_captured_steps_equal_eager_steps(cuda, path):
+    """Five steps through ``jit_train_step`` (an eager warm-up, the capture
+    and its replay, three replays) against five eager ``train_step``s from
+    the same state: the same kernels on the same inputs, with lr and the
+    bias corrections read from device memory, so the losses and every state
+    tensor agree bit for bit; one graph is captured, and each returned loss
+    is a copy."""
+    eng, schema, _ = _small_engine(path)
+    eager, captured = eng.init(seed=0, device=cuda), eng.init(seed=0, device=cuda)
+    ts = eng.jit_train_step()
+    losses = []
+    for b in _card_batches(schema, 5, cuda):
+        eager, me = eng.train_step(eager, *b)
+        captured, mc = ts(captured, *b)
+        losses.append((me["loss"], mc["loss"]))
+    torch.cuda.synchronize()
+    assert ts.graphs == 1 and int(captured.step) == 5
+    for want, got in losses:
+        assert torch.equal(got, want)
+    assert len({float(got) for _, got in losses}) == 5  # copies, not the graph's static output
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(captured), _tensors(eager)))
+
+
+def test_captured_scan_equals_captured_steps(cuda):
+    eng, schema, _ = _small_engine("slice2")
+    bs = _card_batches(schema, 4, cuda)
+    a, b = eng.init(seed=0, device=cuda), eng.init(seed=0, device=cuda)
+    ts = eng.jit_train_step()
+    stepwise = []
+    for batch in bs:
+        a, m = ts(a, *batch)
+        stepwise.append(m["loss"])
+    b, m = eng.jit_train_scan()(b, *(torch.stack([x[i] for x in bs]) for i in range(3)))
+    torch.cuda.synchronize()
+    assert torch.equal(m["losses"], torch.stack(stepwise)) and torch.equal(m["loss"], stepwise[-1])
+    assert all(torch.equal(x, y) for x, y in zip(_tensors(a), _tensors(b)))
+
+
+def test_captured_step_captures_again_for_another_state(cuda):
+    """A second state gets graphs of its own: the first state's tensors keep
+    their bits while the second trains, and the second's steps equal its
+    eager steps."""
+    eng, schema, _ = _small_engine("slice2")
+    bs = _card_batches(schema, 3, cuda)
+    first, second, eager = (eng.init(seed=s, device=cuda) for s in (0, 1, 1))
+    ts = eng.jit_train_step()
+    for b in bs:
+        first, _ = ts(first, *b)
+    kept = [t.clone() for t in _tensors(first)]
+    for b in bs:
+        second, _ = ts(second, *b)
+        eager, _ = eng.train_step(eager, *b)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(_tensors(first), kept))
+    assert all(torch.equal(x, y) for x, y in zip(_tensors(second), _tensors(eager)))
+
+
+def test_replay_applies_the_next_steps_bias_corrections(cuda):
+    """A graph of lazy Adam's scalar block, its update and the step's
+    advance, replayed three times: each replay reads the step tensor as it
+    stands, so it applies steps 1, 2, 3's bias corrections, bit for bit the
+    plain version's three calls on the CPU."""
+    table, acc, ids, grads = _stream(cuda, 3000, 16, 2000, 0.3, torch.bfloat16, seed=9)
+    m, v = acc - 0.6, acc * 0.01
+    step = torch.zeros((), dtype=torch.int32, device=cuda)
+    lr = torch.tensor(1e-2, device=cuda)
+    cpu = [t.cpu() for t in (table, m, v)]
+
+    def one_step():
+        sorted_adam_update(table, m, v, ids, grads, adam_scalars(lr, step, 0.9, 0.999), 0.9, 0.999, 1e-8)
+        step.add_(1)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # builds the library and the constants outside the capture
+        adam_scalars(lr, step, 0.9, 0.999)
+        build.library()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        one_step()
+    for k in range(3):
+        graph.replay()
+        sc = adam_scalars(lr.cpu(), torch.tensor(k, dtype=torch.int32), 0.9, 0.999)
+        sorted_adam_update_reference(*cpu, ids.cpu(), grads.cpu(), sc, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert int(step) == 3
+    for got, want in zip((table, m, v), cpu):
+        assert torch.equal(got.cpu(), want)
+
+
+def test_captured_predictor_matches_eager_logits(cuda, tmp_path):
+    """The bucketed Predictor on the card (one graph a bucket, from 64):
+    requests of 1, 100, 300 and 70 (buckets 64, 128, 512, 128 again) are bit
+    for bit ``Engine.logits`` on the padded request, and within the serving
+    tolerance (1% of the largest |logit|, as chip_smoke.py) of the unpadded
+    request's."""
+    from recmodels_tpu_torch.serve import export_model, load_predictor
+
+    eng, schema, cfg = _small_engine("slice2")
+    state = eng.init(seed=0, device=cuda)
+    export_model(str(tmp_path), cfg, eng, state)
+    pred = load_predictor(str(tmp_path), min_bucket=64, device="cuda")
+    (dense, ids, _), = _card_batches(schema, 1, cuda, batch=300)
+    for n in (1, 100, 300, 70):
+        got = pred.predict_logits(dense[:n].cpu().numpy(), ids[:n].cpu().numpy())
+        b = pred._bucket(n)
+        pad_d = torch.zeros((b, dense.shape[1]), device=cuda)
+        pad_i = torch.zeros((b, ids.shape[1]), dtype=torch.int32, device=cuda)
+        pad_d[:n], pad_i[:n] = dense[:n], ids[:n]
+        with torch.inference_mode():
+            padded = pred.engine.logits(pred.state, pad_d, pad_i)[:n].cpu()
+            unpadded = pred.engine.logits(pred.state, dense[:n], ids[:n]).cpu()
+        assert torch.equal(torch.from_numpy(got), padded)
+        assert (torch.from_numpy(got) - unpadded).abs().max() <= 1e-2 * unpadded.abs().max()
+    assert sorted(pred._buckets) == [64, 128, 512]
+    assert all(bk.graph is not None for bk in pred._buckets.values())
+    # another state assigned to the scorer: its graphs are dropped and the
+    # answers follow the new state's weights
+    pred.state = eng.init(seed=1, device=cuda)._replace(dense_opt=None, emb_opt=None)
+    got = pred.predict_logits(dense[:100].cpu().numpy(), ids[:100].cpu().numpy())
+    pad_d = torch.zeros((128, dense.shape[1]), device=cuda)
+    pad_i = torch.zeros((128, ids.shape[1]), dtype=torch.int32, device=cuda)
+    pad_d[:100], pad_i[:100] = dense[:100], ids[:100]
+    with torch.inference_mode():
+        want = pred.engine.logits(pred.state, pad_d, pad_i)[:100].cpu()
+    assert torch.equal(torch.from_numpy(got), want) and sorted(pred._buckets) == [128]

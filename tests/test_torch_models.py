@@ -84,7 +84,7 @@ def _np_state(state, group):
 
 
 def _port_np(state, group):
-    return ([t.numpy().copy() for t in leaves(state.dense_params)], state.dense_opt["count"],
+    return ([t.numpy().copy() for t in leaves(state.dense_params)], int(state.dense_opt["count"]),
             [t.numpy().copy() for t in state.dense_opt["mu"]],
             [t.numpy().copy() for t in state.dense_opt["nu"]],
             state.emb_params["emb"][group].numpy().copy(),
@@ -170,7 +170,7 @@ def test_losses_match_jax(run):
 def test_dense_params_and_adam_state_match_jax(run):
     jd, jc, jmu, jnu, _, _ = run["jax"]
     pd, pc, pmu, pnu, _, _ = run["port"]
-    assert pc == jc == WARM + STEPS and run["port_state"].step == WARM + STEPS
+    assert pc == jc == WARM + STEPS and int(run["port_state"].step) == WARM + STEPS
     assert [x.shape for x in pd] == [x.shape for x in jd]
     pairs = [(pmu, jmu), (pnu, jnu)] + ([] if run["bf16"] else [(pd, jd)])
     for got, want in pairs:

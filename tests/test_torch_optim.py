@@ -25,7 +25,7 @@ import torch
 from recmodels_tpu.embedding import optim as J
 from recmodels_tpu.embedding import pallas_gather, pallas_update
 from recmodels_tpu_torch.embedding import optim as T
-from recmodels_tpu_torch.embedding.update import bias_correction, sorted_adagrad_update, sorted_adam_update
+from recmodels_tpu_torch.embedding.update import adam_scalars, sorted_adagrad_update, sorted_adam_update
 from recmodels_tpu_torch.train import optim as TO
 
 # the TPU kernel's own tolerances against sparse Adagrad
@@ -39,6 +39,16 @@ F32_TOL = dict(rtol=1e-6, atol=1e-7)
 # (tests/test_pallas_update.py): duplicate sums in another order
 ADAM_KERNEL_TOL = dict(rtol=2e-5, atol=1e-6)
 B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+def _lr(x: float) -> torch.Tensor:
+    """A learning rate as the updates take it: a 0-d f32 tensor."""
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _step(x: int) -> torch.Tensor:
+    """A global step as the updates take it: a 0-d int32 tensor."""
+    return torch.tensor(x, dtype=torch.int32)
 
 
 def _ids_2d(b=40, vocab=(7, 50, 3, 200), seed=0):
@@ -74,7 +84,7 @@ def _port_update(table, acc, ids, grads, lr, eps, bf16_grads=False):
     if bf16_grads:
         g = g.to(torch.bfloat16)
     before = sorted_adagrad_update.launches
-    sorted_adagrad_update(t, a, torch.tensor(ids), g, lr, eps)
+    sorted_adagrad_update(t, a, torch.tensor(ids), g, _lr(lr), eps)
     assert sorted_adagrad_update.launches == before  # the CPU takes the plain version
     return t.numpy(), a.numpy()
 
@@ -163,7 +173,7 @@ def test_update_kernel_entry_rejects_devices_without_a_kernel():
     t = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         sorted_adagrad_update(t, t, torch.empty((2,), dtype=torch.int32, device="meta"),
-                              torch.empty((2, 3), device="meta"), 0.1, 1e-8)
+                              torch.empty((2, 3), device="meta"), _lr(0.1), 1e-8)
 
 
 @pytest.mark.parametrize("dim", [9, 17, 1])
@@ -182,7 +192,7 @@ def test_apply_updates_matches_jax(dim):
     t = torch.tensor(table.reshape(shape))
     st = opt.init(rows_alloc, dim)
     g = torch.from_numpy(grads.reshape(-1) if dim == 1 else grads)
-    t2, st2 = T.apply_updates(opt, t, st, torch.from_numpy(ids), g, 0, lr)
+    t2, st2 = T.apply_updates(opt, t, st, torch.from_numpy(ids), g, _step(0), _lr(lr))
     assert t2 is t and st2["acc"] is st["acc"] and st["acc"].shape == shape  # in place
     jt, jst = J.apply_updates(J.sparse_adagrad(), jnp.asarray(table.reshape(shape)),
                               J.sparse_adagrad().init(rows_alloc, dim), jnp.asarray(ids.reshape(-1)),
@@ -230,8 +240,8 @@ def _port_adam(table, m, v, ids, grads, lr, step, bf16_grads):
     if bf16_grads:
         g = g.to(torch.bfloat16)
     before = sorted_adam_update.launches
-    sorted_adam_update(t, mm, vv, torch.tensor(ids), g, lr, bias_correction(B1, step + 1),
-                       bias_correction(B2, step + 1), B1, B2, EPS)
+    sorted_adam_update(t, mm, vv, torch.tensor(ids), g, adam_scalars(_lr(lr), _step(step), B1, B2),
+                       B1, B2, EPS)
     assert sorted_adam_update.launches == before  # the CPU takes the plain version
     return t.numpy(), mm.numpy(), vv.numpy()
 
@@ -300,7 +310,8 @@ def test_apply_updates_adam_matches_jax(dim, name):
     opt = T.get_sparse_optimizer(name)
     t, st = torch.tensor(table), {"m": torch.tensor(m), "v": torch.tensor(v)}
     st_in = dict(st)
-    t2, st2 = T.apply_updates(opt, t, st, torch.from_numpy(ids), torch.from_numpy(grads), step, lr)
+    t2, st2 = T.apply_updates(opt, t, st, torch.from_numpy(ids), torch.from_numpy(grads), _step(step),
+                              _lr(lr))
     assert t2 is t and st2 is st and all(st[k] is st_in[k] for k in st)  # in place
     jt, jst = J.apply_updates(J.get_sparse_optimizer(name), jnp.asarray(table),
                               {"m": jnp.asarray(m), "v": jnp.asarray(v)}, jnp.asarray(ids.reshape(-1)),
@@ -323,7 +334,7 @@ def test_adam_kernel_entry_rejects_devices_without_a_kernel():
     t = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         sorted_adam_update(t, t, t, torch.empty((2,), dtype=torch.int32, device="meta"),
-                           torch.empty((2, 3), device="meta"), 0.1, 0.1, 0.001, B1, B2, EPS)
+                           torch.empty((2, 3), device="meta"), torch.tensor([0.1, 0.1, 0.001]), B1, B2, EPS)
 
 
 # ---------------------------------------------------------- dense optimizers
@@ -347,7 +358,7 @@ def test_dense_optimizers_match_optax(name):
     for k, t in zip(sorted(params), tp):
         np.testing.assert_allclose(t.numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7)
     if name == "adam":
-        assert ts["count"] == int(js[0].count) == 4
+        assert int(ts["count"]) == int(js[0].count) == 4
         for k, mu, nu in zip(sorted(params), ts["mu"], ts["nu"]):
             np.testing.assert_allclose(mu.numpy(), np.asarray(js[0].mu[k]), rtol=1e-6, atol=1e-8)
             np.testing.assert_allclose(nu.numpy(), np.asarray(js[0].nu[k]), rtol=1e-6, atol=1e-8)

@@ -263,7 +263,7 @@ def test_train_state_from_jax_carries_any_sparse_optimizer_state():
     assert sorted(tables) == ["emb/emb/d8", "emb/wide/d1"]
     opt = {k: {"m": np.full_like(t, 0.5), "v": np.full_like(t, 0.25)} for k, t in tables.items()}
     got = train_state_from_jax(eng, 7, dense, adam, tables, device="cpu", emb_opt=opt)
-    assert got.step == 7 and got.dense_opt["count"] == 3
+    assert int(got.step) == 7 and int(got.dense_opt["count"]) == 3
     for c, g in (("emb", "d8"), ("wide", "d1")):
         s = got.emb_opt[c][g]
         assert sorted(s) == ["m", "v"] and s["m"].shape == st.emb_params[c][g].shape

@@ -51,7 +51,7 @@ from recmodels_tpu.train.engine import Engine as JEngine
 from recmodels_tpu.train.loop import build_schema as jbuild_schema
 from recmodels_tpu.utils.config import TrainConfig as JConfig
 from recmodels_tpu_torch.models import build_model
-from recmodels_tpu_torch.embedding.update import adam_constants, bias_correction
+from recmodels_tpu_torch.embedding.update import adam_constants, adam_scalars
 from recmodels_tpu_torch.serve import train_state_from_jax
 from recmodels_tpu_torch.train.engine import Engine
 from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
@@ -80,7 +80,7 @@ def _np_state(state):
 
 
 def _port_np(state):
-    return ([t.numpy() for t in leaves(state.dense_params)], state.dense_opt["count"],
+    return ([t.numpy() for t in leaves(state.dense_params)], int(state.dense_opt["count"]),
             [t.numpy() for t in state.dense_opt["mu"]], [t.numpy() for t in state.dense_opt["nu"]],
             state.emb_params["emb"]["d17"].numpy(), state.emb_opt["emb"]["d17"]["acc"].numpy())
 
@@ -133,7 +133,7 @@ def test_losses_match_jax(run):
 def test_dense_params_and_adam_state_match_jax(run):
     jd, jc, jmu, jnu, _, _ = run["jax"]
     pd, pc, pmu, pnu, _, _ = run["port"]
-    assert pc == jc == WARM + STEPS and run["port_state"].step == WARM + STEPS
+    assert pc == jc == WARM + STEPS and int(run["port_state"].step) == WARM + STEPS
     if run["bf16"]:
         # the grads are held here through the moments and one step at a time
         # by test_one_step_changes_match_jax; Adam's update of the params is
@@ -233,7 +233,7 @@ def test_engine_init_fills_optimizer_states():
     tcfg = TrainConfig(**_cfg(True))
     eng = Engine(build_model("xdeepfm", build_schema(tcfg), **tcfg.model_kwargs()))
     st = eng.init(seed=1, device="cpu")
-    assert st.dense_opt["count"] == 0
+    assert int(st.dense_opt["count"]) == 0
     assert [t.shape for t in st.dense_opt["mu"]] == [t.shape for t in leaves(st.dense_params)]
     acc = st.emb_opt["emb"]["d17"]["acc"]
     assert acc.shape == st.emb_params["emb"]["d17"].shape and torch.all(acc == 0.1)
@@ -275,7 +275,7 @@ def _np_state3(state):
 def _port_np3(state):
     tabs = {(c, g): tuple(x.numpy().copy() for x in (state.emb_params[c][g], state.emb_opt[c][g]["m"],
                                                       state.emb_opt[c][g]["v"])) for c, g in GROUPS3}
-    return ([t.numpy().copy() for t in leaves(state.dense_params)], state.dense_opt["count"],
+    return ([t.numpy().copy() for t in leaves(state.dense_params)], int(state.dense_opt["count"]),
             [t.numpy().copy() for t in state.dense_opt["mu"]],
             [t.numpy().copy() for t in state.dense_opt["nu"]], tabs)
 
@@ -326,7 +326,7 @@ def test_slice3_losses_match_jax(run3):
 def test_slice3_dense_params_and_adam_state_match_jax(run3):
     jd, jc, jmu, jnu, _ = run3["jax"]
     pd, pc, pmu, pnu, _ = run3["port"]
-    assert pc == jc == WARM + STEPS and run3["port_state"].step == WARM + STEPS
+    assert pc == jc == WARM + STEPS and int(run3["port_state"].step) == WARM + STEPS
     pairs = [(pmu, jmu), (pnu, jnu)] + ([] if run3["bf16"] else [(pd, jd)])
     for got, want in pairs:
         for g, w in zip(got, want):
@@ -365,8 +365,9 @@ def test_slice3_one_step_changes_match_jax(run3):
     _, _, jmu, _, jtabs = run3["first"]["jax"]
     _, _, pmu, _, ptabs = run3["first"]["port"]
     _, _, mu0, _, start = run3["start"]
-    c = adam_constants(EMB_LR, bias_correction(0.9, WARM + 1), bias_correction(0.999, WARM + 1),
-                       0.9, 0.999, 1e-8)
+    c = adam_constants(0.9, 0.999, 1e-8)
+    lr, bc1, bc2 = adam_scalars(torch.tensor(EMB_LR), torch.tensor(WARM, dtype=torch.int32),
+                                0.9, 0.999).unbind()
     pairs = [(f"dense grad {i}", (p - 0.9 * m0) / 0.1, (j - 0.9 * m0) / 0.1)
              for i, (p, j, m0) in enumerate(zip(pmu, jmu, mu0))]
     for key in GROUPS3:
@@ -381,7 +382,7 @@ def test_slice3_one_step_changes_match_jax(run3):
                               (jtabs[key][i] - start[key][i])[touched]))
         if run3["bf16"]:
             m1, v1 = (torch.from_numpy(x[touched]) for x in ptabs[key][1:])
-            adam_step = -c["lr"] * (m1 / c["bc1"]) / (torch.sqrt((v1 / c["bc2"]).double()).float() + c["eps"])
+            adam_step = -lr * (m1 / bc1) / (torch.sqrt((v1 / bc2).double()).float() + c["eps"])
             want = torch.from_numpy(start[key][0][touched]) + adam_step
             np.testing.assert_array_equal(ptabs[key][0][touched], want.numpy())
     for name, got, want in pairs:

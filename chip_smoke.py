@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch/CUDA port's serving, training and eval paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -29,7 +29,9 @@ Phases, each on its own lines:
                bf16 and f32, each with a SHA-256 of its output's bytes); the
                gather also at each other instance the paths launch (f32
                rows, slice 3's 16-column and 1-column tables, 33-column rows
-               of dim 32, requests of 26 and 26,000 ids). A kernel shorter than about 0.1 ms (the gather,
+               of dim 32, requests of 26 and 26,000 ids, LR's one-column f32
+               rows), the sparse Adagrad update also on PNN's 16-column table
+               and with LR's f32 grads on the dim-1 table. A kernel shorter than about 0.1 ms (the gather,
                both fanouts, the updates, the transpose, the FM term,
                the cross stack), its plain version and its library call are
                timed with a cold L2 and, by torch.profiler, warm; the rest
@@ -54,7 +56,14 @@ Phases, each on its own lines:
   5. training: the same model trained with Engine.train_step at 16,384
                (dense Adam lr 1e-3, sparse Adagrad lr 1e-2) for 30 steps of the
                synthetic stream; every kernel of the step must have launched,
-               the loss must be finite and fall; one step from live weights
+               the loss must be finite and fall; then eval of the trained
+               state: 10 batches of 16,384 from a stream no phase trains on
+               (the training task) and a tail batch of 10,000 kept rows (a
+               0/1 weight), through Engine.eval_step and jit_eval_step (their
+               AUC states bit for bit equal; the histograms and count equal
+               to the CPU's auc_update on the card's logits, the loss sum
+               within 1e-5; the AUC within 1e-4 of the exact rank AUC; eager
+               and captured ms per batch); one step from live weights
                at 1,024 examples must match the CPU plain path's step (loss,
                Adam moments, which hold the dense grads, the touched rows of
                the table and acc, untouched rows bit for bit); the step's device time,
@@ -98,7 +107,16 @@ Phases, each on its own lines:
                CIN(100,100) (layer by layer), and bf16 DCN at dim 40 (x0 of
                1,053: the cross stack's wide-row path); each must launch the
                kernels its route names and no others;
-  9. a JSON line listing the kernels (launches from the run of each kernel's
+  9. slice 6, for each of full-width f32 LR (the dim-1 wide table alone:
+               the gather at one f32 column, the dim-1 update), bf16 PNN
+               (inner and outer products, DNN(400,400), a 16-column table),
+               bf16 Wide&Deep (DNN(256,128)), bf16 NFM (DNN(128,128)) and bf16
+               AFM (attention 32), at 16,384 (bench.py:37-47, the engine's
+               defaults): serving as in 4 (the first-order sum and the
+               model's interaction term must each move the logits), training
+               as in 5 (the gather and the sparse update on every step) and
+               its captured step (no scan);
+ 10. a JSON line listing the kernels (launches from the run of each kernel's
      path), then the card line again, then the result line
      {"ok": true, "device": {...}}.
 
@@ -140,6 +158,23 @@ DEEPFM_HIDDEN = (400, 400, 400)
 DCN_HIDDEN = (512, 256)
 N_CROSS = 3
 FM_BATCH = 8192
+# slice 6, bench.py:37-47: PNN mode both, DNN(400,400); Wide&Deep
+# DNN(256,128); NFM DNN(128,128); AFM attention 32; LR none; all at 16,384
+PNN_HIDDEN = (400, 400)
+WIDEDEEP_HIDDEN = (256, 128)
+NFM_HIDDEN = (128, 128)
+AFM_ATTENTION = 32
+# eval on the flagship: batches of a stream no phase trains on, with the
+# training task_seed (SyntheticSource's default, 0), and a tail batch of
+# which EVAL_TAIL rows count
+EVAL_BATCHES = 10
+EVAL_SEED = 37
+EVAL_TAIL = 10_000
+# histogram AUC against the exact rank AUC (train/metrics.py: O(1/K))
+AUC_TOL = 1e-4
+# the eval loss sum on the card against the CPU's on the card's logits: f32
+# sums of 173,840 values in another order, exp rounded apart by an ulp
+LOSS_SUM_RTOL = 1e-5
 SEED = 0
 # kernel vs plain on bf16 outputs: both sum in f32 in different orders and then
 # round to bf16, so a value may land one bf16 step (2^-8 relative) apart; p2
@@ -371,9 +406,13 @@ def liven(state, gen: torch.Generator, rows_scale: float = 10.0, dim: int = DIM)
     cross bias fix that; ``term_sizes``, ``fm_term_sizes`` and
     ``cross_term_sizes`` check it. The FM term grows with the square of the
     rows: FM and DeepFM take 3 (N(0, 0.15)), which keeps their logits within
-    a few units, where the sigmoid does not saturate."""
+    a few units, where the sigmoid does not saturate. LR has only the
+    ``wide`` table, PNN neither a first-order column nor ``w_dense`` and the
+    bias; AFM's attention-pooled pairs are a weighted mean of 325 products
+    far smaller than the rows, so its ``p`` is scaled by ``rows_scale`` too
+    (no draw)."""
     wide = state.emb_params.get("wide", {})
-    for table in state.emb_params["emb"].values():
+    for table in state.emb_params.get("emb", {}).values():
         if wide or table.shape[1] != dim + 1:  # no fused first-order column
             table *= rows_scale
         else:
@@ -382,12 +421,15 @@ def liven(state, gen: torch.Generator, rows_scale: float = 10.0, dim: int = DIM)
     for table in wide.values():
         table.copy_(torch.randn(table.shape, generator=gen, device=table.device) * 0.2)
     dp = state.dense_params
-    dev = dp["bias"].device
+    dev = state.step.device
     if "w_dense" in dp:
         dp["w_dense"] = torch.randn(dp["w_dense"].shape, generator=gen, device=dev) * 0.1
     if "cross" in dp:
         dp["cross"]["b"] = torch.randn(dp["cross"]["b"].shape, generator=gen, device=dev) * 0.1
-    dp["bias"] = torch.randn((), generator=gen, device=dev) * 0.1
+    if "p" in dp:
+        dp["p"] = dp["p"] * rows_scale
+    if "bias" in dp:
+        dp["bias"] = torch.randn((), generator=gen, device=dev) * 0.1
 
 
 def term_sizes(pred, dense, ids) -> dict[str, float]:
@@ -452,6 +494,56 @@ def cross_term_sizes(pred, dense, ids) -> dict[str, float]:
         xl = dcn_cross_stack_forward(x0, dp["cross"]["w"].to(dt), dp["cross"]["b"].to(dt))
         part = (xl.float() - x0.float()) @ dp["w_out"][: x0.shape[1]]
         return {"(x_L - x0) . w_out": part.abs().max().item()}
+
+
+def zoo_term_sizes(pred, dense, ids) -> dict[str, float]:
+    """Largest |contribution| to a logit over the examples given, for LR,
+    PNN, Wide&Deep, NFM and AFM, from the rows gathered through the
+    predictor's own wrapper: the first-order sum (all but PNN), and the
+    interaction term where the model has one: PNN's products (the MLP of
+    its input against the MLP of it with the product features zeroed),
+    NFM's MLP of the bi-interaction against the MLP of zeros, AFM's
+    attention-pooled pairs (the logit less its linear terms)."""
+    from recmodels_tpu_torch.nn.mlp import mlp_apply
+    from recmodels_tpu_torch.ops.dispatch import get_op
+    from recmodels_tpu_torch.ops.interactions import fm_bi_interaction
+
+    eng, st = pred.engine, pred.state
+    model, dp = eng.model, st.dense_params
+    with torch.inference_mode():
+        ids_t = torch.as_tensor(ids, device=pred.device)
+        dense_t = torch.as_tensor(dense, device=pred.device)
+        rows = eng.tables.gather(st.emb_params, eng._group_ids(ids_t), eng._gather_dtype)
+        ((_, groups),) = rows.items()
+        (full,) = groups.values()
+        if model.name == "lr":
+            return {"wide_sum": full.float().sum(dim=(1, 2)).abs().max().item()}
+        cd = model.compute_dtype
+        if model.name == "pnn":
+            b = full.shape[0]
+            z = [full.reshape(b, -1), dense_t.to(full.dtype)]
+            parts = []
+            if model.mode in ("inner", "both"):
+                parts.append(get_op("pnn_inner_products")(full))
+            if model.mode in ("outer", "both"):
+                parts.append(get_op("pnn_outer_product")(full).reshape(b, -1))
+            p = torch.cat(parts, dim=1)
+            y, y0 = (mlp_apply(dp["mlp"], torch.cat(z + [q], dim=1), final_linear=True, compute_dtype=cd)
+                     for q in (p, torch.zeros_like(p)))
+            return {"products": (y - y0).abs().max().item()}
+        e, wide = full[..., :DIM], full[..., DIM:].float()
+        ws = wide[..., 0].sum(dim=1)
+        out = {"wide_sum": ws.abs().max().item()}
+        if model.name == "nfm":
+            bi = fm_bi_interaction(e)
+            y = mlp_apply(dp["mlp"], bi, final_linear=True, compute_dtype=cd)
+            y0 = mlp_apply(dp["mlp"], torch.zeros_like(bi), final_linear=True, compute_dtype=cd)
+            out["MLP(bi) - MLP(0)"] = (y - y0).abs().max().item()
+        if model.name == "afm":
+            logit = model.apply(dp, dense_t, {"emb": e, "wide": wide})
+            linear = dp["bias"] + ws + dense_t @ dp["w_dense"]
+            out["p . pooled"] = (logit - linear).abs().max().item()
+        return out
 
 
 def to_device(tree, device):
@@ -826,8 +918,9 @@ def main() -> int:
     # and ids (no new draws): f32 rows (f32 xDeepFM, FM), the table's first
     # 16 columns and its last (slice 3's two tables), the table with its
     # first 16 columns again (33 columns, dim 32's rows) and the first 26
-    # and 26,000 ids (served requests of 1 and 1,000 examples); each bit for
-    # bit its plain version, and its library call index_select and the cast
+    # and 26,000 ids (served requests of 1 and 1,000 examples), and the last
+    # column gathered as f32 rows (LR's dim-1 table); each bit for bit its
+    # plain version, and its library call index_select and the cast
     table = torch.randn((rows, DIM + 1), generator=gen, device=dev) * 0.05
     gids = engine.collections["emb"].group_row_ids(ids)["d17"]
     gather = {}
@@ -836,7 +929,8 @@ def main() -> int:
                  ("d1_", table[:, DIM:].contiguous(), gids, torch.bfloat16),
                  ("d33_", torch.cat([table, table[:, :DIM]], 1), gids, torch.bfloat16),
                  ("req1_", table, gids.reshape(-1)[:m], torch.bfloat16),
-                 ("req1000_", table, gids.reshape(-1)[:1000 * m], torch.bfloat16))
+                 ("req1000_", table, gids.reshape(-1)[:1000 * m], torch.bfloat16),
+                 ("d1f32_", table[:, DIM:].contiguous(), gids, torch.float32))
     for label, t, i, dt in instances:
         rows_i = gather_rows(t, i, dt)
         ref = gather_rows_reference(t, i, dt)
@@ -857,8 +951,9 @@ def main() -> int:
         route="cuda", source="recmodels_tpu_torch/csrc/gather.cu",
         replaces="recmodels_tpu/embedding/pallas_gather.py:180", tol=0.0, timing=SHORT_TIMING,
         shapes="unprefixed keys: 425,984 batch-order ids into the 2,600,960 x 17 f32 table, bf16 rows; "
-               "f32_: f32 rows; d16_, d1_: the table's first 16 columns and its last; d33_: the table "
-               "and its first 16 columns again; req1_, req1000_: the first 26 and 26,000 ids", **gather,
+               "f32_: f32 rows; d16_, d1_: the table's first 16 columns and its last (d16_ is also PNN's "
+               "instance); d33_: the table and its first 16 columns again; req1_, req1000_: the first 26 and "
+               "26,000 ids; d1f32_: the last column in f32 rows (LR's instance)", **gather,
     )
     got = gather_rows(table, gids, torch.bfloat16)  # the fanout's input
 
@@ -988,17 +1083,18 @@ def main() -> int:
 
     # 6. sorted_adagrad_update: the batch's sorted stream (425,984 ids) into
     # the 2,600,960 x 17 table, bf16 grads N(0, 0.01); then a dim-1 table;
-    # lr read by the kernel from device memory
+    # lr read by the kernel from device memory. Two instances derive from
+    # these draws (no new ones): PNN's 16-column table (d16_: the first 16
+    # columns of table, acc and grads) and LR's f32 grads on the dim-1 table
+    # (dim1_f32_)
     sorted_ids, _, _ = slot_sorted_ids(gids)
     n = sorted_ids.numel()
     lr, eps = 1e-2, 1e-8
     lr_t = torch.tensor(lr, device=dev)
     update = {}
-    for label, d1 in (("", DIM + 1), ("dim1_", 1)):
-        shape = (rows, d1) if d1 > 1 else (rows,)
-        upd_table = table.clone() if d1 > 1 else table[:, -1].contiguous()
-        upd_acc = torch.full(shape, 0.1, device=dev) + torch.rand(shape, generator=gen, device=dev)
-        grads = (torch.randn((n, *shape[1:]), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+
+    def adagrad_instance(label, upd_table, upd_acc, grads):
+        d1 = upd_table.shape[1] if upd_table.dim() > 1 else 1
         t_cpu, a_cpu = upd_table.cpu(), upd_acc.cpu()
         sorted_adagrad_update_reference(t_cpu, a_cpu, sorted_ids.cpu(), grads.cpu(), lr_t.cpu(), eps)
         sorted_adagrad_update(upd_table, upd_acc, sorted_ids, grads, lr_t, eps)
@@ -1006,7 +1102,7 @@ def main() -> int:
         err = max((upd_table.cpu() - t_cpu).abs().max().item(), (upd_acc.cpu() - a_cpu).abs().max().item())
         check(err == 0.0, f"sorted_adagrad_update {label or 'd17 '}bit-exact against the CPU plain version ({err})")
         touched = torch.unique(sorted_ids).numel()
-        b_ms, b_by = bound_ms(n * 4 + grads.numel() * 2 + touched * d1 * 4 * 4, 0.0)
+        b_ms, b_by = bound_ms(n * 4 + grads.numel() * grads.element_size() + touched * d1 * 4 * 4, 0.0)
         # each touched sector of the table and acc read once and written once
         sectors = (range_sectors(sorted_ids) + range_sectors(grads)
                    + 2 * (row_sectors(upd_table, sorted_ids) + row_sectors(upd_acc, sorted_ids)))
@@ -1017,11 +1113,25 @@ def main() -> int:
             upd_table, upd_acc, sorted_ids, grads, lr_t, eps)
         library = adagrad_library_step(upd_table, sorted_ids, grads, lr, eps)
         update.update(short_times(kernel, plain, library, label))
-        del upd_table, upd_acc, grads, t_cpu, a_cpu
+
+    for label, d1 in (("", DIM + 1), ("dim1_", 1)):
+        shape = (rows, d1) if d1 > 1 else (rows,)
+        upd_table = table.clone() if d1 > 1 else table[:, -1].contiguous()
+        upd_acc = torch.full(shape, 0.1, device=dev) + torch.rand(shape, generator=gen, device=dev)
+        grads = (torch.randn((n, *shape[1:]), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+        derived = (("d16_", upd_table[:, :DIM].contiguous(), upd_acc[:, :DIM].contiguous(),
+                    grads[:, :DIM].contiguous()) if d1 > 1 else
+                   ("dim1_f32_", upd_table.clone(), upd_acc.clone(), grads.float()))
+        adagrad_instance(label, upd_table, upd_acc, grads)
+        adagrad_instance(*derived)
+        del upd_table, upd_acc, grads, derived
     report["sorted_adagrad_update"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/adagrad_update.cu",
         replaces="recmodels_tpu/embedding/pallas_update.py:427",
-        also_replaces="recmodels_tpu/embedding/pallas_update.py:296 (the dim1_ keys)",
+        also_replaces="recmodels_tpu/embedding/pallas_update.py:296 (the dim1_ and dim1_f32_ keys)",
+        shapes="unprefixed keys: 425,984 sorted ids into 2,600,960 x 17, bf16 grads; d16_: its first 16 "
+               "columns (PNN's table); dim1_: a [2,600,960] table, bf16 grads; dim1_f32_: the same with f32 "
+               "grads (LR's table)",
         timing=SHORT_TIMING,
         tol=0.0, **update,
     )
@@ -1052,7 +1162,7 @@ def main() -> int:
     launches = training_phase(
         "full-width bf16 xDeepFM, Adam 1e-3 + sparse Adagrad 1e-2", engine, schema, BATCH,
         (gather_rows, split_fused_rows, cin2_forward, sorted_adagrad_update, split_fused_rows_backward,
-         cin2_backward), 11, card, gen, scan=True)
+         cin2_backward), 11, card, gen, scan=True, evaluate=True)
     launches3 = training3_phase(engine3, schema, card, gen)
     adam_dense_check(engine3, ids, card, gen)
     paths = {"slice2": launches, "slice3": launches3}
@@ -1086,6 +1196,30 @@ def main() -> int:
         paths[path] = training_phase(f"{title}, Adam 1e-3 + sparse Adagrad 1e-2", engine4, schema, n,
                                      train_kernels, seed, card, gen, rows_scale)
     repaired_shapes_phase(card, gen)
+
+    # ------------------------------- slice 6: LR, PNN, Wide&Deep, NFM, AFM
+    # each: (path, title, bf16, TrainConfig kwargs, stream seed, rows'
+    # scale) at bench.py's widths and BATCH; each serves through the gather
+    # (#1) and trains through the gather and the sparse Adagrad update (#4;
+    # #8 on LR's dim-1 table)
+    zoo = (
+        ("lr", "full-width f32 LR", False, {}, 41, 10.0),
+        ("pnn", f"full-width bf16 PNN (inner and outer), DNN{PNN_HIDDEN}", True,
+         dict(pnn_mode="both", hidden=PNN_HIDDEN), 43, 3.0),
+        ("widedeep", f"full-width bf16 Wide&Deep, DNN{WIDEDEEP_HIDDEN}", True, dict(hidden=WIDEDEEP_HIDDEN), 47,
+         10.0),
+        ("nfm", f"full-width bf16 NFM, DNN{NFM_HIDDEN}", True, dict(hidden=NFM_HIDDEN), 53, 3.0),
+        ("afm", f"full-width bf16 AFM, attention {AFM_ATTENTION}", True, dict(attention_dim=AFM_ATTENTION), 59,
+         10.0),
+    )
+    for path, title, bf16, kw, seed, rows_scale in zoo:
+        cfg6 = TrainConfig(model=path, bf16=bf16, vocab_size=VOCAB, embed_dim=DIM, batch_size=BATCH,
+                           seed=SEED, **kw)
+        engine6 = Engine(build_model(path, schema, **cfg6.model_kwargs()))
+        serving_phase(title, cfg6, engine6, (gather_rows,), zoo_term_sizes, batch.dense, batch.ids, card, gen,
+                      rows_scale)
+        paths[path] = training_phase(f"{title}, Adam 1e-3 + sparse Adagrad 1e-2", engine6, schema, BATCH,
+                                     (gather_rows, sorted_adagrad_update), seed, card, gen, rows_scale)
     launched = paths["xdeepfm_f32"]["cin_layer_forward"]
     check(launched == 2 * TRAIN_STEPS,
           f"cin_layer_forward launched twice a step on the f32 xDeepFM path ({launched} in {TRAIN_STEPS} steps)")
@@ -1095,7 +1229,8 @@ def main() -> int:
     # for lazy Adam, the CIN layer and the transpose, DeepFM's for
     # fm_pairwise_forward, DCN's for dcn_cross_stack_forward); every path's
     # count is listed beside them (launches_xdeepfm_f32: the f32 xDeepFM
-    # step's)
+    # step's; launches_lr: LR's, whose sorted_adagrad_update count is #8's,
+    # the dim-1 instance)
     main_keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms")
     kernel_rows = []
@@ -1201,13 +1336,16 @@ def serving_phase(title: str, cfg, engine, kernels, terms, dense_np, ids_np, car
 
 
 def training_phase(title: str, engine, schema, batch_size: int, kernels, seed: int, card: str,
-                   gen: torch.Generator, rows_scale: float = 10.0, scan: bool = False) -> dict[str, int]:
+                   gen: torch.Generator, rows_scale: float = 10.0, scan: bool = False,
+                   evaluate: bool = False) -> dict[str, int]:
     """Train ``engine``'s model (one table, sparse Adagrad) on the card for
     TRAIN_STEPS steps of the synthetic stream (``seed``) at ``batch_size``;
     every kernel in ``kernels`` must launch on every step and the loss must
     fall; one step from live weights at TRAIN_CHECK_BATCH must match the CPU
     plain path's step; then the captured step on the same batches
-    (``captured_phase``, with ``jit_train_scan`` where ``scan``). Returns
+    (``captured_phase``, with ``jit_train_scan`` where ``scan``). Where
+    ``evaluate``, ``eval_phase`` scores the state of the TRAIN_STEPS steps
+    before the one-step check changes it. Returns
     each kernel's launches over the TRAIN_STEPS eager steps (the counts are
     set to 0 just before them and read just after)."""
     from recmodels_tpu_torch.data import SyntheticSource
@@ -1240,6 +1378,8 @@ def training_phase(title: str, engine, schema, batch_size: int, kernels, seed: i
           f"({TRAIN_STEPS} steps in {wall:.3f} s, first steps included)")
     check(bool(torch.isfinite(losses).all()), "finite losses")
     check(last < first, "the loss falls over the steps")
+    if evaluate:
+        eval_phase(title, engine, schema, state, card)
 
     state = one_step_check(engine, state, batches[0], gen, rows_scale)
 
@@ -1265,6 +1405,74 @@ def training_phase(title: str, engine, schema, batch_size: int, kernels, seed: i
     del state
     captured_phase(title, engine, batches, card, step_ms, busy, scan=scan)
     return launches
+
+
+def eval_phase(title: str, engine, schema, state, card: str) -> None:
+    """Evaluate the trained ``state`` on EVAL_BATCHES batches of BATCH from
+    the stream EVAL_SEED (the training task) and a tail batch whose first
+    EVAL_TAIL rows count (``weight`` 0/1), each through ``Engine.eval_step``
+    and through ``Engine.jit_eval_step`` into two AUC states: they must
+    agree bit for bit. The card's logits copied to the CPU must give, by the
+    CPU's ``auc_update``, the same histograms and count and the loss sum to
+    LOSS_SUM_RTOL; the AUC must lie within AUC_TOL of the exact rank AUC of
+    those logits (scipy's midranks). Prints the eager and the captured eval
+    step's events per batch."""
+    from scipy.stats import rankdata
+
+    from recmodels_tpu_torch.data import SyntheticSource
+    from recmodels_tpu_torch.train.metrics import auc_compute, auc_init, auc_update
+
+    print(f"== eval ({title}): {EVAL_BATCHES} batches of {BATCH} (stream {EVAL_SEED}) and a tail batch of "
+          f"{EVAL_TAIL} kept rows")
+    dev = torch.device("cuda")
+    src = iter(SyntheticSource(schema, batch_size=BATCH, seed=EVAL_SEED))
+    batches = [tuple(torch.as_tensor(a, device=dev) for a in (b.dense, b.ids, b.labels))
+               for b in (next(src) for _ in range(EVAL_BATCHES + 1))]
+    weights = [None] * EVAL_BATCHES + [(torch.arange(BATCH, device=dev) < EVAL_TAIL).float()]
+    eager, captured, cpu = auc_init(device=dev), auc_init(device=dev), auc_init(device="cpu")
+    es = engine.jit_eval_step()
+    kept_z, kept_y = [], []
+    for (dense, ids, labels), w in zip(batches, weights):
+        engine.eval_step(state, eager, dense, ids, labels, w)
+        check(es(state, captured, dense, ids, labels, w) is captured, "jit_eval_step returns its AUC state")
+        with torch.no_grad():
+            z = engine.logits(state, dense, ids).cpu()
+        y = labels.cpu()
+        auc_update(cpu, z, y, None if w is None else w.cpu())
+        keep = torch.ones_like(y, dtype=torch.bool) if w is None else w.cpu() > 0
+        kept_z.append(z[keep])
+        kept_y.append(y[keep])
+    torch.cuda.synchronize()
+    # the weighted tail is a shape of its own, and its one call is that
+    # shape's eager warm-up: one graph, the unweighted batches'
+    check(es.graphs == 1, f"one graph for the unweighted batches ({es.graphs})")
+    same = all(torch.equal(a, b) for a, b in zip(eager, captured))
+    print(f"eval: jit_eval_step's AUC state {'equals' if same else 'differs from'} eval_step's, bit for bit")
+    check(same, "jit_eval_step's AUC state equals eval_step's bit for bit")
+    n = EVAL_BATCHES * BATCH + EVAL_TAIL
+    for name in ("pos_hist", "neg_hist", "count"):
+        check(torch.equal(getattr(eager, name).cpu(), getattr(cpu, name)),
+              f"the card's {name} equals the CPU auc_update's on the card's logits")
+    check(int(eager.count) == n and int(eager.pos_hist.sum() + eager.neg_hist.sum()) == n,
+          f"{n} examples counted")
+    loss_err = abs(float(eager.loss_sum) - float(cpu.loss_sum)) / abs(float(cpu.loss_sum))
+    check(loss_err <= LOSS_SUM_RTOL, f"eval loss sum within {LOSS_SUM_RTOL} of the CPU's ({loss_err:.3g})")
+    out = auc_compute(eager)
+    z, y = torch.cat(kept_z).double().numpy(), torch.cat(kept_y).numpy() > 0.5
+    n_pos, n_neg = int(y.sum()), int((~y).sum())
+    exact = (rankdata(z)[y].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
+    err = abs(float(out["auc"]) - exact)
+    print(f"eval: AUC {float(out['auc']):.6f} (exact rank AUC {exact:.6f}, err {err:.3g}, tol {AUC_TOL}), logloss "
+          f"{float(out['logloss']):.6f}, accuracy {float(out['accuracy']):.6f}, {out['count']:.0f} examples; "
+          f"histograms and count equal to the CPU's, loss sum {loss_err:.3g} apart")
+    check(err <= AUC_TOL, f"histogram AUC within {AUC_TOL} of the exact AUC")
+    dense, ids, labels = batches[0]
+    eager_t, captured_t = auc_init(device=dev), auc_init(device=dev)
+    eager_ms = time_ms(lambda: engine.eval_step(state, eager_t, dense, ids, labels), iters=10)
+    captured_ms = time_ms(lambda: es(state, captured_t, dense, ids, labels), iters=10)
+    print(f"eval step at {BATCH} ({title}): eager {eager_ms:.4f} ms, captured {captured_ms:.4f} ms per batch "
+          f"(CUDA events, 10 back-to-back calls; captured: batch copied in, one replay), "
+          f"{BATCH / captured_ms * 1e3:.0f} examples/s captured, on {card}")
 
 
 def named_tensors(tree, prefix: str = ""):
@@ -1371,7 +1579,7 @@ def captured_phase(title: str, engine, batches, card: str, eager_ms: float, kern
 def one_step_check(engine, state, batch, gen: torch.Generator, rows_scale: float = 10.0, dim: int = DIM):
     """One step from a live state (``liven``) at TRAIN_CHECK_BATCH examples
     of ``batch`` on the card and on the CPU plain path, for a model with one
-    table and sparse Adagrad: the loss within LOGIT_REL_TOL of max |logit|,
+    table (``emb``, or LR's 1-D ``wide``) and sparse Adagrad: the loss within LOGIT_REL_TOL of max |logit|,
     Adam's moments and the touched rows of the table and acc within
     STEP_REL_TOL of their largest change, untouched rows bit for bit.
     Returns the card's state after the step."""
@@ -1397,13 +1605,19 @@ def one_step_check(engine, state, batch, gen: torch.Generator, rows_scale: float
     # m/(sqrt(v) + eps) is near lr * sign(g) where this step's grads outgrow
     # the history (as after liven), so grads that agree to 2^-8 can give
     # params a sizeable share of a step apart: the params are not compared.
-    (gname,) = state.emb_params["emb"]
-    table_b = before.emb_params["emb"][gname]
-    acc_b = before.emb_opt["emb"][gname]["acc"]
-    gpu_t, gpu_a = state.emb_params["emb"][gname].cpu(), state.emb_opt["emb"][gname]["acc"].cpu()
-    cpu_t, cpu_a = cpu_state.emb_params["emb"][gname], cpu_state.emb_opt["emb"][gname]["acc"]
+    ((cname, groups),) = state.emb_params.items()
+    (gname,) = groups
+
+    def rows2d(t):  # dim-1 tables are 1-D
+        return t.reshape(t.shape[0], -1)
+
+    table_b = rows2d(before.emb_params[cname][gname])
+    acc_b = rows2d(before.emb_opt[cname][gname]["acc"])
+    gpu_t = rows2d(state.emb_params[cname][gname].cpu())
+    gpu_a = rows2d(state.emb_opt[cname][gname]["acc"].cpu())
+    cpu_t, cpu_a = rows2d(cpu_state.emb_params[cname][gname]), rows2d(cpu_state.emb_opt[cname][gname]["acc"])
     touched = torch.zeros(table_b.shape[0], dtype=torch.bool)
-    touched[engine.collections["emb"].group_row_ids(cpu_in[1])[gname].reshape(-1).long()] = True
+    touched[engine.collections[cname].group_row_ids(cpu_in[1])[gname].reshape(-1).long()] = True
     # the fused wide column's grads outgrow the embedding columns': each part
     # is held to its own largest change
     parts = ((("embedding columns", slice(0, -1)), ("wide column", slice(-1, None)))

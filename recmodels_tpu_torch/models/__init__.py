@@ -1,28 +1,35 @@
-"""Model registry (port of ``recmodels_tpu/models/__init__.py``).
+"""Model registry (port of ``recmodels_tpu/models/__init__.py``): the nine
+models of the JAX zoo under the same names."""
 
-xDeepFM, FM, DeepFM and DCN are ported; the other five models of the JAX
-zoo are registered by name and raise until ROADMAP.md's queue 1, item 3
-ports them."""
-
+from recmodels_tpu_torch.models.afm import AFMModel
 from recmodels_tpu_torch.models.base import CTRModel, wide_schema
 from recmodels_tpu_torch.models.dcn import DCNModel
 from recmodels_tpu_torch.models.deepfm import DeepFMModel
 from recmodels_tpu_torch.models.fm import FMModel
+from recmodels_tpu_torch.models.lr import LRModel
+from recmodels_tpu_torch.models.nfm import NFMModel
+from recmodels_tpu_torch.models.pnn import PNNModel
+from recmodels_tpu_torch.models.widedeep import WideDeepModel
 from recmodels_tpu_torch.models.xdeepfm import XDeepFMModel
 
-MODEL_REGISTRY = {"fm": FMModel, "deepfm": DeepFMModel, "dcn": DCNModel, "xdeepfm": XDeepFMModel}
-NOT_PORTED = ("lr", "pnn", "widedeep", "nfm", "afm")
+MODEL_REGISTRY = {
+    "lr": LRModel,
+    "fm": FMModel,
+    "deepfm": DeepFMModel,
+    "pnn": PNNModel,
+    "dcn": DCNModel,
+    "xdeepfm": XDeepFMModel,
+    "widedeep": WideDeepModel,
+    "nfm": NFMModel,
+    "afm": AFMModel,
+}
 
 
 def build_model(name: str, schema, **kwargs) -> CTRModel:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model '{name}' is not ported yet: ROADMAP.md, queue 1, item 3"
-        )
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model '{name}'; have {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name](schema, **kwargs)
 
 
-__all__ = ["CTRModel", "wide_schema", "FMModel", "DeepFMModel", "DCNModel", "XDeepFMModel",
-           "MODEL_REGISTRY", "build_model"]
+__all__ = ["CTRModel", "wide_schema", "LRModel", "FMModel", "DeepFMModel", "PNNModel", "DCNModel",
+           "XDeepFMModel", "WideDeepModel", "NFMModel", "AFMModel", "MODEL_REGISTRY", "build_model"]

@@ -6,9 +6,9 @@ environment switch and no backend probe. A CPU tensor takes the plain
 version; a CUDA tensor launches the kernels (or raises on what they do not
 take); the plain version never stands in for a kernel on the card.
 
-``dcn_cross_layer`` has a kernel in neither package (the JAX package's
-single-layer entry returns its reference): it is the plain op on every
-device.
+``dcn_cross_layer``, ``pnn_inner_products`` and ``pnn_outer_product`` have
+a kernel in neither package (the JAX package's TPU entries return its
+reference): they are the plain ops on every device.
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ _KERNELS: Dict[str, Callable] = {
     "fm_pairwise": interactions_cuda.fm_pairwise_op,
     "dcn_cross_stack": interactions_cuda.dcn_cross_stack_op,
     "dcn_cross_layer": interactions.dcn_cross_layer,
+    "pnn_inner_products": interactions.pnn_inner_products,
+    "pnn_outer_product": interactions.pnn_outer_product,
 }
 
 

@@ -75,8 +75,11 @@ def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
     ``dense_leaves`` in JAX's flatten order (dict keys sorted, lists in
     order: the order of ``utils.tree.leaves`` over the model's
     ``init_dense``; for DCN: bias, cross/b, cross/w, mlp/i/b, mlp/i/w,
-    w_out) and ``emb_tables`` keyed ``emb/<collection>/<group>``, canonical
-    2-D f32 (``params.npz``'s keys).
+    w_out) and ``emb_tables`` keyed ``emb/<collection>/<group>`` as
+    ``params.npz`` holds them: f32 ``[rows, dim]``, and ``[rows]`` for a
+    dim-1 group (LR's only table, ``emb/wide/d1``). The engine's collections
+    name the keys: ``emb/emb/d17`` for a fused table, ``emb/emb/d16`` for
+    PNN's and DCN's.
 
     Raises ``ValueError`` unless the leaf count and every shape match this
     engine's model."""

@@ -1,12 +1,14 @@
-"""CUDA graphs of the training step and of the scorer: the port's counterpart
-of ``jax.jit`` over ``Engine.train_step`` and ``Engine.logits``.
+"""CUDA graphs of the training step, the eval step and the scorer: the port's
+counterpart of ``jax.jit`` over ``Engine.train_step``, ``Engine.eval_step``
+and ``Engine.logits``.
 
 A step launches a hundred and more kernels, and the host's time to launch
 them exceeds the card's time to run them; a graph replays them all at one
 host call. What a replay needs from the code it replays:
 
 * every tensor it reads or writes keeps its address: the state is updated in
-  place (the step and Adam's count are device tensors, advanced in place),
+  place (the step and Adam's count are device tensors, advanced in place;
+  eval adds into the ``AUCState``'s tensors),
   the batch is copied into static input buffers before each replay, and the
   outputs are static tensors that the next replay overwrites, so callers get
   copies;
@@ -67,65 +69,83 @@ class _Shape:
         self.inputs = tuple(torch.empty(t.shape, dtype=t.dtype, device=device) for t in batch)
         self.warm = False
         self.graph = None
-        self.loss = None  # the graph's static output
+        self.out = None  # the graph's static output
 
 
-class CapturedStep:
-    """``Engine.jit_train_step``'s callable: ``(state, dense, ids, labels) ->
-    (state, {'loss', 'overflow'})``, as ``Engine.train_step``.
+class _Captured:
+    """Graphs of ``fn(state, *batch)``, one per batch shape, for one state.
 
     On a CUDA state, for each batch shape: the first call copies the batch
-    into static buffers and runs the step eagerly on a side stream (a real
-    step of the sequence); the second copies it in, captures the step
-    (which executes nothing) and replays it once; later calls copy in and
-    replay. On a CPU state every call copies into the same buffers and runs
-    ``train_step`` on them. The loss handed back is a copy: the static
-    output changes at the next replay."""
+    into static buffers and runs ``fn`` eagerly on a side stream (a real step
+    of the sequence); the second copies it in, captures ``fn`` (which
+    executes nothing) and replays it once; later calls copy in and replay.
+    On a CPU state every call copies into the same buffers and runs ``fn``
+    on them."""
 
-    def __init__(self, engine):
-        self.engine = engine
+    def __init__(self, fn: Callable):
+        self.fn = fn
         self._state = None  # state_key of the state the graphs write into
         self._shapes: dict[tuple, _Shape] = {}
         self._pool = None  # one memory pool for every shape's graph
         self._stream = None
-
-    def __call__(self, state, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor):
-        loss = self.step(state, (dense, ids, labels))
-        return state, {"loss": loss.clone(), "overflow": 0}
 
     @property
     def graphs(self) -> int:
         """How many graphs are captured (one per batch shape)."""
         return sum(s.graph is not None for s in self._shapes.values())
 
-    def step(self, state, batch) -> torch.Tensor:
-        """One step of ``state`` on ``batch`` (dense, ids, labels); returns
-        the loss, on the card the graph's static output: copy it before the
-        next call."""
+    def step(self, state, batch):
+        """``fn`` of ``state`` on ``batch`` (a tuple of tensors); returns
+        ``fn``'s output, on the card the graph's static output: copy it
+        before the next call."""
         key = state_key(state)
         if key != self._state:  # another state: its own buffers and graphs
             self._shapes.clear()
             self._pool = None
             self._state = key
-        device = state.step.device
+        device = next(t for t in leaves(state) if isinstance(t, torch.Tensor)).device
         sig = tuple((tuple(t.shape), t.dtype) for t in batch)
         shape = self._shapes.get(sig)
         if shape is None:
             shape = self._shapes[sig] = _Shape(batch, device)
         for buf, t in zip(shape.inputs, batch):
             buf.copy_(t)
-        run = lambda: self.engine.train_step(state, *shape.inputs)[1]["loss"]  # noqa: E731
+        run = lambda: self.fn(state, *shape.inputs)  # noqa: E731
         if device.type != "cuda":
             return run()
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
         if not shape.warm:
-            loss = warm_up(run, self._stream)
-            loss.record_stream(torch.cuda.current_stream(device))
+            out = warm_up(run, self._stream)
+            out.record_stream(torch.cuda.current_stream(device))
             shape.warm = True
-            return loss
+            return out
         if shape.graph is None:
-            shape.graph, shape.loss = capture(run, self._pool, self._stream)
+            shape.graph, shape.out = capture(run, self._pool, self._stream)
             self._pool = shape.graph.pool()
         shape.graph.replay()
-        return shape.loss
+        return shape.out
+
+
+class CapturedStep(_Captured):
+    """``Engine.jit_train_step``'s callable: ``(state, dense, ids, labels) ->
+    (state, {'loss', 'overflow'})``, as ``Engine.train_step``; ``fn`` is the
+    step returning its loss. The loss handed back is a copy: the static
+    output changes at the next replay."""
+
+    def __call__(self, state, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor):
+        loss = self.step(state, (dense, ids, labels))
+        return state, {"loss": loss.clone(), "overflow": 0}
+
+
+class CapturedEval(_Captured):
+    """``Engine.jit_eval_step``'s callable: ``(state, auc_state, dense, ids,
+    labels, weight=None) -> auc_state``, as ``Engine.eval_step``; ``fn``
+    takes ``(state, auc_state)`` as its state, so a graph belongs to both,
+    and a batch with ``weight`` has graphs of its own."""
+
+    def __call__(self, state, auc_state, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor,
+                 weight: torch.Tensor | None = None):
+        batch = (dense, ids, labels) if weight is None else (dense, ids, labels, weight)
+        self.step((state, auc_state), batch)
+        return auc_state

@@ -1,22 +1,23 @@
 """The engine: embedding collections + a model + both optimizers.
 
-Port of ``recmodels_tpu/train/engine.py`` for single-device serving and
-training: ``LocalTables`` (single-device tables, their gather and their
-sparse update: Adagrad, lazy Adam or dense Adam) and ``Engine`` (the
-wide-column fusion, ``fuse_wide``, ``init``, ``logits``, ``train_step`` and
-``train_scan``). As in the JAX package, the loss is
-differentiated with respect to the gathered rows (O(batch) memory), and the
-sparse optimizer applies the row grads to the touched rows only (dense Adam:
-to every row).
+Port of ``recmodels_tpu/train/engine.py`` for one device: ``LocalTables``
+(single-device tables, their gather and their sparse update: Adagrad, lazy
+Adam or dense Adam) and ``Engine`` (the wide-column fusion, ``fuse_wide``,
+``init``, ``logits``, ``train_step``, ``train_scan`` and ``eval_step``). As
+in the JAX package, the loss is differentiated with respect to the gathered
+rows (O(batch) memory), and the sparse optimizer applies the row grads to
+the touched rows only (dense Adam: to every row).
 
 State is updated in place: ``train_step`` changes the tensors of the state
 it is given (the table and its accumulator alone are 354 MB at full width),
 its 0-d int32 ``step`` included, and returns that state, as the JAX engine
-donates its state. ``jit_train_step`` and ``jit_train_scan``, named after
-their JAX counterparts, run the same step as one CUDA graph per batch shape
-(``train/capture.py``). Gradient accumulation, in-graph data generation,
-evaluation, schedules, weight decay and the sharded tables come with later
-slices.
+donates its state; ``eval_step`` adds a batch into the tensors of the
+``AUCState`` it is given (``train/metrics.py``). ``jit_train_step``,
+``jit_train_scan`` and ``jit_eval_step``, named after their JAX
+counterparts, run the same steps as one CUDA graph per batch shape
+(``train/capture.py``). Gradient accumulation, schedules, weight decay,
+in-graph data generation and the sharded tables (with the cross-device
+merge of ``eval_step``'s histograms) come with later slices.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from recmodels_tpu_torch.embedding.optim import (
 )
 from recmodels_tpu_torch.embedding.update import device_constant
 from recmodels_tpu_torch.models.base import CTRModel
-from recmodels_tpu_torch.train.capture import CapturedStep
+from recmodels_tpu_torch.train.capture import CapturedEval, CapturedStep
+from recmodels_tpu_torch.train.metrics import AUCState, auc_update
 from recmodels_tpu_torch.train.optim import get_dense_optimizer
 from recmodels_tpu_torch.utils import tree
 
@@ -142,8 +144,12 @@ class Engine:
 
     def __post_init__(self):
         # f32 products (dense @ w_dense, p @ w_cin, the widened MLP) stay
-        # full f32 on the card, as on the CPU and in the JAX package
+        # full f32 on the card, as on the CPU and in the JAX package; bf16
+        # products (AFM's attention) sum in f32 there too, where cuBLAS
+        # would otherwise be free to split a long reduction (AFM's 325
+        # pairs) into bf16 partial sums
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         schemas = self.model.embedding_schemas()
         self._fused_wide = (
             self.fuse_wide
@@ -270,6 +276,17 @@ class Engine:
         losses = torch.stack(losses)
         return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
 
+    # ---------------------------------------------------------------- eval
+    def eval_step(self, state: TrainState, auc_state: AUCState, dense: torch.Tensor,
+                  ids: torch.Tensor, labels: torch.Tensor,
+                  weight: torch.Tensor | None = None) -> AUCState:
+        """Score a batch and add it to ``auc_state`` in place (its
+        histograms, loss sum and count; ``weight`` a [B] 0/1 mask for padded
+        tail rows); returns ``auc_state``. Inputs as for ``train_step``, the
+        AUC state on the same device."""
+        with torch.no_grad():
+            return auc_update(auc_state, self.logits(state, dense, ids), labels, weight)
+
     # ------------------------------------------------------------- capture
     def jit_train_step(self) -> CapturedStep:
         """``train_step`` as one CUDA graph per batch shape: a callable with
@@ -278,14 +295,14 @@ class Engine:
         second captures the step and replays it, and later calls replay; a
         state with other tensors captures again. On a CPU state it runs the
         same static-buffer code without capture."""
-        return CapturedStep(self)
+        return CapturedStep(lambda state, *batch: self.train_step(state, *batch)[1]["loss"])
 
     def jit_train_scan(self):
         """``train_scan`` over ``jit_train_step``'s graph: K replays, batch k
         copied in before replay k and loss k written into a [K] buffer on
         the state's device. Returns (state, {'loss', 'losses', 'overflow'})
         as ``train_scan``."""
-        steps = CapturedStep(self)
+        steps = self.jit_train_step()
 
         def train_scan(state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
                        labels: torch.Tensor):
@@ -295,3 +312,13 @@ class Engine:
             return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
 
         return train_scan
+
+    def jit_eval_step(self) -> CapturedEval:
+        """``eval_step`` as one CUDA graph per batch shape (a batch with
+        ``weight`` is a shape of its own), captured and replayed as
+        ``jit_train_step``'s: a callable with ``eval_step``'s signature that
+        adds each batch into the tensors of the ``AUCState`` it is given and
+        returns it. A graph belongs to one train state and one AUC state
+        (their tensors' addresses); others capture again. On a CPU state it
+        runs the same static-buffer code without capture."""
+        return CapturedEval(lambda states, *batch: self.eval_step(*states, *batch).count)

@@ -10,7 +10,8 @@ them, held against the previous formulas and against the JAX package.
   ulp of JAX's ``1 - b**t`` for t from 1 to 10^5; the sparse updates' plain
   versions read lr and ``[lr, bc1, bc2]`` from their tensors.
 * On a CPU state ``jit_train_step`` runs the static-buffer code without
-  capture: bit for bit ``train_step`` on small slice-2 and slice-3 engines,
+  capture: bit for bit ``train_step`` on small slice-2 and slice-3 engines
+  and on AFM,
   and ``jit_train_scan``'s losses ``train_scan``'s; a second state or batch
   shape does not write into the first state.
 * Groups that share one ids tensor (slice 3's ``emb`` and ``wide``) share
@@ -228,6 +229,24 @@ def test_jit_train_step_equals_train_step_on_the_cpu(slice3):
         assert torch.equal(me["loss"], mc["loss"]) and mc["overflow"] == 0
         assert _same_bits(compiled, _snapshot(eager))
     assert int(compiled.step) == 3 and ts.graphs == 0  # no capture on the CPU
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_jit_train_step_equals_train_step_on_afm(bf16):
+    """AFM (the fused table through the engine's slicing route, the pair
+    products' own backward, the f32 softmax): ``jit_train_step`` bit for bit
+    ``train_step`` over three steps on the CPU."""
+    cfg = TrainConfig(model="afm", vocab_size=50, embed_dim=16, attention_dim=8, bf16=bf16)
+    schema = build_schema(cfg)
+    eng = Engine(build_model("afm", schema, **cfg.model_kwargs()))
+    eager, compiled = eng.init(seed=0, device="cpu"), eng.init(seed=0, device="cpu")
+    ts = eng.jit_train_step()
+    for b in _batches(schema, 3):
+        eager, me = eng.train_step(eager, *b)
+        compiled, mc = ts(compiled, *b)
+        assert torch.equal(me["loss"], mc["loss"])
+        assert _same_bits(compiled, _snapshot(eager))
+    assert int(compiled.step) == 3 and ts.graphs == 0
 
 
 def test_jit_train_step_hands_back_a_copy_of_the_loss():

@@ -825,15 +825,17 @@ def test_fm_and_dcn_functions_on_the_card(cuda):
 def _small_engine(path):
     """Small engines of every training path: slice 2 (CIN(32, 32), fused
     wide column, Adagrad), slice 3 (CIN(128, 128, 128), unfused wide table,
-    lazy Adam), DeepFM, DCN and FM (slice 4), the flagship's dtypes."""
+    lazy Adam), DeepFM, DCN and FM (slice 4), LR, PNN (mode both), Wide&Deep,
+    NFM and AFM (slice 6), bench.py's dtypes."""
     from recmodels_tpu_torch.models import build_model
     from recmodels_tpu_torch.train.engine import Engine
     from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
 
     model = "xdeepfm" if path.startswith("slice") else path
     kw = {"slice2": dict(cin_sizes=(32, 32)), "slice3": dict(cin_sizes=(128, 128, 128)),
-          "dcn": dict(n_cross=2)}.get(path, {})
-    cfg = TrainConfig(model=model, vocab_size=1000, embed_dim=16, hidden=(64, 64), bf16=path != "fm", **kw)
+          "dcn": dict(n_cross=2), "afm": dict(attention_dim=8)}.get(path, {})
+    cfg = TrainConfig(model=model, vocab_size=1000, embed_dim=16, hidden=(64, 64),
+                      bf16=path not in ("fm", "lr"), **kw)
     schema = build_schema(cfg)
     opts = dict(sparse_optimizer="adam", fuse_wide=False) if path == "slice3" else {}
     return Engine(build_model(model, schema, **cfg.model_kwargs()), **opts), schema, cfg
@@ -853,7 +855,8 @@ def _tensors(state):
     return [t for t in leaves(state) if isinstance(t, torch.Tensor)]
 
 
-@pytest.mark.parametrize("path", ["slice2", "slice3", "deepfm", "dcn", "fm"])
+@pytest.mark.parametrize("path", ["slice2", "slice3", "deepfm", "dcn", "fm", "lr", "pnn", "widedeep", "nfm",
+                                  "afm"])
 def test_captured_steps_equal_eager_steps(cuda, path):
     """Five steps through ``jit_train_step`` (an eager warm-up, the capture
     and its replay, three replays) against five eager ``train_step``s from
@@ -981,3 +984,64 @@ def test_captured_predictor_matches_eager_logits(cuda, tmp_path):
     with torch.inference_mode():
         want = pred.engine.logits(pred.state, pad_d, pad_i)[:100].cpu()
     assert torch.equal(torch.from_numpy(got), want) and sorted(pred._buckets) == [128]
+
+
+# ---------------------------------------------------------------- slice 6
+def test_gather_kernel_on_lrs_one_column_f32_rows(cuda):
+    """#1 as LR runs it: the 1-D dim-1 table (viewed [R, 1]) at 26 slots x
+    16,384 batch-order ids, f32 rows: one launch, bit for bit the plain
+    version."""
+    g = _gen(cuda, 61)
+    rows = 2_600_960
+    table = torch.randn((rows,), generator=g, device=cuda) * 0.2
+    ids = torch.randint(0, rows, (16_384, 26), generator=g, device=cuda, dtype=torch.int32)
+    _gather_checked(table.reshape(rows, 1), ids, torch.float32)
+
+
+@pytest.mark.parametrize("dim,grad_dtype", [(16, torch.bfloat16), (1, torch.float32)],
+                         ids=["pnn_d16_bf16", "lr_d1_f32"])
+def test_adagrad_update_kernel_on_the_zoo_streams(cuda, dim, grad_dtype):
+    """#4 at PNN's 16 columns with bf16 grads and #8 at LR's dim-1 table
+    with f32 grads, on a stream of the flagship's size (425,984 sorted ids
+    into 2,600,960 rows, duplicates and sentinels): bit for bit the plain
+    version on the CPU."""
+    table, acc, ids, grads = _stream(cuda, 2_600_960, dim, 425_984, 0.05, grad_dtype, seed=62)
+    lr = torch.tensor(1e-2, device=cuda)
+    t_cpu, a_cpu = table.cpu(), acc.cpu()
+    sorted_adagrad_update_reference(t_cpu, a_cpu, ids.cpu(), grads.cpu(), lr.cpu(), 1e-8)
+    before = sorted_adagrad_update.launches
+    sorted_adagrad_update(table, acc, ids, grads, lr, 1e-8)
+    torch.cuda.synchronize()
+    assert sorted_adagrad_update.launches == before + 1
+    assert torch.equal(table.cpu(), t_cpu) and torch.equal(acc.cpu(), a_cpu)
+
+
+@pytest.mark.parametrize("path", ["deepfm", "afm", "lr"])
+def test_captured_eval_equals_eager_eval(cuda, path):
+    """Four eval batches through ``jit_eval_step`` (warm-up, capture,
+    replays) and three masked batches (a weight of 0/1: a shape of its own,
+    so its warm-up, capture and a replay) against ``eval_step`` from the
+    same AUC state: the int32 histograms, the count and the loss sum bit for
+    bit; the CPU's ``auc_update`` on the card's logits gives the same
+    histograms."""
+    from recmodels_tpu_torch.train.metrics import auc_init, auc_update
+
+    eng, schema, _ = _small_engine(path)
+    state = eng.init(seed=0, device=cuda)
+    es = eng.jit_eval_step()
+    eager, captured, cpu = auc_init(device=cuda), auc_init(device=cuda), auc_init(device="cpu")
+    weight = (torch.arange(512, device=cuda) < 300).float()
+    for k, b in enumerate(_card_batches(schema, 7, cuda, seed=5)):
+        w = weight if k >= 4 else None
+        eng.eval_step(state, eager, *b, w)
+        assert es(state, captured, *b, w) is captured
+        with torch.no_grad():
+            z = eng.logits(state, b[0], b[1]).cpu()
+        auc_update(cpu, z, b[2].cpu(), None if w is None else w.cpu())
+    torch.cuda.synchronize()
+    assert es.graphs == 2 and int(captured.count) == 4 * 512 + 3 * 300
+    for x, y, c in zip(eager, captured, cpu):
+        assert torch.equal(x, y)
+        if x.dtype == torch.int32:
+            assert torch.equal(x.cpu(), c)
+    torch.testing.assert_close(eager.loss_sum.cpu(), cpu.loss_sum, rtol=1e-5, atol=0)

@@ -19,6 +19,10 @@
   kernel or einsums, by JAX's condition) and ``TransposeMinor2`` against
   ``torch.autograd`` through the plain ops; 3-layer ``cin_stack_dm_flat``
   and ``cin_stack_flat`` and their grads against the JAX ops;
+* the ops of PNN, NFM and AFM (``triu_pair_indices``, ``pnn_inner_products``,
+  ``pnn_outer_product``, ``fm_bi_interaction``, ``afm_pair_products``),
+  plain PyTorch on every device, and their grads against JAX's ops and
+  ``jax.vjp``, in f32 and bf16;
 * dispatch: what runs for a CPU tensor and what raises for other devices.
 """
 
@@ -747,3 +751,106 @@ def test_fm_and_dcn_dispatch_names_are_the_jax_packages(name):
     x = torch.empty((4, 3, 6), device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=f"{name}: no kernel"):
         get_op(name)(x) if name == "fm_pairwise" else get_op(name)(x[:, 0], x[:3, 0], x[:3, 0])
+
+
+# ------------------------------------------------- PNN, NFM and AFM ops
+ZOO_OPS = ("pnn_inner_products", "pnn_outer_product", "fm_bi_interaction", "afm_pair_products")
+
+
+def _zoo_scale(name: str, emb: np.ndarray) -> np.ndarray:
+    """Per output value, the sum of the magnitudes its formula adds (in f64):
+    a rounding of any term or sum moves the value by a share of it, however
+    much the terms cancel."""
+    e = np.asarray(emb, np.float64)
+    fi, fj = J.triu_pair_indices(e.shape[1])
+    s = np.abs(e).sum(1)  # bounds |sum_f e_f| and what its sum adds
+    if name == "pnn_inner_products":
+        return np.abs(e[:, fi] * e[:, fj]).sum(-1)
+    if name == "pnn_outer_product":
+        return s[:, :, None] * s[:, None, :]
+    if name == "fm_bi_interaction":
+        return s * s + (e * e).sum(1)
+    return np.abs(e[:, fi] * e[:, fj])
+
+
+@pytest.mark.parametrize("n", [2, 5, 26])
+def test_triu_pair_indices_are_jaxs(n):
+    """The pair order of every product op: ``np.triu_indices`` row-major,
+    (0, 1), (0, 2), ..., the order JAX's slices of AFM's pairs keep."""
+    for got, want in zip(T.triu_pair_indices(n), J.triu_pair_indices(n)):
+        assert got.dtype == want.dtype == np.int32 and np.array_equal(got, want)
+    assert T.triu_pair_indices(n)[0].size == n * (n - 1) // 2
+
+
+@pytest.mark.parametrize("name", ZOO_OPS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_zoo_ops_match_jax(name, dtype):
+    """Each op on the engine's strided view ``full[..., :16]`` of fused rows
+    (B = 97, 26 fields) against JAX's reference on the same values, per
+    value to a share of ``_zoo_scale``: f32 1e-6 (sums of 16 or 26 values
+    in another order); bf16 2^-7: the same rounding points (each op's
+    docstring), but a sum in another order may round one bf16 step (2^-8 of
+    the scale at most) apart, and a rounded input of a difference moves the
+    difference by as much. AFM's pair products are one rounded product
+    each: bit for bit in both dtypes."""
+    jemb, temb = _fm_inputs(97, 26, 16, dtype, seed=40, packed=False)
+    got = getattr(T, name)(temb)
+    want = np.asarray(getattr(J, name)(jemb).astype(jnp.float32))
+    assert got.dtype == temb.dtype and tuple(got.shape) == want.shape
+    if name == "afm_pair_products":
+        assert np.array_equal(_np(got), want)
+        return
+    frac = 1e-6 if dtype == "f32" else 2.0 ** -7
+    err = np.abs(_np(got) - want)
+    tol = frac * _zoo_scale(name, _np(temb))
+    assert np.all(err <= tol), (err.max(), (err / tol).max())
+
+
+@pytest.mark.parametrize("name", ZOO_OPS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_zoo_op_grads_match_jax_vjp(name, dtype):
+    """The grads on the strided view (the engine's leaf) against
+    ``jax.vjp`` of JAX's reference: f32 to 1e-5 of the largest grad (the
+    same formulas, sums in another order); bf16 by the repo's rule, 3%:
+    autograd of the port's forms (PNN's f32 Gram product, AFM's symmetric
+    grid, summed in f32 and rounded once) rounds at other points than JAX's
+    autodiff."""
+    jemb, temb = _fm_inputs(97, 26, 16, dtype, seed=41, packed=False)
+    shape = np.asarray(getattr(J, name)(jemb)).shape
+    g = np.random.default_rng(42).normal(size=shape).astype(np.float32)
+    (jg,), (tg,) = _both([g], dtype)
+    x = temb.detach().requires_grad_(True)
+    (got,) = torch.autograd.grad((getattr(T, name)(x).float() * tg.float()).sum(), x)
+    assert got.dtype == temb.dtype and got.shape == temb.shape
+    _, vjp = jax.vjp(getattr(J, name), jemb)
+    (want,) = vjp(jg)
+    _max_err_within(_np(got), want.astype(jnp.float32), 1e-5 if dtype == "f32" else 0.03)
+
+
+def test_afm_pair_products_function_matches_autograd_of_plain_ops():
+    """f32: ``AfmPairProducts``'s backward (the symmetric grid of pair grads,
+    each field's row summed in order) against autograd through JAX's own
+    form, the row-major slices ``e_i * e_{i+1:}``: the same values to f32
+    rounding; and two backwards give the same bits."""
+    _, temb = _fm_inputs(40, 26, 16, "f32", seed=43)
+    g = torch.from_numpy(np.random.default_rng(44).normal(size=(40, 325, 16)).astype(np.float32))
+
+    def slices(e):
+        return torch.cat([e[:, i:i + 1] * e[:, i + 1:] for i in range(e.shape[1] - 1)], dim=1)
+
+    grads = []
+    for fn in (T.AfmPairProducts.apply, T.AfmPairProducts.apply, slices):
+        x = temb.clone().requires_grad_(True)
+        out = fn(x)
+        assert torch.equal(out.detach(), slices(temb))
+        grads.append(torch.autograd.grad((out * g).sum(), x)[0])
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], grads[2], rtol=1e-5, atol=1e-5 * grads[2].abs().max().item())
+
+
+@pytest.mark.parametrize("name", ["pnn_inner_products", "pnn_outer_product"])
+def test_pnn_dispatch_names_are_the_jax_packages(name):
+    """PNN's two dispatched ops have a kernel in neither package: the plain
+    op on every device, under JAX's names."""
+    assert name in jdispatch._REFERENCE
+    assert get_op(name) is getattr(T, name)

@@ -4,7 +4,10 @@ and the other way round (an artifact the port exports loads in the JAX
 package). Logits are held against JAX's jitted ``Engine.logits`` on the same
 batches, ragged sizes included. The same round trip for DeepFM (the fused
 wide column, the FM term on the stride-17 view) and DCN (one dim-8 table,
-the cross stack) at the end."""
+the cross stack), then for LR (only the 1-D dim-1 ``wide`` table), PNN (one
+dim-8 ``emb`` table, no fused column), Wide&Deep, NFM and AFM (the fused
+dim-9 table) at the end, with the treedef check of both loaders on each of
+the last five."""
 
 import json
 import os
@@ -225,6 +228,10 @@ def test_entry_points_default_to_cuda(trained, monkeypatch):
     eng = Engine(build_model("xdeepfm", build_schema(TrainConfig(**_cfg(True)))))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eng.init(seed=0)
+    from recmodels_tpu_torch.train.metrics import auc_init
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        auc_init()
 
 
 def test_engine_init_follows_jax_layout():
@@ -241,13 +248,6 @@ def test_engine_init_follows_jax_layout():
     assert jax.tree_util.tree_structure(ours) == jax.tree_util.tree_structure(jst.dense_params)
     assert [x.shape for x in jax.tree_util.tree_leaves(ours)] == [
         x.shape for x in jax.tree_util.tree_leaves(jst.dense_params)]
-
-
-def test_unported_models_name_the_roadmap():
-    """DeepFM is ported now; PNN, like the other models still to port,
-    raises naming the roadmap."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("pnn", build_schema(TrainConfig(vocab_size=500)))
 
 
 def test_train_state_from_jax_carries_any_sparse_optimizer_state():
@@ -325,3 +325,89 @@ def test_port_deepfm_and_dcn_artifacts_load_in_jax(trained_zoo, tmp_path):
     jpred = jload(out, min_bucket=max(SIZES))
     b = trained_zoo["batch"]
     np.testing.assert_array_equal(jpred.predict_logits(b.dense, b.ids), trained_zoo["want"])
+
+
+# ------------------------------------------- LR, PNN, Wide&Deep, NFM, AFM
+ZOO = ("lr", "pnn", "widedeep", "nfm", "afm")
+ZOO_CASES = [("lr", False)] + [(m, bf16) for m in ZOO[1:] for bf16 in (False, True)]
+
+
+def _slice6_cfg(model: str, bf16: bool) -> dict:
+    return dict(model=model, vocab_size=500, embed_dim=8, hidden=(32, 32), attention_dim=8, bf16=bf16)
+
+
+@pytest.fixture(scope="module", params=ZOO_CASES,
+                ids=[f"{m}-{'bf16' if bf16 else 'f32'}" for m, bf16 in ZOO_CASES])
+def trained_slice6(request, tmp_path_factory):
+    model, bf16 = request.param
+    cfg = JConfig(**_slice6_cfg(model, bf16))
+    eng, state, schema = _train_jax(cfg)
+    art = str(tmp_path_factory.mktemp(f"artifact_{model}"))
+    jexport(art, cfg, eng, state)
+    batch = next(iter(SyntheticSource(schema, batch_size=max(SIZES), seed=9)))
+    want = np.asarray(jax.jit(eng.logits)(state, jnp.asarray(batch.dense), jnp.asarray(batch.ids)))
+    return dict(model=model, bf16=bf16, eng=eng, state=state, art=art, batch=batch, want=want)
+
+
+def test_port_serves_jax_zoo_artifacts(trained_slice6):
+    """A JAX LR, PNN, Wide&Deep, NFM or AFM artifact served by the port on
+    the CPU, ragged request sizes included, against JAX's jitted logits on
+    each request: f32 to rounding order, bf16 by the repo's rule. LR's
+    artifact holds only ``emb/wide/d1`` (1-D), PNN's a dim-8 ``emb`` table
+    with no fused column, the others the fused dim-9 table."""
+    pred = load_predictor(trained_slice6["art"], device="cpu")
+    model = trained_slice6["model"]
+    assert pred.engine.model.name == model
+    tables = {f"{c}/{g}": tuple(t.shape) for c, gs in pred.state.emb_params.items() for g, t in gs.items()}
+    rows = 13 * 1024
+    assert tables == {"lr": {"wide/d1": (rows,)}, "pnn": {"emb/d8": (rows, 8)}}.get(model, {"emb/d9": (rows, 9)})
+    b = trained_slice6["batch"]
+    for n in SIZES:
+        got = pred.predict_logits(b.dense[:n], b.ids[:n])
+        assert got.shape == (n,) and got.dtype == np.float32
+        want = np.asarray(jax.jit(trained_slice6["eng"].logits)(
+            trained_slice6["state"], jnp.asarray(b.dense[:n]), jnp.asarray(b.ids[:n])))
+        _check(got, want, trained_slice6["bf16"])
+
+
+def test_port_zoo_artifacts_load_in_jax(trained_slice6, tmp_path):
+    """The port's export of a loaded LR, PNN, Wide&Deep, NFM or AFM has
+    JAX's treedef and table keys, loads in the JAX package and gives the
+    JAX model's jitted logits bit for bit (the weights round-trip
+    exactly)."""
+    pred = load_predictor(trained_slice6["art"], device="cpu")
+    assert treedef_str(pred.state.dense_params) == str(
+        jax.tree_util.tree_structure(trained_slice6["state"].dense_params))
+    out = str(tmp_path / "from_port")
+    export_model(out, TrainConfig(**_slice6_cfg(trained_slice6["model"], trained_slice6["bf16"])),
+                 pred.engine, pred.state)
+    with np.load(os.path.join(out, "params.npz")) as x, \
+            np.load(os.path.join(trained_slice6["art"], "params.npz")) as y:
+        assert sorted(x.files) == sorted(y.files)
+        for k in x.files:
+            np.testing.assert_array_equal(x[k], y[k])
+    jpred = jload(out, min_bucket=max(SIZES))
+    b = trained_slice6["batch"]
+    np.testing.assert_array_equal(jpred.predict_logits(b.dense, b.ids), trained_slice6["want"])
+
+
+@pytest.mark.parametrize("model", ZOO)
+def test_zoo_treedef_mismatch_rejected_by_both_loaders(model, tmp_path):
+    """For each of the five, an artifact whose stored tree names another
+    key than the model's (every leaf's shape unchanged) is refused by JAX's
+    loader and the port's alike, as for xDeepFM."""
+    cfg = TrainConfig(**_slice6_cfg(model, False))
+    eng = Engine(build_model(model, build_schema(cfg), **cfg.model_kwargs()))
+    art = tmp_path / "renamed"
+    export_model(str(art), cfg, eng, eng.init(seed=0, device="cpu"))
+    with np.load(art / "params.npz") as data:
+        arrays = {k: data[k] for k in data.files}
+    tree = str(arrays["treedef"])
+    key = {"lr": "'bias'", "pnn": "'mlp'", "afm": "'h_att'"}.get(model, "'mlp'")
+    assert key in tree
+    arrays["treedef"] = np.array(tree.replace(key, key[:-2] + "q'"))
+    np.savez(art / "params.npz", **arrays)
+    with pytest.raises(ValueError, match="structure mismatch"):
+        jload(str(art))
+    with pytest.raises(ValueError, match="structure mismatch"):
+        load_predictor(str(art), device="cpu")

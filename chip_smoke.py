@@ -116,7 +116,31 @@ Phases, each on its own lines:
                model's interaction term must each move the logits), training
                as in 5 (the gather and the sparse update on every step) and
                its captured step (no scan);
- 10. a JSON line listing the kernels (launches from the run of each kernel's
+ 10. slice 7, the training entry point, on the flagship at full width through
+     the port's CLIs and Trainer:
+     (g) the loop: ``cli.train`` for 60 steps in superbatches of 10, a
+         cosine schedule with 10 warmup steps, adamw decay 1e-4, eval of 4
+         held-out batches at step 60, checkpoints every 20, the producer
+         pool at its default size and a profiler trace of superbatches 2-4:
+         every kernel of the step launches inside the Trainer, the last
+         logged loss is below the first, val AUC and logloss are finite,
+         checkpoints 20, 40 and 60 exist; the loop's examples/s per log
+         interval, then a 200-step run without checkpoints, eval or trace
+         (its sustained examples/s) and the producer pool alone, beside
+         (c') of the same configuration; the card's busy share over the
+         trace, and the ms to save and restore one full-width checkpoint;
+     (h) resume: 40 steps straight, and 20 steps then a resume to 40 by a
+         new run (constant lr, decay, checkpoints every 10): the two final
+         checkpoints equal bit for bit;
+     (i) compiled steps: ``jit_train_step_accum`` (two micro-batches of
+         8,192) 10 steps and a 30-step cosine-with-warmup ``jit_train_step``
+         run, each in lockstep with its eager step, bit for bit after every
+         step; the accumulated step's captured ms;
+     (j) ``cli.export`` of checkpoint 60 and ``cli.predict`` of two synthetic
+         batches with the artifact, against sigmoid(Engine.logits) of the
+         restored checkpoint; 4 steps on the Criteo sample through the native
+         parser and its 96 rows scored;
+ 11. a JSON line listing the kernels (launches from the run of each kernel's
      path), then the card line again, then the result line
      {"ok": true, "device": {...}}.
 
@@ -127,6 +151,7 @@ alone, without the package beside it.
 
 from __future__ import annotations
 
+import faulthandler
 import hashlib
 import json
 import os
@@ -176,6 +201,31 @@ AUC_TOL = 1e-4
 # sums of 173,840 values in another order, exp rounded apart by an ulp
 LOSS_SUM_RTOL = 1e-5
 SEED = 0
+# slice 7, the training entry point (phases g-j): the flagship through the
+# CLIs and the port's Trainer. The loop: LOOP_STEPS steps in superbatches of
+# LOOP_SCAN, a cosine schedule with LOOP_WARMUP warmup steps, adamw decay
+# LOOP_DECAY, eval of LOOP_EVAL_BATCHES at the end, checkpoints every
+# LOOP_CKPT_EVERY; the resume drill RESUME_STEPS straight against half and a
+# resume; the compiled steps ACCUM_STEPS accumulated steps of two
+# micro-batches and SCHED_STEPS scheduled ones
+LOOP_STEPS = 60
+LOOP_SCAN = 10
+LOOP_WARMUP = 10
+LOOP_DECAY = 1e-4
+LOOP_EVAL_BATCHES = 4
+LOOP_CKPT_EVERY = 20
+RESUME_STEPS = 40
+# the sustained loop: enough superbatches past the producer's prefetch (2)
+# that the later intervals show the rate at which batches are made
+SUSTAIN_STEPS = 200
+SUSTAIN_FROM = 60
+ACCUM_STEPS = 10
+SCHED_STEPS = 30
+FIXTURE = os.path.join("tests", "fixtures", "criteo_sample.tsv")
+FIXTURE_BATCH = 32
+# each of phases g-j takes under a minute; one still running after this many
+# seconds is hung: every thread's stack is printed and the script exits
+PHASE_LIMIT_S = 300
 # kernel vs plain on bf16 outputs: both sum in f32 in different orders and then
 # round to bf16, so a value may land one bf16 step (2^-8 relative) apart; p2
 # sums 3,328 such inputs. 1% of the largest magnitude covers that, and a
@@ -1224,6 +1274,15 @@ def main() -> int:
     check(launched == 2 * TRAIN_STEPS,
           f"cin_layer_forward launched twice a step on the f32 xDeepFM path ({launched} in {TRAIN_STEPS} steps)")
 
+    # ------------------------- slice 7: the training entry point, phases g-j
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as work:
+        loop_ckpt = watched(loop_phase, work, (gather_rows, split_fused_rows, cin2_forward,
+                                               sorted_adagrad_update, split_fused_rows_backward, cin2_backward),
+                            card)
+        watched(resume_phase, work, card)
+        watched(compiled_steps_phase, schema, card)
+        watched(export_predict_phase, work, loop_ckpt, card)
+
     # each kernel's launches come from the first path in this order that
     # runs it (slice 2's for the six kernels of the xDeepFM step, slice 3's
     # for lazy Adam, the CIN layer and the transpose, DeepFM's for
@@ -1247,6 +1306,332 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
+
+
+# --------------------------------------------- slice 7: the entry point
+class _Tee:
+    """A stream that writes to two."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def watched(phase, *args):
+    """``phase(*args)``; if it is still running after PHASE_LIMIT_S seconds,
+    every thread's stack goes to stderr and the process exits non-zero."""
+    faulthandler.dump_traceback_later(PHASE_LIMIT_S, exit=True)
+    try:
+        return phase(*args)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def run_cli(main, argv: list[str]) -> str:
+    """Run a CLI's ``main(argv)`` in this process, its output shown and
+    returned; fails unless it returns 0."""
+    import contextlib
+    import io
+
+    print("$ python -m " + main.__module__ + " " + " ".join(argv))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, out)):
+        rc = main(argv)
+    check(rc == 0, f"{main.__module__} returned {rc}")
+    return out.getvalue()
+
+
+def flagship_args(batch: int | None = None) -> list[str]:
+    """The flagship's flags (bench.py:72): bf16 xDeepFM, 26 slots x 1e5 ids,
+    dim 16 plus the fused wide column, CIN(128,128), DNN(400,400), dense Adam
+    1e-3 and sparse Adagrad 1e-2 (TrainConfig's defaults), seed SEED."""
+    return ["--model", "xdeepfm", "--batch-size", str(batch or BATCH), "--set", "bf16=True",
+            "--set", f"vocab_size={VOCAB}", "--set", f"embed_dim={DIM}", "--set", f"cin_sizes={CIN}",
+            "--set", f"hidden={HIDDEN}", "--set", f"seed={SEED}"]
+
+
+def logged(out: str, kind: str) -> list[tuple[int, dict]]:
+    """(step, scalars) of each ``step N <kind> {...}`` line a logger wrote."""
+    import re
+
+    return [(int(m.group(1)), json.loads(m.group(2)))
+            for m in re.finditer(rf"step +(\d+) {kind} (\{{.*\}})", out)]
+
+
+def trace_busy(path: str) -> tuple[float, float]:
+    """(device busy ms, window ms) of a torch.profiler Chrome trace: the union
+    of the card's kernel, copy and set spans, and the span of every event."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    window = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    busy, end = 0.0, None
+    for start, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")):
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e3, window
+
+
+def saved_tensors(path: str) -> list[tuple[str, torch.Tensor]]:
+    """(path, tensor) of every tensor a checkpoint's state.pt holds."""
+    return list(named_tensors(torch.load(path, map_location="cpu", weights_only=True)))
+
+
+def loop_phase(work: str, kernels, card: str) -> str:
+    """(g) ``cli.train.main`` trains the flagship LOOP_STEPS steps through the
+    port's Trainer: superbatches of LOOP_SCAN (``jit_train_scan``), a cosine
+    schedule with LOOP_WARMUP warmup steps on both lrs, adamw's decay,
+    checkpoints every LOOP_CKPT_EVERY, eval of LOOP_EVAL_BATCHES held-out
+    batches at the end, the producer pool at its default size and a
+    torch.profiler trace of superbatches 2-4. Every kernel of the step must
+    launch inside the Trainer (the wrappers count the eager warm-up and the
+    capture), the last logged loss must be below the first, val AUC and
+    logloss finite, and checkpoints 20, 40 and 60 on disk. Prints the
+    loop's examples/s per log interval, the sustained rate of a
+    SUSTAIN_STEPS-step run without checkpoints, eval or trace, and the
+    producer pool's rate alone, beside (c') of the same configuration
+    (jit_train_step, events); the card's busy share over the traced window;
+    and the ms to save and restore one full-width checkpoint. Returns the
+    checkpoint directory."""
+    from recmodels_tpu_torch.cli import train as train_cli
+    from recmodels_tpu_torch.data import SyntheticSource
+    from recmodels_tpu_torch.train.checkpoint import CheckpointManager
+    from recmodels_tpu_torch.train.loop import Trainer, make_producer_pool
+    from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
+
+    print(f"== the loop (g): cli.train, full-width bf16 xDeepFM, {LOOP_STEPS} steps at {BATCH}")
+    ckpt, trace_dir = os.path.join(work, "loop"), os.path.join(work, "loop-trace")
+    argv = flagship_args() + [
+        "--steps", str(LOOP_STEPS), "--ckpt-dir", ckpt, "--profile-dir", trace_dir,
+        "--set", f"scan_steps={LOOP_SCAN}", "--set", "log_every=10", "--set", "lr_schedule='cosine'",
+        "--set", f"warmup_steps={LOOP_WARMUP}", "--set", f"dense_weight_decay={LOOP_DECAY}",
+        "--set", f"eval_every={LOOP_STEPS}", "--set", f"eval_batches={LOOP_EVAL_BATCHES}",
+        "--set", f"ckpt_every={LOOP_CKPT_EVERY}"]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = run_cli(train_cli.main, argv)
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"launches inside the Trainer (eager warm-ups and captures; replays are not counted): {launches}")
+    for name, count in launches.items():
+        check(count > 0, f"{name} launched inside the Trainer")
+    train, val = logged(out, "train"), logged(out, "val")
+    check([s for s, _ in train] == list(range(10, LOOP_STEPS + 1, 10)), "a train line every 10 steps")
+    check(train[-1][1]["loss"] < train[0][1]["loss"],
+          f"the last logged loss ({train[-1][1]['loss']}) is below the first ({train[0][1]['loss']})")
+    check(len(val) == 1 and all(np.isfinite(val[0][1][k]) for k in ("auc", "logloss")),
+          f"finite val AUC and logloss ({val})")
+    steps = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+    check(steps == [20, 40, 60], f"checkpoints 20, 40 and 60 on disk ({steps})")
+    print(f"val at step {val[0][0]}: AUC {val[0][1]['auc']}, logloss {val[0][1]['logloss']}")
+
+    # what each log interval held: the save at 10 (the first) and at 20 and
+    # 40 fall in the intervals that end 10 steps later; the trace covers
+    # superbatches 2-4 (steps 20-50); 50-60 holds steps alone
+    held = {10: "warm-up, capture", 20: "save of 10", 30: "save of 20, trace", 40: "trace",
+            50: "save of 40, trace", 60: "steps only"}
+    for step, scalars in train:
+        print(f"loop examples/s, steps {step - 10}-{step} ({held.get(step, '')}): "
+              f"{scalars['examples_per_sec']:.1f} on {card}")
+    print(f"loop, the whole cli.train run ({LOOP_STEPS} steps, start-up, eval and checkpoints included): "
+          f"{wall:.3f} s, {LOOP_STEPS * BATCH / wall:.1f} examples/s on {card}")
+    busy, window = trace_busy(os.path.join(trace_dir, "trace.json"))
+    print(f"loop, superbatches 2-4 (torch.profiler): the card busy {busy:.3f} ms of a {window:.3f} ms window "
+          f"({busy / window:.1%}) on {card}")
+
+    # the intervals above hold what a checkpoint or the trace stalled; the
+    # producer fills its queue meanwhile, so an interval after a stall can
+    # run on prefetched superbatches. The sustained rate: a run without
+    # checkpoints, eval or trace, its intervals from SUSTAIN_FROM on
+    sustain = run_cli(train_cli.main, flagship_args() + [
+        "--steps", str(SUSTAIN_STEPS), "--set", f"scan_steps={LOOP_SCAN}", "--set", "log_every=10",
+        "--set", "eval_every=0"])
+    rates = [sc["examples_per_sec"] for step, sc in logged(sustain, "train") if step > SUSTAIN_FROM]
+    check(len(rates) == (SUSTAIN_STEPS - SUSTAIN_FROM) // 10, "a train line every 10 steps of the sustained run")
+    sustained = float(np.median(rates))
+    print(f"loop, sustained ({SUSTAIN_STEPS} steps, no checkpoint, eval or trace; the intervals after step "
+          f"{SUSTAIN_FROM}): median {sustained:.1f} examples/s (min {min(rates):.1f}, max {max(rates):.1f}) on {card}")
+
+    cfg = TrainConfig.from_json(open(os.path.join(ckpt, "config.json")).read())
+    src = SyntheticSource(build_schema(cfg), batch_size=BATCH, seed=cfg.seed)
+    workers = min(8, (os.cpu_count() or 4) // 2)
+    pool = make_producer_pool(src, workers, range(workers + 40))
+    try:
+        for _ in range(workers):  # the workers up
+            next(pool)
+        t0 = time.perf_counter()
+        for _ in range(40):
+            next(pool)
+        made = 40 * BATCH / (time.perf_counter() - t0)
+    finally:
+        pool.close()
+    print(f"the producer pool alone ({workers} workers on {os.cpu_count()} host cores, 40 batches of {BATCH}): "
+          f"{made:.1f} examples/s, on the host of {card}")
+
+    trainer = Trainer(cfg.apply_overrides(["ckpt_dir=None"]))
+    state = trainer.engine.init(seed=cfg.seed, device=trainer.device)
+    b = next(iter(SyntheticSource(trainer.schema, batch_size=BATCH, seed=71)))
+    dense, ids, labels = (torch.as_tensor(a, device="cuda") for a in (b.dense, b.ids, b.labels))
+    step_ms = time_ms(lambda: trainer.train_step(state, dense, ids, labels), iters=10)
+    print(f"(c') of the loop's configuration (jit_train_step with the schedules and decay, CUDA events, 10 "
+          f"calls): {step_ms:.4f} ms per step, {BATCH / step_ms * 1e3:.1f} examples/s; the sustained loop "
+          f"reaches {sustained / (BATCH / step_ms * 1e3):.1%} of it, on {card}")
+
+    mgr = CheckpointManager(os.path.join(work, "timing"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, state)
+    t_copy = time.perf_counter()
+    mgr.wait()
+    t_write = time.perf_counter()
+    mgr.restore(state)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter()
+    size = sum(os.path.getsize(os.path.join(work, "timing", "1", f)) for f in os.listdir(os.path.join(work, "timing", "1")))
+    print(f"one full-width checkpoint ({size / 2**20:.1f} MiB): save {1e3 * (t_copy - t0):.1f} ms to copy to "
+          f"the host + {1e3 * (t_write - t_copy):.1f} ms to write (background), restore "
+          f"{1e3 * (t_restore - t_write):.1f} ms, on {card}")
+    del trainer, state
+    return ckpt
+
+
+def resume_phase(work: str, card: str) -> None:
+    """(h) cli.train: run A trains RESUME_STEPS steps straight; run B trains
+    half of them, then a new run resumes B's directory to RESUME_STEPS
+    (constant lr, adamw decay, superbatches of 10, checkpoints every 10):
+    every tensor of the two final checkpoints equal bit for bit."""
+    from recmodels_tpu_torch.cli import train as train_cli
+
+    print(f"== resume (h): {RESUME_STEPS} steps straight against {RESUME_STEPS // 2} and a resume")
+    common = flagship_args() + ["--set", f"scan_steps={LOOP_SCAN}", "--set", "ckpt_every=10", "--set", "eval_every=0",
+                                "--set", f"dense_weight_decay={LOOP_DECAY}", "--set", "log_every=10"]
+    a, b = os.path.join(work, "resume-a"), os.path.join(work, "resume-b")
+    t0 = time.perf_counter()
+    run_cli(train_cli.main, common + ["--steps", str(RESUME_STEPS), "--ckpt-dir", a])
+    run_cli(train_cli.main, common + ["--steps", str(RESUME_STEPS // 2), "--ckpt-dir", b])
+    out = run_cli(train_cli.main, common + ["--steps", str(RESUME_STEPS), "--ckpt-dir", b])
+    check(f"resumed from checkpoint at step {RESUME_STEPS // 2}" in out, "the third run resumed at the half")
+    ta = saved_tensors(os.path.join(a, str(RESUME_STEPS), "state.pt"))
+    tb = saved_tensors(os.path.join(b, str(RESUME_STEPS), "state.pt"))
+    check([n for n, _ in ta] == [n for n, _ in tb], "the two final states hold the same tensors")
+    differ = [n for (n, x), (_, y) in zip(ta, tb) if not torch.equal(x, y)]
+    check(not differ, f"resumed run bit for bit the straight one (differ: {differ[:5]})")
+    print(f"resume: all {len(ta)} tensors of the two step-{RESUME_STEPS} states equal bit for bit "
+          f"({time.perf_counter() - t0:.3f} s for the three runs) on {card}")
+
+
+def compiled_steps_phase(schema, card: str) -> None:
+    """(i) On the flagship: ``jit_train_step_accum`` with A = 2 (two
+    micro-batches of BATCH / 2) for ACCUM_STEPS steps in lockstep with eager
+    ``train_step_accum``, then SCHED_STEPS ``jit_train_step``s on a cosine
+    schedule with warmup (both lrs change every step) with adamw's decay in
+    lockstep with eager ``train_step``: every loss and every state tensor
+    must agree bit for bit after every step. Prints the accumulated step's
+    captured ms (CUDA events, 10 calls)."""
+    from recmodels_tpu_torch.data import SyntheticSource
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.train.engine import Engine
+    from recmodels_tpu_torch.train.schedules import build_lr_schedule
+    from recmodels_tpu_torch.utils.config import TrainConfig
+
+    print("== compiled steps (i): the accumulated and the scheduled step, captured against eager")
+    dev = torch.device("cuda")
+    cfg = TrainConfig(model="xdeepfm", bf16=True, vocab_size=VOCAB, embed_dim=DIM, cin_sizes=CIN, hidden=HIDDEN)
+    src = iter(SyntheticSource(schema, batch_size=BATCH, seed=67))
+    batches = [tuple(torch.as_tensor(a, device=dev) for a in (b.dense, b.ids, b.labels))
+               for b in (next(src) for _ in range(ACCUM_STEPS))]
+
+    def lockstep(title, engine, eager_step, captured_step, batches) -> None:
+        eager = engine.init(seed=SEED, device=dev)
+        captured = to_device(eager, dev)
+        for k, batch in enumerate(batches):
+            eager, me = eager_step(eager, *batch)
+            captured, mc = captured_step(captured, *batch)
+            check(torch.equal(me["loss"], mc["loss"]), f"{title}: step {k}'s loss bit for bit")
+            for (name, x), (_, y) in zip(named_tensors(eager), named_tensors(captured)):
+                check(torch.equal(x, y), f"{title}: {name} bit for bit after step {k}")
+        check(captured_step.graphs == 1, f"{title}: one graph captured ({captured_step.graphs})")
+        print(f"{title}: captured and eager agree bit for bit over {len(batches)} steps (every loss and "
+              f"every state tensor after every step) on {card}")
+
+    engine = Engine(build_model("xdeepfm", schema, **cfg.model_kwargs()))
+    micro = [tuple(t.reshape(2, BATCH // 2, *t.shape[1:]) for t in b) for b in batches]
+    ts = engine.jit_train_step_accum()
+    lockstep("jit_train_step_accum, A = 2", engine, engine.train_step_accum, ts, micro)
+    state = engine.init(seed=SEED, device=dev)
+    accum_ms = time_ms(lambda: ts(state, *micro[-1]), iters=10)
+    print(f"captured accumulated step (2 x {BATCH // 2}): {accum_ms:.4f} ms per step (CUDA events, 10 calls), "
+          f"{BATCH / accum_ms * 1e3:.1f} examples/s on {card}")
+    del state
+
+    sched = dict(kind="cosine", warmup_steps=LOOP_WARMUP, total_steps=SCHED_STEPS)
+    engine = Engine(build_model("xdeepfm", schema, **cfg.model_kwargs()),
+                    dense_lr_schedule=build_lr_schedule(1e-3, **sched),
+                    emb_lr_schedule=build_lr_schedule(1e-2, **sched), dense_weight_decay=LOOP_DECAY)
+    lockstep(f"jit_train_step on a cosine schedule with {LOOP_WARMUP} warmup steps", engine, engine.train_step,
+             engine.jit_train_step(), [batches[k % len(batches)] for k in range(SCHED_STEPS)])
+
+
+def export_predict_phase(work: str, loop_ckpt: str, card: str) -> None:
+    """(j) cli.export writes the artifact of the loop's last checkpoint and
+    cli.predict scores two synthetic batches with it: each probability
+    within 1/4 of the serving tolerance (LOGIT_REL_TOL of max |logit|;
+    sigmoid moves by at most a quarter of its argument's change) plus the
+    printed digits of sigmoid(Engine.logits) of the restored checkpoint.
+    Then cli.train trains FIXTURE_BATCH-example steps on the Criteo sample
+    through the native parser and cli.predict scores its 96 rows."""
+    from recmodels_tpu_torch.cli import export as export_cli
+    from recmodels_tpu_torch.cli import predict as predict_cli
+    from recmodels_tpu_torch.cli import train as train_cli
+    from recmodels_tpu_torch.data import SyntheticSource
+    from recmodels_tpu_torch.train.loop import Trainer
+    from recmodels_tpu_torch.utils.config import TrainConfig
+
+    print("== export and predict (j)")
+    art, preds = os.path.join(work, "artifact"), os.path.join(work, "preds.txt")
+    run_cli(export_cli.main, ["--ckpt-dir", loop_ckpt, "--out", art])
+    out = run_cli(predict_cli.main, ["--model-dir", art, "--data", "synthetic", "--max-batches", "2", "--out", preds])
+    probs = np.loadtxt(preds)
+    check(probs.shape == (2 * BATCH,) and bool(np.all(np.isfinite(probs))), f"{2 * BATCH} probabilities")
+    cfg = TrainConfig.from_json(open(os.path.join(loop_ckpt, "config.json")).read())
+    trainer = Trainer(cfg.apply_overrides([f"ckpt_dir={loop_ckpt!r}"]))
+    state, _ = trainer.ckpt.restore(trainer.engine.init(seed=cfg.seed, device=trainer.device))
+    check(int(state.step) == LOOP_STEPS, f"the artifact's checkpoint is step {LOOP_STEPS}")
+    src = iter(SyntheticSource(trainer.schema, batch_size=BATCH, seed=cfg.seed))
+    with torch.no_grad():
+        z = torch.cat([trainer.engine.logits(state, *(torch.as_tensor(a, device="cuda") for a in (b.dense, b.ids)))
+                       for b in (next(src) for _ in range(2))]).double().cpu().numpy()
+    err = float(np.abs(probs - 1.0 / (1.0 + np.exp(-z))).max())
+    tol = 0.25 * LOGIT_REL_TOL * float(np.abs(z).max()) + 5e-7
+    print(f"cli.predict against sigmoid(Engine.logits) of checkpoint {LOOP_STEPS}: max |p err| {err:.6g}, tol "
+          f"{tol:.6g} (max |logit| {np.abs(z).max():.6g})")
+    check(err <= tol, "the artifact's probabilities match the restored state's")
+    del trainer, state
+
+    fx, fx_preds = os.path.join(work, "fixture"), os.path.join(work, "fixture-preds.txt")
+    fixture = os.path.join(ROOT, FIXTURE)
+    run_cli(train_cli.main, flagship_args(FIXTURE_BATCH) + ["--data", fixture, "--steps", "4", "--ckpt-dir", fx,
+                                                            "--set", "eval_every=0", "--set", "log_every=2"])
+    out = run_cli(predict_cli.main, ["--ckpt-dir", fx, "--data", fixture, "--batch-size", str(FIXTURE_BATCH),
+                                      "--out", fx_preds])
+    fp = np.loadtxt(fx_preds)
+    check(fp.shape == (96,) and bool(np.all((fp > 0) & (fp < 1))), "96 probabilities of the Criteo sample")
+    check("eval n=96 auc=" in out, "the Criteo sample's 96 rows scored")
+    print(f"Criteo sample (native parser): 4 steps of {FIXTURE_BATCH}, 96 rows scored on {card}")
 
 
 def serving_phase(title: str, cfg, engine, kernels, terms, dense_np, ids_np, card: str,

@@ -1,6 +1,9 @@
 from recmodels_tpu_torch.data.schema import FeatureSpec, Schema, criteo_schema
 from recmodels_tpu_torch.data.hashing import hash_tokens, splitmix64
-from recmodels_tpu_torch.data.criteo import Batch, SyntheticSource, transform_dense
+from recmodels_tpu_torch.data.criteo import (
+    Batch, CriteoTSVSource, SyntheticSource, make_batch_iterator, parse_criteo_batch, parse_criteo_lines,
+    transform_dense,
+)
 
 __all__ = [
     "FeatureSpec",
@@ -9,6 +12,10 @@ __all__ = [
     "hash_tokens",
     "splitmix64",
     "Batch",
+    "CriteoTSVSource",
     "SyntheticSource",
+    "make_batch_iterator",
+    "parse_criteo_batch",
+    "parse_criteo_lines",
     "transform_dense",
 ]

@@ -12,6 +12,10 @@ Usage:
     pred = load_predictor(model_dir)              # on the GPU
     probs = pred.predict_proba(dense, ids)        # any batch size
 
+CLI: ``python -m recmodels_tpu_torch.cli.export --ckpt-dir runs/x --out
+artifacts/x`` (``export_from_checkpoint``), then ``python -m
+recmodels_tpu_torch.cli.predict --model-dir artifacts/x --data test.tsv``.
+
 The Predictor pads each request to a power-of-two bucket from ``min_bucket``
 (256), as the JAX package's does; on the card each bucket's ``Engine.logits``
 is a CUDA graph, captured at the bucket's first request and replayed after.
@@ -20,7 +24,7 @@ is a CUDA graph, captured at the bucket's first request and replayed after.
 from __future__ import annotations
 
 import os
-from typing import Any, Mapping, Sequence
+from typing import Any, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -107,38 +111,105 @@ def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
                       dense_params=dense_params, emb_params=emb_params)
 
 
-def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.ndarray],
-                         adam: tuple, emb_tables: Mapping[str, np.ndarray],
-                         emb_acc: Mapping[str, np.ndarray] | None = None, device="cuda", *,
-                         emb_opt: Mapping[str, Mapping[str, np.ndarray]] | None = None) -> TrainState:
-    """The port's training state from a JAX ``TrainState`` of an engine with
-    dense Adam, as numpy arrays: ``step``, the dense leaves (as for
-    ``params_from_jax``), ``adam`` = (count, mu leaves, nu leaves) of optax's
-    ``ScaleByAdamState``, the tables keyed ``emb/<collection>/<group>``, and
-    per group the sparse optimizer's state under the same keys: ``emb_opt``
-    maps each key to the group's state dict ({"acc": ...} for Adagrad,
-    {"m": ..., "v": ...} for lazy or dense Adam); ``emb_acc`` = {key: acc}
-    says the same for Adagrad.
+class _AdamState(NamedTuple):
+    """(count, mu, nu): the fields of optax's ``ScaleByAdamState``."""
 
-    Raises ``ValueError`` unless the dense optimizer is Adam, the state
-    names are the engine's sparse optimizer's, and every shape matches this
-    engine's model."""
-    if engine.dense_optimizer != "adam":
-        raise ValueError("train_state_from_jax takes an engine with dense Adam")
+    count: Any
+    mu: Any
+    nu: Any
+
+
+def _optax_nodes(tree) -> list:
+    """The optimizer states in an optax state tree, in chain order, as
+    (kind, fields): ``adam`` (``ScaleByAdamState``: count, mu, nu), ``rss``
+    (``ScaleByRssState``: sum_of_squares) and ``schedule``
+    (``ScaleByScheduleState``: count); states without fields (optax's
+    ``EmptyState``: a float lr, ``add_decayed_weights`` at a fixed rate,
+    sgd's identity) hold nothing and are skipped. Read by their fields, as
+    namedtuples, so the optax classes are not needed here."""
+    fields = getattr(tree, "_fields", None)
+    if fields is None:
+        return [node for t in tree for node in _optax_nodes(t)] if isinstance(tree, tuple) else []
+    kinds = {("count", "mu", "nu"): "adam", ("sum_of_squares",): "rss", ("count",): "schedule"}
+    if not fields:
+        return []
+    if tuple(fields) not in kinds:
+        raise ValueError(f"artifact/model structure mismatch: unknown optimizer state {type(tree).__name__}"
+                         f"{tuple(fields)}")
+    return [(kinds[tuple(fields)], tree)]
+
+
+def _dense_opt_from_jax(engine: Engine, params: list, dense_opt, device) -> dict:
+    """The engine's dense optimizer state from optax's state tree (leaves
+    as numpy arrays): adam, adamw, adagrad or sgd, each with or without a
+    schedule and with or without decay."""
+    nodes = _optax_nodes(dense_opt)
+    want = {"adam": ["adam"], "adagrad": ["rss"], "sgd": []}[engine.dense_optimizer]
+    want = want + (["schedule"] if engine.dense_tx.scheduled else [])
+    if [k for k, _ in nodes] != want:
+        raise ValueError(f"artifact/model structure mismatch: optimizer states {[k for k, _ in nodes]}, "
+                         f"the engine's dense {engine.dense_optimizer!r} keeps {want}")
+
+    def like_params(name, arrays):
+        arrays = list(leaves(arrays))
+        if [tuple(np.shape(a)) for a in arrays] != [tuple(p.shape) for p in params]:
+            raise ValueError(f"artifact/model structure mismatch: {name} leaves")
+        return [torch.tensor(np.asarray(a, np.float32), device=p.device) for a, p in zip(arrays, params)]
+
+    def count(x):
+        return torch.tensor(int(x), dtype=torch.int32, device=device)
+
+    out = {}
+    for kind, node in nodes:
+        if kind == "adam":
+            out.update(count=count(node.count), mu=like_params("Adam mu", node.mu),
+                       nu=like_params("Adam nu", node.nu))
+        elif kind == "rss":
+            out["sum_of_squares"] = like_params("Adagrad sum_of_squares", node.sum_of_squares)
+        else:
+            out["schedule_count"] = count(node.count)
+    return out
+
+
+def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.ndarray],
+                         adam: tuple | None = None, emb_tables: Mapping[str, np.ndarray] | None = None,
+                         emb_acc: Mapping[str, np.ndarray] | None = None, device="cuda", *,
+                         emb_opt: Mapping[str, Mapping[str, np.ndarray]] | None = None,
+                         dense_opt=None) -> TrainState:
+    """The port's training state from a JAX ``TrainState``, as numpy arrays:
+    ``step``, the dense leaves (as for ``params_from_jax``), the dense
+    optimizer's state, the tables keyed ``emb/<collection>/<group>``, and
+    per group the sparse optimizer's state under the same keys.
+
+    The dense optimizer's state comes as ``dense_opt``, the JAX state's
+    optax tree with numpy leaves (``jax.device_get(state).dense_opt``) for
+    any dense optimizer the engine builds: adam or adamw, adagrad or sgd
+    with or without ``add_decayed_weights``, each with a schedule's count
+    when the engine has ``dense_lr_schedule``; or, for an engine with dense
+    Adam at a constant lr, as ``adam`` = (count, mu leaves, nu leaves) of
+    optax's ``ScaleByAdamState``. ``emb_opt`` maps each table's key to the
+    group's state dict ({"acc": ...} for Adagrad, {"m": ..., "v": ...} for
+    lazy or dense Adam); ``emb_acc`` = {key: acc} says the same for Adagrad.
+
+    Raises ``ValueError`` unless the optimizer states are the engine's and
+    every shape matches this engine's model."""
+    if (adam is None) == (dense_opt is None):
+        raise ValueError("train_state_from_jax takes one of adam and dense_opt")
+    if adam is not None:
+        if engine.dense_optimizer != "adam" or engine.dense_tx.scheduled:
+            raise ValueError("train_state_from_jax takes adam for an engine with dense Adam "
+                             "at a constant lr; pass dense_opt")
+        count, mu, nu = adam
+        dense_opt = (_AdamState(count, mu, nu),)
+    if emb_tables is None:
+        raise ValueError("train_state_from_jax takes emb_tables")
     if (emb_acc is None) == (emb_opt is None):
         raise ValueError("train_state_from_jax takes one of emb_opt and emb_acc")
     if emb_acc is not None:
         emb_opt = {key: {"acc": acc} for key, acc in emb_acc.items()}
     names = sorted(engine.sparse_opt.init(1, 1))
     state = params_from_jax(engine, dense_leaves, emb_tables, device)
-    count, mu, nu = adam
-    params = list(leaves(state.dense_params))
-    moments = []
-    for name, arrays in (("mu", mu), ("nu", nu)):
-        if [tuple(np.shape(a)) for a in arrays] != [tuple(p.shape) for p in params]:
-            raise ValueError(f"artifact/model structure mismatch: Adam {name} leaves")
-        moments.append([torch.tensor(np.asarray(a, np.float32), device=p.device)
-                        for a, p in zip(arrays, params)])
+    opt = _dense_opt_from_jax(engine, list(leaves(state.dense_params)), dense_opt, state.step.device)
     out: dict[str, dict[str, Any]] = {}
     for name, coll in engine.collections.items():
         out[name] = {}
@@ -160,10 +231,23 @@ def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.nd
             out[name][g.name] = tensors
     return state._replace(
         step=torch.tensor(int(step), dtype=torch.int32, device=state.step.device),
-        dense_opt={"count": torch.tensor(int(count), dtype=torch.int32, device=state.step.device),
-                   "mu": moments[0], "nu": moments[1]},
-        emb_opt=out,
+        dense_opt=opt, emb_opt=out,
     )
+
+
+def export_from_checkpoint(ckpt_dir: str, out_dir: str, device="cuda") -> None:
+    """Restore the latest training checkpoint of ``ckpt_dir`` (its
+    ``config.json`` names the model) on ``device`` and export it for
+    serving."""
+    from recmodels_tpu_torch.train.loop import Trainer
+
+    with open(os.path.join(ckpt_dir, "config.json")) as f:
+        cfg = TrainConfig.from_json(f.read())
+    cfg = cfg.apply_overrides([f"ckpt_dir={ckpt_dir!r}", "tb_dir=None"])
+    trainer = Trainer(cfg, device=device)
+    state = trainer.engine.init(seed=cfg.seed, device=trainer.device)
+    state, _ = trainer.ckpt.restore(state)
+    export_model(out_dir, cfg, trainer.engine, state)
 
 
 class _Bucket:

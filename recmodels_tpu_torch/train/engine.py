@@ -15,15 +15,19 @@ donates its state; ``eval_step`` adds a batch into the tensors of the
 ``AUCState`` it is given (``train/metrics.py``). ``jit_train_step``,
 ``jit_train_scan`` and ``jit_eval_step``, named after their JAX
 counterparts, run the same steps as one CUDA graph per batch shape
-(``train/capture.py``). Gradient accumulation, schedules, weight decay,
-in-graph data generation and the sharded tables (with the cross-device
-merge of ``eval_step``'s histograms) come with later slices.
+(``train/capture.py``); so do ``jit_train_step_accum`` and
+``jit_train_scan_accum``, the gradient-accumulated steps. The learning-rate
+schedules (``train/schedules.py``) are evaluated in the step from device
+tensors: the sparse lr from ``TrainState.step``, the dense lr from the
+dense optimizer's own schedule count, so a replayed graph reads its own
+step's values. In-graph data generation and the sharded tables (with the
+cross-device merge of ``eval_step``'s histograms) come with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -140,6 +144,14 @@ class Engine:
     sparse_optimizer: str = "adagrad"
     dense_lr: float = 1e-3
     emb_lr: float = 1e-2
+    # learning-rate schedules (train/schedules.py: 0-d int32 step -> 0-d f32
+    # lr on the step's device); None keeps the constant lr. The dense one
+    # counts the dense optimizer's updates, the embedding one TrainState.step
+    dense_lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None
+    emb_lr_schedule: Callable[[torch.Tensor], torch.Tensor] | None = None
+    # decoupled L2 on the dense parameters (adamw; add_decayed_weights
+    # before adagrad and sgd); the tables are not decayed
+    dense_weight_decay: float = 0.0
     fuse_wide: bool = True
 
     def __post_init__(self):
@@ -170,7 +182,8 @@ class Engine:
         else:
             coll_schemas = schemas
         self.collections = {name: EmbeddingCollection(sch) for name, sch in coll_schemas.items()}
-        self.dense_tx = get_dense_optimizer(self.dense_optimizer)
+        self.dense_tx = get_dense_optimizer(self.dense_optimizer, self.dense_weight_decay,
+                                            scheduled=self.dense_lr_schedule is not None)
         self.sparse_opt = get_sparse_optimizer(self.sparse_optimizer)
         self.tables = LocalTables(self.collections, self.sparse_opt)
         # rows are gathered in the compute dtype (bf16 models: bf16 rows)
@@ -232,21 +245,18 @@ class Engine:
         return out
 
     # --------------------------------------------------------------- train
-    def train_step(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
-                   labels: torch.Tensor):
-        """One optimizer step on a batch (dense [B, n_dense] f32, ids [B,
-        n_slots] int32 slot-local, labels [B] f32, on the state's device).
-        Updates the state's tensors in place, its step included, and returns
-        (state, {'loss': mean BCE, a 0-d tensor; 'overflow': 0, as local
-        tables drop no lookups})."""
+    def _grads(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
+               labels: torch.Tensor):
+        """(loss, group ids, dense grads, row grads) of one batch at the
+        state's parameters: the loss differentiated with respect to the
+        dense leaves and the gathered rows."""
         gids = self._group_ids(ids)
         with torch.no_grad():
             gathered = self.tables.gather(state.emb_params, gids, self._gather_dtype)
-        # the rows are leaves of their own: the tables change in place below
+        # the rows are leaves of their own: the tables change in place later
         rows = {c: {g: t.detach().requires_grad_(True) for g, t in r.items()}
                 for c, r in gathered.items()}
-        params = list(tree.leaves(state.dense_params))
-        live = [p.detach().requires_grad_(True) for p in params]
+        live = [p.detach().requires_grad_(True) for p in tree.leaves(state.dense_params)]
         row_leaves = [t for r in rows.values() for t in r.values()]
         with torch.enable_grad():
             logits = self._forward_from_rows(tree.unflatten(state.dense_params, iter(live)),
@@ -255,26 +265,102 @@ class Engine:
             assert logits.shape == labels.shape, (logits.shape, labels.shape)
             loss = F.binary_cross_entropy_with_logits(logits, labels)
             grads = torch.autograd.grad(loss, live + row_leaves)
-        g_dense, g_rows_flat = grads[: len(live)], iter(grads[len(live):])
+        g_dense, g_rows_flat = list(grads[: len(live)]), iter(grads[len(live):])
         g_rows = {c: {g: next(g_rows_flat) for g in r} for c, r in rows.items()}
+        return loss.detach(), gids, g_dense, g_rows
+
+    def _apply(self, state: TrainState, g_dense, gids, g_rows) -> None:
+        """Both optimizers once, in place, then the step: the dense
+        optimizer at the dense lr (or its schedule), the sparse one at the
+        embedding lr, or its schedule at the step before the update."""
         with torch.no_grad():
-            self.dense_tx.update(params, list(g_dense), state.dense_opt, self.dense_lr)
-            self.tables.apply_grads(state.emb_params, state.emb_opt, gids, g_rows, state.step,
-                                    device_constant(self.emb_lr, state.step.device))
+            self.dense_tx.update(
+                list(tree.leaves(state.dense_params)), g_dense, state.dense_opt,
+                self.dense_lr_schedule if self.dense_lr_schedule is not None else self.dense_lr)
+            lr = (self.emb_lr_schedule(state.step) if self.emb_lr_schedule is not None
+                  else device_constant(self.emb_lr, state.step.device))
+            self.tables.apply_grads(state.emb_params, state.emb_opt, gids, g_rows, state.step, lr)
             state.step.add_(1)
-        return state, {"loss": loss.detach(), "overflow": 0}
+
+    def train_step(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
+                   labels: torch.Tensor):
+        """One optimizer step on a batch (dense [B, n_dense] f32, ids [B,
+        n_slots] int32 slot-local, labels [B] f32, on the state's device).
+        Updates the state's tensors in place, its step included, and returns
+        (state, {'loss': mean BCE, a 0-d tensor; 'overflow': 0, as local
+        tables drop no lookups})."""
+        loss, gids, g_dense, g_rows = self._grads(state, dense, ids, labels)
+        self._apply(state, g_dense, gids, g_rows)
+        return state, {"loss": loss, "overflow": 0}
 
     def train_scan(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
                    labels: torch.Tensor):
         """K steps on batches stacked [K, B, ...]: a loop over
         ``train_step``. Returns (state, {'loss': the last loss, 'losses':
         [K], 'overflow': 0})."""
+        return self._scan(self.train_step, state, dense, ids, labels)
+
+    @staticmethod
+    def _scan(step, state, dense, ids, labels):
         losses = []
         for k in range(dense.shape[0]):
-            state, metrics = self.train_step(state, dense[k], ids[k], labels[k])
+            state, metrics = step(state, dense[k], ids[k], labels[k])
             losses.append(metrics["loss"])
         losses = torch.stack(losses)
         return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+
+    # ------------------------------------------------- gradient accumulation
+    def train_step_accum(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
+                         labels: torch.Tensor):
+        """One optimizer step from A micro-batches (dense [A, Bm, n_dense],
+        ids [A, Bm, n_slots], labels [A, Bm]), as the JAX engine's: each
+        micro-batch's forward and backward at the state's parameters, the
+        dense grads summed in order and scaled by 1/A, the row grads and
+        group ids concatenated along the batch (the rows scaled by 1/A), and
+        both optimizers applied once. Collections that share one ids tensor
+        share its concatenation, so the update sorts it once. Equals
+        ``train_step`` on the concatenated batch up to f32 summation order.
+        Returns (state, {'loss': the mean of the micro-batches' losses,
+        'overflow': 0})."""
+        a = dense.shape[0]
+        losses, gids_list, rows_list = [], [], []
+        g_dense = None
+        for i in range(a):
+            loss, gids, g, g_rows = self._grads(state, dense[i], ids[i], labels[i])
+            if g_dense is None:
+                g_dense = g
+            else:
+                torch._foreach_add_(g_dense, g)
+            losses.append(loss)
+            gids_list.append(gids)
+            rows_list.append(g_rows)
+        inv_a = 1.0 / a
+        loss = losses[0]
+        for x in losses[1:]:
+            loss = loss + x
+        loss = loss * inv_a
+        torch._foreach_mul_(g_dense, inv_a)
+        cat: list = []  # (first micro-batch's ids tensor, the concatenation)
+
+        def cat_ids(name, group):
+            first = gids_list[0][name][group]
+            found = next((c for t, c in cat if t is first), None)
+            if found is None:
+                found = torch.cat([g[name][group] for g in gids_list])
+                cat.append((first, found))
+            return found
+
+        gids = {name: {g: cat_ids(name, g) for g in per} for name, per in gids_list[0].items()}
+        g_rows = {name: {g: torch.cat([r[name][g] for r in rows_list]) * inv_a for g in per}
+                  for name, per in rows_list[0].items()}
+        self._apply(state, g_dense, gids, g_rows)
+        return state, {"loss": loss, "overflow": 0}
+
+    def train_scan_accum(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
+                         labels: torch.Tensor):
+        """K accumulated steps on batches stacked [K, A, Bm, ...]: a loop
+        over ``train_step_accum``; results as ``train_scan``'s."""
+        return self._scan(self.train_step_accum, state, dense, ids, labels)
 
     # ---------------------------------------------------------------- eval
     def eval_step(self, state: TrainState, auc_state: AUCState, dense: torch.Tensor,
@@ -302,16 +388,17 @@ class Engine:
         copied in before replay k and loss k written into a [K] buffer on
         the state's device. Returns (state, {'loss', 'losses', 'overflow'})
         as ``train_scan``."""
-        steps = self.jit_train_step()
+        return _captured_scan(self.jit_train_step())
 
-        def train_scan(state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
-                       labels: torch.Tensor):
-            losses = torch.empty((dense.shape[0],), dtype=torch.float32, device=state.step.device)
-            for k in range(dense.shape[0]):
-                losses[k].copy_(steps.step(state, (dense[k], ids[k], labels[k])))
-            return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+    def jit_train_step_accum(self) -> CapturedStep:
+        """``train_step_accum`` as one CUDA graph per batch shape ([A, Bm,
+        ...]), captured and replayed as ``jit_train_step``'s."""
+        return CapturedStep(lambda state, *batch: self.train_step_accum(state, *batch)[1]["loss"])
 
-        return train_scan
+    def jit_train_scan_accum(self):
+        """``train_scan_accum`` over ``jit_train_step_accum``'s graph, as
+        ``jit_train_scan`` runs ``jit_train_step``'s."""
+        return _captured_scan(self.jit_train_step_accum())
 
     def jit_eval_step(self) -> CapturedEval:
         """``eval_step`` as one CUDA graph per batch shape (a batch with
@@ -322,3 +409,16 @@ class Engine:
         (their tensors' addresses); others capture again. On a CPU state it
         runs the same static-buffer code without capture."""
         return CapturedEval(lambda states, *batch: self.eval_step(*states, *batch).count)
+
+
+def _captured_scan(steps: CapturedStep):
+    """K replays of ``steps``' graph over batches stacked on a leading axis,
+    loss k written into a [K] buffer on the state's device."""
+
+    def train_scan(state: TrainState, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor):
+        losses = torch.empty((dense.shape[0],), dtype=torch.float32, device=state.step.device)
+        for k in range(dense.shape[0]):
+            losses[k].copy_(steps.step(state, (dense[k], ids[k], labels[k])))
+        return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+
+    return train_scan

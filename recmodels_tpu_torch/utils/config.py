@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from typing import Sequence
 
 from recmodels_tpu_torch.data.schema import Schema, criteo_schema
 
@@ -88,6 +89,23 @@ class TrainConfig:
         if d.get("per_slot_dims") is not None:
             d["per_slot_dims"] = tuple(d["per_slot_dims"])
         return cls(**d)
+
+    def apply_overrides(self, overrides: Sequence[str]) -> "TrainConfig":
+        """'key=value' overrides with literal-eval'd values (a value that is
+        no Python literal is a bare string); raises ``KeyError`` for an
+        unknown key."""
+        import ast
+
+        d = dataclasses.asdict(self)
+        for ov in overrides:
+            k, _, v = ov.partition("=")
+            if k not in d:
+                raise KeyError(f"unknown config key: {k}")
+            try:
+                d[k] = ast.literal_eval(v)
+            except (ValueError, SyntaxError):
+                d[k] = v
+        return TrainConfig.from_json(json.dumps(d, default=list))
 
 
 def build_schema(cfg: TrainConfig) -> Schema:

@@ -388,3 +388,62 @@ def test_load_predictor_forwards_min_bucket(artifact):
     pred = load_predictor(artifact["art"], min_bucket=64, device="cpu")
     assert pred.min_bucket == 64 and pred._bucket(65) == 128
     assert load_predictor(artifact["art"], device="cpu").min_bucket == 256
+
+
+# ------------------------------- slice 7: accumulated and scheduled steps
+@pytest.mark.parametrize("slice3", [False, True], ids=["slice2", "slice3"])
+def test_jit_train_step_accum_and_scan_accum_equal_eager_on_the_cpu(slice3):
+    """``jit_train_step_accum`` (two micro-batches of 32) bit for bit
+    ``train_step_accum``; ``jit_train_scan_accum`` over the three stacked
+    accumulated batches bit for bit ``train_scan_accum``."""
+    eng, schema = _tiny_engine(slice3)
+    bs = [tuple(x.reshape(2, BATCH // 2, *x.shape[1:]) for x in b) for b in _batches(schema, 3)]
+    eager, compiled = eng.init(seed=0, device="cpu"), eng.init(seed=0, device="cpu")
+    ts = eng.jit_train_step_accum()
+    for b in bs:
+        eager, me = eng.train_step_accum(eager, *b)
+        compiled, mc = ts(compiled, *b)
+        assert torch.equal(me["loss"], mc["loss"]) and mc["overflow"] == 0
+        assert _same_bits(compiled, _snapshot(eager))
+    stack = [torch.stack([b[i] for b in bs]) for i in range(3)]
+    a, c = eng.init(seed=0, device="cpu"), eng.init(seed=0, device="cpu")
+    a, ma = eng.train_scan_accum(a, *stack)
+    c, mc = eng.jit_train_scan_accum()(c, *stack)
+    assert torch.equal(ma["losses"], mc["losses"]) and _same_bits(c, _snapshot(a))
+    assert _same_bits(a, _snapshot(eager)) and int(a.step) == 3
+
+
+def test_scheduled_step_reads_each_steps_lr_from_the_state():
+    """On a warmup schedule the sparse lr is read from ``state.step`` and the
+    dense lr from the dense state's ``schedule_count`` in the step, as
+    tensors: the compiled step equals the eager one bit for bit, and a
+    state whose counts stand further on takes other lrs from the same
+    parameters."""
+    from recmodels_tpu_torch.train.schedules import build_lr_schedule
+
+    cfg = TrainConfig(model="xdeepfm", vocab_size=50, embed_dim=16, cin_sizes=(32, 32), hidden=(32, 32))
+    schema = build_schema(cfg)
+    eng = Engine(build_model("xdeepfm", schema, **cfg.model_kwargs()),
+                 dense_lr_schedule=build_lr_schedule(1e-3, "linear", warmup_steps=4, total_steps=10),
+                 emb_lr_schedule=build_lr_schedule(1e-2, "linear", warmup_steps=4, total_steps=10),
+                 dense_weight_decay=1e-2)
+    eager, compiled = eng.init(seed=0, device="cpu"), eng.init(seed=0, device="cpu")
+    ts = eng.jit_train_step()
+    for b in _batches(schema, 3):
+        eager, me = eng.train_step(eager, *b)
+        compiled, mc = ts(compiled, *b)
+        assert torch.equal(me["loss"], mc["loss"])
+        assert _same_bits(compiled, _snapshot(eager))
+    assert int(compiled.dense_opt["schedule_count"]) == int(compiled.step) == 3
+    b = _batches(schema, 1, seed=5)[0]
+    later = _snapshot(eager)
+    ahead = eng.init(seed=0, device="cpu")
+    for t, v in zip(_state_tensors(ahead), later):
+        t.copy_(v)
+    ahead.step.fill_(7)
+    ahead.dense_opt["schedule_count"].fill_(7)
+    eager, _ = eng.train_step(eager, *b)
+    ahead, _ = eng.train_step(ahead, *b)
+    p = lambda s: s.dense_params["w_dense"]  # noqa: E731
+    assert not torch.equal(p(eager), p(ahead))
+    assert not torch.equal(eager.emb_params["emb"]["d17"], ahead.emb_params["emb"]["d17"])

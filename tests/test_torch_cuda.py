@@ -1045,3 +1045,89 @@ def test_captured_eval_equals_eager_eval(cuda, path):
         if x.dtype == torch.int32:
             assert torch.equal(x.cpu(), c)
     torch.testing.assert_close(eager.loss_sum.cpu(), cpu.loss_sum, rtol=1e-5, atol=0)
+
+
+# ------------------------------------------------- slice 7: the entry point
+@pytest.mark.parametrize("path", ["slice2", "slice3"])
+def test_captured_accumulated_steps_equal_eager_ones(cuda, path):
+    """Four ``jit_train_step_accum`` steps of two micro-batches of 256
+    (warm-up, capture, replays) against four eager ``train_step_accum``s:
+    the losses and every state tensor bit for bit; then
+    ``jit_train_scan_accum`` over the same batches gives those losses."""
+    eng, schema, _ = _small_engine(path)
+    bs = [tuple(t.reshape(2, 256, *t.shape[1:]) for t in b) for b in _card_batches(schema, 4, cuda)]
+    eager, captured, scanned = (eng.init(seed=0, device=cuda) for _ in range(3))
+    ts = eng.jit_train_step_accum()
+    losses = []
+    for b in bs:
+        eager, me = eng.train_step_accum(eager, *b)
+        captured, mc = ts(captured, *b)
+        assert torch.equal(me["loss"], mc["loss"])
+        losses.append(mc["loss"])
+    scanned, m = eng.jit_train_scan_accum()(scanned, *(torch.stack([x[i] for x in bs]) for i in range(3)))
+    torch.cuda.synchronize()
+    assert ts.graphs == 1 and int(captured.step) == 4
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(captured), _tensors(eager)))
+    assert torch.equal(m["losses"], torch.stack(losses))
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(scanned), _tensors(eager)))
+
+
+def test_captured_scheduled_steps_equal_eager_ones(cuda):
+    """Six ``jit_train_step``s on a warmup-and-cosine schedule (both lrs
+    change every step; a lr frozen into the graph would show from the
+    third) with adamw's decay, against eager ``train_step``s: bit for bit,
+    the schedule's count advancing in the state."""
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.train.engine import Engine
+    from recmodels_tpu_torch.train.schedules import build_lr_schedule
+
+    _, schema, cfg = _small_engine("slice2")
+    sched = dict(kind="cosine", warmup_steps=3, total_steps=6)
+    eng = Engine(build_model("xdeepfm", schema, **cfg.model_kwargs()),
+                 dense_lr_schedule=build_lr_schedule(1e-3, **sched),
+                 emb_lr_schedule=build_lr_schedule(1e-2, **sched), dense_weight_decay=1e-4)
+    eager, captured = eng.init(seed=0, device=cuda), eng.init(seed=0, device=cuda)
+    ts = eng.jit_train_step()
+    for b in _card_batches(schema, 6, cuda):
+        eager, me = eng.train_step(eager, *b)
+        captured, mc = ts(captured, *b)
+        assert torch.equal(me["loss"], mc["loss"])
+    torch.cuda.synchronize()
+    assert ts.graphs == 1 and int(captured.dense_opt["schedule_count"]) == 6
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(captured), _tensors(eager)))
+
+
+def test_checkpoint_round_trip_of_a_card_state(cuda, tmp_path):
+    """A CUDA state saved, trained on in place while the write runs, and
+    restored into another CUDA state's own tensors: the saved bits, the
+    addresses kept; a graph captured on the target before the restore then
+    continues from the restored state as eager steps do."""
+    from recmodels_tpu_torch.train.checkpoint import CheckpointManager
+
+    eng, schema, _ = _small_engine("slice3")
+    bs = _card_batches(schema, 4, cuda)
+    state = eng.init(seed=0, device=cuda)
+    state, _ = eng.train_step(state, *bs[0])
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state, {"step": 1})
+    saved = [t.clone() for t in _tensors(state)]
+    state, _ = eng.train_step(state, *bs[1])
+    target = eng.init(seed=5, device=cuda)
+    ts = eng.jit_train_step()
+    for b in bs[:2]:
+        target, _ = ts(target, *b)  # warm-up and capture on the target's tensors
+    ptrs = [t.data_ptr() for t in _tensors(target)]
+    restored, data = mgr.restore(target)
+    torch.cuda.synchronize()
+    assert restored is target and data == {"step": 1}
+    assert [t.data_ptr() for t in _tensors(target)] == ptrs
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(target), saved))
+    eager = eng.init(seed=5, device=cuda)
+    mgr.restore(eager)
+    for b in bs[2:]:
+        target, mc = ts(target, *b)
+        eager, me = eng.train_step(eager, *b)
+        assert torch.equal(mc["loss"], me["loss"])
+    torch.cuda.synchronize()
+    assert ts.graphs == 1
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(target), _tensors(eager)))

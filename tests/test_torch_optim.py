@@ -362,3 +362,65 @@ def test_dense_optimizers_match_optax(name):
         for k, mu, nu in zip(sorted(params), ts["mu"], ts["nu"]):
             np.testing.assert_allclose(mu.numpy(), np.asarray(js[0].mu[k]), rtol=1e-6, atol=1e-8)
             np.testing.assert_allclose(nu.numpy(), np.asarray(js[0].nu[k]), rtol=1e-6, atol=1e-8)
+
+
+def _optax_chain(name: str, lr, weight_decay: float):
+    """The JAX engine's dense optimizer (``engine.py``): adamw for adam with
+    decay; add_decayed_weights chained before adagrad and sgd."""
+    if name == "adam":
+        return optax.adamw(lr, weight_decay=weight_decay) if weight_decay else optax.adam(lr)
+    tx = {"adagrad": optax.adagrad, "sgd": optax.sgd}[name](lr)
+    return optax.chain(optax.add_decayed_weights(weight_decay), tx) if weight_decay else tx
+
+
+def _schedule_count(state) -> int:
+    """optax's ScaleByScheduleState.count in a state tree."""
+    found = [int(s.count) for s in jax.tree_util.tree_leaves(
+        state, is_leaf=lambda x: isinstance(x, optax.ScaleByScheduleState))
+        if isinstance(s, optax.ScaleByScheduleState)]
+    assert len(found) == 1, state
+    return found[0]
+
+
+@pytest.mark.parametrize("scheduled", [False, True], ids=["constant", "cosine"])
+@pytest.mark.parametrize("name", ["adam", "adagrad", "sgd"])
+def test_dense_decay_chains_match_optax(name, scheduled):
+    """adamw and add_decayed_weights before adagrad and sgd, at a constant
+    lr and on a cosine schedule with warmup, against optax over three
+    updates; the schedule's own count is optax's."""
+    from recmodels_tpu.train.schedules import build_lr_schedule as jbuild
+    from recmodels_tpu_torch.train.schedules import build_lr_schedule
+
+    rng = np.random.default_rng(11)
+    params = {"a": rng.normal(size=(5, 3)).astype(np.float32),
+              "b": rng.normal(size=(4,)).astype(np.float32)}
+    wd, base = 0.05, 1e-2
+    kw = dict(kind="cosine", warmup_steps=2, total_steps=6) if scheduled else {}
+    jlr, tlr = jbuild(base, **kw), build_lr_schedule(base, **kw)
+    assert callable(tlr) == scheduled
+    tx = _optax_chain(name, jlr, wd)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    js = tx.init(jp)
+    opt = TO.get_dense_optimizer(name, wd, scheduled=scheduled)
+    tp = [torch.tensor(params[k]) for k in sorted(params)]
+    ts = opt.init(tp)
+    assert ("schedule_count" in ts) == scheduled
+    grads = []
+    for _ in range(3):
+        g = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in params.items()}
+        upd, js = tx.update(jax.tree_util.tree_map(jnp.asarray, g), js, jp)
+        jp = optax.apply_updates(jp, upd)
+        grads.append([torch.tensor(g[k]) for k in sorted(g)])
+        assert opt.update(tp, grads[-1], ts, tlr) is ts
+    for k, t in zip(sorted(params), tp):
+        np.testing.assert_allclose(t.numpy(), np.asarray(jp[k]), **F32_TOL)
+        assert not np.allclose(t.numpy(), params[k])
+    if scheduled:
+        assert int(ts["schedule_count"]) == _schedule_count(js) == 3
+    # the decay is there: the same updates without it end elsewhere
+    opt0 = TO.get_dense_optimizer(name, 0.0, scheduled=scheduled)
+    tp0 = [torch.tensor(params[k]) for k in sorted(params)]
+    ts0 = opt0.init(tp0)
+    for g in grads:
+        opt0.update(tp0, g, ts0, tlr)
+    assert not all(torch.equal(a, b) for a, b in zip(tp, tp0))

@@ -170,9 +170,14 @@ def test_one_step_changes_match_jax(run):
     largest change; untouched rows keep their bits. In bf16 this is where
     the port's backward (Cin2, ProductF32, SplitFusedRows) meets JAX's: the
     CIN's share of the embedding columns' grads cut by a fifth shows as 4%."""
+    _check_one_step_changes(run, run["start"]["adam"][1])
+
+
+def _check_one_step_changes(run, mu0):
+    """test_one_step_changes_match_jax's checks; ``mu0`` the dense Adam
+    first moments at the shared start."""
     _, _, jmu, _, jt, ja = run["first"]["jax"]
     _, _, pmu, _, pt, pa = run["first"]["port"]
-    mu0 = run["start"]["adam"][1]
     t0, a0 = run["start"]["emb_tables"]["emb/emb/d17"], run["acc0"]
     touched = np.any(ja != a0, axis=1)
     assert 0 < touched.sum() < len(touched)
@@ -388,3 +393,179 @@ def test_slice3_one_step_changes_match_jax(run3):
     for name, got, want in pairs:
         err, scale = np.max(np.abs(got - want)), np.max(np.abs(want))
         assert scale > 0 and err <= STEP_REL_TOL * scale, (name, err, scale)
+
+
+# ------------------------------------------- slice 7: schedules and decay
+SCHED = dict(kind="cosine", warmup_steps=2, total_steps=8, end_scale=0.1)
+DECAY = 1e-2
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["f32", "bf16"])
+def run_sched(request):
+    """``run``'s model and batches with both lrs on a cosine schedule with
+    warmup and adamw's decay on the dense weights: two JAX steps (the
+    warmup), the state carried into the port with optax's whole dense state
+    (adamw's chain and the schedule's count), then three steps in each."""
+    from recmodels_tpu.train.schedules import build_lr_schedule as jbuild_lr
+    from recmodels_tpu_torch.train.schedules import build_lr_schedule
+    from torch_jax_bridge import port_state_from_jax
+
+    bf16 = request.param
+    jcfg = JConfig(**_cfg(bf16))
+    schema = jbuild_schema(jcfg)
+    jeng = JEngine(jbuild_model("xdeepfm", schema, **jcfg.model_kwargs()), dense_lr=DENSE_LR,
+                   emb_lr=EMB_LR, dense_lr_schedule=jbuild_lr(DENSE_LR, **SCHED),
+                   emb_lr_schedule=jbuild_lr(EMB_LR, **SCHED), dense_weight_decay=DECAY)
+    step = jax.jit(jeng.train_step)
+    state = jeng.init(jax.random.key(0))
+    batches = iter(SyntheticSource(schema, batch_size=64, seed=1))
+    for _ in range(WARM):
+        b = next(batches)
+        state, _ = step(state, jnp.asarray(b.dense), jnp.asarray(b.ids), jnp.asarray(b.labels))
+    state = jax.device_get(state)
+    dense, count, mu, nu, table, acc = _np_state(state)
+    tcfg = TrainConfig(**_cfg(bf16))
+    eng = Engine(build_model("xdeepfm", build_schema(tcfg), **tcfg.model_kwargs()), dense_lr=DENSE_LR,
+                 emb_lr=EMB_LR, dense_lr_schedule=build_lr_schedule(DENSE_LR, **SCHED),
+                 emb_lr_schedule=build_lr_schedule(EMB_LR, **SCHED), dense_weight_decay=DECAY)
+    port = port_state_from_jax(jeng, state, eng)
+    assert int(port.dense_opt["schedule_count"]) == WARM and int(port.dense_opt["count"]) == WARM
+    losses = []
+    for k in range(STEPS):
+        b = next(batches)
+        state, jm = step(state, jnp.asarray(b.dense), jnp.asarray(b.ids), jnp.asarray(b.labels))
+        port, pm = eng.train_step(port, torch.from_numpy(b.dense), torch.from_numpy(b.ids),
+                                  torch.from_numpy(b.labels))
+        losses.append((float(jm["loss"]), float(pm["loss"])))
+        if k == 0:
+            first = dict(jax=_np_state(jax.device_get(state)),
+                         port=jax.tree_util.tree_map(np.copy, _port_np(port)))
+    state = jax.device_get(state)
+    return dict(bf16=bf16, start=dict(emb_tables={"emb/emb/d17": table}), mu0=mu, acc0=acc,
+                losses=losses, first=first, jax=_np_state(state), port=_port_np(port), port_state=port,
+                jax_schedule_count=int(state.dense_opt[2].count))
+
+
+def test_scheduled_decayed_steps_match_jax(run_sched):
+    """Three steps on schedules with adamw's decay, as
+    ``test_losses_match_jax``, ``test_dense_params_and_adam_state_match_jax``
+    and ``test_table_and_acc_match_jax`` hold the constant-lr steps; both
+    schedule counts and the step advance to WARM + STEPS."""
+    r = run_sched
+    tol = (0.03 * 2.0 + 1e-3) if r["bf16"] else 1e-6
+    for want, got in r["losses"]:
+        assert abs(got - want) <= tol, (got, want)
+    st = r["port_state"]
+    assert (int(st.step) == int(st.dense_opt["count"]) == int(st.dense_opt["schedule_count"])
+            == r["jax_schedule_count"] == WARM + STEPS)
+    jd, _, jmu, jnu, jt, ja = r["jax"]
+    pd, _, pmu, pnu, pt, pa = r["port"]
+    if r["bf16"]:
+        for g, w in zip(pmu + pnu, jmu + jnu):
+            assert np.max(np.abs(g - w)) <= 0.03 * np.max(np.abs(w)) + 1e-6
+        return
+    for got, want in ((pd, jd), (pmu, jmu), (pnu, jnu)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=F32_TOL["rtol"],
+                                       atol=F32_TOL["atol"] * max(np.abs(w).max(), 1e-3))
+    np.testing.assert_allclose(pt, jt, **F32_TOL)
+    np.testing.assert_allclose(pa, ja, **F32_TOL)
+
+
+def test_scheduled_decayed_one_step_changes_match_jax(run_sched):
+    """The first scheduled step from the shared start, held as
+    ``test_one_step_changes_match_jax`` holds a constant-lr one (the dense
+    grads read off Adam's first moment, which no lr or decay touches)."""
+    _check_one_step_changes(run_sched, run_sched["mu0"])
+
+
+# ------------------------------------------- slice 7: gradient accumulation
+def _accum_engines(sparse_opt: str):
+    """The JAX package's accumulation test's setup
+    (``tests/test_train_loop.py::test_grad_accumulation_matches_full_batch``):
+    DeepFM DNN(32) over 26 slots of 500 ids, dim 8, both engines."""
+    from recmodels_tpu.data import criteo_schema as jcriteo_schema
+    from recmodels_tpu_torch.data import criteo_schema
+
+    kw = dict(dense_lr=1e-2, emb_lr=5e-2, sparse_optimizer=sparse_opt)
+    jsch = jcriteo_schema(vocab_size=500, embed_dim=8)
+    jeng = JEngine(jbuild_model("deepfm", jsch, hidden=(32,)), **kw)
+    eng = Engine(build_model("deepfm", criteo_schema(vocab_size=500, embed_dim=8), hidden=(32,)), **kw)
+    return jsch, jeng, eng
+
+
+# the JAX package's bound for accumulated against full-batch steps
+# (tests/test_train_loop.py:90): lazy Adam's 1/(sqrt(v) + eps) turns
+# summation-order ulps on near-zero-v rows into up to 0.3% of an element;
+# a wrong 1/A or a dropped micro-batch moves everything by 50% or more
+ACCUM_TOL = dict(rtol=5e-3, atol=1e-4)
+
+
+# against JAX's accumulated step: the moments and Adagrad's tables, which
+# carry the grads, to f32 rounding of their largest value; what an Adam step
+# moves (the dense params; lazy Adam's table) to 1e-3 of a step a step:
+# Adam normalises each grad by its own history, so an element whose grad
+# nearly cancels turns summation-order ulps into a share of its step (2.4e-4
+# of a step seen on DeepFM's first MLP weight after 3 steps)
+MOMENT_TOL = 1e-6
+ADAM_STEP_TOL = 1e-3
+
+
+@pytest.mark.parametrize("sparse_opt", ["adagrad", "adam"])
+def test_train_step_accum_matches_jax_and_the_full_batch(sparse_opt):
+    """Three ``train_step_accum``s of two micro-batches of 32 from JAX's
+    initial state: the losses and the state against JAX's
+    ``train_step_accum`` on the same batches (f32, the same formulas in
+    another summation order; MOMENT_TOL and ADAM_STEP_TOL), and against the
+    port's ``train_step`` on the concatenated batch within ACCUM_TOL."""
+    from torch_jax_bridge import port_arrays, port_names, port_state_from_jax
+
+    jsch, jeng, eng = _accum_engines(sparse_opt)
+    jstate = jeng.init(jax.random.key(0))
+    accum, full = port_state_from_jax(jeng, jstate, eng), port_state_from_jax(jeng, jstate, eng)
+    jaccum = jax.jit(jeng.train_step_accum)
+    src = iter(SyntheticSource(jsch, batch_size=64, seed=1))
+    steps = 3
+    for _ in range(steps):
+        b = next(src)
+        d, i, l = (x.reshape(2, 32, *x.shape[1:]) for x in (b.dense, b.ids, b.labels))
+        jstate, jm = jaccum(jstate, jnp.asarray(d), jnp.asarray(i), jnp.asarray(l))
+        accum, am = eng.train_step_accum(accum, *(torch.from_numpy(x) for x in (d, i, l)))
+        full, fm = eng.train_step(full, *(torch.from_numpy(x) for x in (b.dense, b.ids, b.labels)))
+        assert am["overflow"] == 0 and am["loss"].shape == ()
+        np.testing.assert_allclose(float(am["loss"]), float(jm["loss"]), rtol=1e-6)
+        np.testing.assert_allclose(float(am["loss"]), float(fm["loss"]), rtol=1e-5)
+    assert int(accum.step) == steps
+    want = port_arrays(port_state_from_jax(jeng, jstate, eng))
+    for name, got, w, f in zip(port_names(accum), port_arrays(accum), want, port_arrays(full)):
+        got, w, f = (x.astype(np.float64) for x in (got, w, f))
+        if name.startswith("dense_params/"):
+            atol = ADAM_STEP_TOL * eng.dense_lr * steps
+        elif name.startswith("emb_params/") and sparse_opt == "adam":
+            atol = ADAM_STEP_TOL * eng.emb_lr * steps
+        else:
+            atol = MOMENT_TOL * np.abs(w).max()
+        assert np.abs(got - w).max() <= atol, (name, np.abs(got - w).max(), atol)
+        np.testing.assert_allclose(got, f, **ACCUM_TOL, err_msg=name)
+
+
+def test_train_step_accum_shares_one_concatenation(monkeypatch):
+    """Collections over one ids tensor (slice 3's dim-16 and dim-1 tables)
+    hand the update one concatenated ids tensor, so it sorts once."""
+    tcfg = TrainConfig(**_cfg3(False))
+    eng = Engine(build_model("xdeepfm", build_schema(tcfg), **tcfg.model_kwargs()),
+                 sparse_optimizer="adam", fuse_wide=False)
+    state = eng.init(seed=0, device="cpu")
+    seen = []
+    apply_grads = eng.tables.apply_grads
+
+    def spy(emb_params, emb_opt, gids, grad_rows, step, lr):
+        seen.append(gids)
+        return apply_grads(emb_params, emb_opt, gids, grad_rows, step, lr)
+
+    monkeypatch.setattr(eng.tables, "apply_grads", spy)
+    b = next(iter(SyntheticSource(jbuild_schema(JConfig(**_cfg3(False))), batch_size=16, seed=3)))
+    d, i, l = (torch.from_numpy(x.reshape(2, 8, *x.shape[1:])) for x in (b.dense, b.ids, b.labels))
+    eng.train_step_accum(state, d, i, l)
+    (gids,) = seen
+    assert gids["emb"]["d16"] is gids["wide"]["d1"] and gids["emb"]["d16"].shape == (16, 26)

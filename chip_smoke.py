@@ -140,6 +140,19 @@ Phases, each on its own lines:
          batches with the artifact, against sigmoid(Engine.logits) of the
          restored checkpoint; 4 steps on the Criteo sample through the native
          parser and its 96 rows scored;
+     (k) slice 8, in-graph data generation on the flagship: the batch kernel
+         (csrc/device_synth.cu) against its plain version at 16,384, steps 0,
+         1 and 2^31 - 1 (raw draws and ids bit for bit, dense within one ulp,
+         labels apart only within 1e-6 of their probability), timed cold and
+         warm beside the plain version and its bound (bytes, and the integer
+         operations over the INT32 rate); 10 captured generated steps
+         (``jit_train_scan_gen``) bit for bit 10 eager ``train_scan_gen``
+         steps, and their ms a step beside (c'); ``cli.train --data
+         device_synth`` for 200 steps (every kernel of the step and the batch
+         kernel launch inside it), its sustained examples/s beside (c') and the
+         host-fed loop's (g), and a traced run's busy share; resume (40
+         straight, 20 + 20) bit for bit; captured eval on the generated
+         held-out stream bit for bit eager;
  11. a JSON line listing the kernels (launches from the run of each kernel's
      path), then the card line again, then the result line
      {"ok": true, "device": {...}}.
@@ -170,6 +183,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_F32_FLOP_PER_S = 67e12
+# 32-bit integer operations: the data sheet's f32 rate is 2 (an FMA) x 128
+# FP32 lanes an SM x 132 SMs x 1.98 GHz; an SM has half as many INT32
+# lanes, an operation each
+PEAK_INT32_OP_PER_S = PEAK_F32_FLOP_PER_S / 4
 
 BATCH = 16_384
 VOCAB = 100_000
@@ -221,6 +238,23 @@ SUSTAIN_STEPS = 200
 SUSTAIN_FROM = 60
 ACCUM_STEPS = 10
 SCHED_STEPS = 30
+# slice 8, in-graph data generation (phase k): the batch kernel at these
+# steps; GEN_STEPS captured generated steps against eager ones; a traced run
+# of GEN_TRACE_STEPS; GEN_EVAL_BATCHES generated held-out batches
+SYNTH_STEPS = (0, 1, 2**31 - 1)
+SYNTH_LABEL_MARGIN = 1e-6
+GEN_STEPS = 10
+GEN_TRACE_STEPS = 60
+GEN_EVAL_BATCHES = 4
+# the batch kernel's counts (csrc/device_synth.cu): examples a block; the
+# integer operations of a draw (threefry2x32: 2 + 20 rounds of 3 + 5
+# injections of 3; the XOR, shift and OR of the float) and of an id's bucket
+# weight (the hash's multiply-add, 3 xor-shifts, 2 multiplies, the shift);
+# the key draws a block (fold_in and split for 4 threads)
+SYNTH_ROWS = 64
+INT_OPS_PER_DRAW = 80
+INT_OPS_PER_ID = 11
+SYNTH_KEY_DRAWS = 8
 FIXTURE = os.path.join("tests", "fixtures", "criteo_sample.tsv")
 FIXTURE_BATCH = 32
 # each of phases g-j takes under a minute; one still running after this many
@@ -1276,12 +1310,16 @@ def main() -> int:
 
     # ------------------------- slice 7: the training entry point, phases g-j
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as work:
-        loop_ckpt = watched(loop_phase, work, (gather_rows, split_fused_rows, cin2_forward,
-                                               sorted_adagrad_update, split_fused_rows_backward, cin2_backward),
-                            card)
+        step_kernels = (gather_rows, split_fused_rows, cin2_forward, sorted_adagrad_update,
+                        split_fused_rows_backward, cin2_backward)
+        loop_ckpt, host_sustained, loop_c_ms = watched(loop_phase, work, step_kernels, card)
         watched(resume_phase, work, card)
         watched(compiled_steps_phase, schema, card)
         watched(export_predict_phase, work, loop_ckpt, card)
+
+        # -------------------------- slice 8: in-graph data generation, phase k
+        report["synth_batch"], paths["device_synth"] = watched(
+            generation_phase, work, schema, step_kernels, card, host_sustained, loop_c_ms)
 
     # each kernel's launches come from the first path in this order that
     # runs it (slice 2's for the six kernels of the xDeepFM step, slice 3's
@@ -1404,7 +1442,7 @@ def loop_phase(work: str, kernels, card: str) -> str:
     producer pool's rate alone, beside (c') of the same configuration
     (jit_train_step, events); the card's busy share over the traced window;
     and the ms to save and restore one full-width checkpoint. Returns the
-    checkpoint directory."""
+    checkpoint directory, the sustained examples/s and (c') in ms."""
     from recmodels_tpu_torch.cli import train as train_cli
     from recmodels_tpu_torch.data import SyntheticSource
     from recmodels_tpu_torch.train.checkpoint import CheckpointManager
@@ -1506,7 +1544,7 @@ def loop_phase(work: str, kernels, card: str) -> str:
           f"the host + {1e3 * (t_write - t_copy):.1f} ms to write (background), restore "
           f"{1e3 * (t_restore - t_write):.1f} ms, on {card}")
     del trainer, state
-    return ckpt
+    return ckpt, sustained, step_ms
 
 
 def resume_phase(work: str, card: str) -> None:
@@ -1632,6 +1670,196 @@ def export_predict_phase(work: str, loop_ckpt: str, card: str) -> None:
     check(fp.shape == (96,) and bool(np.all((fp > 0) & (fp < 1))), "96 probabilities of the Criteo sample")
     check("eval n=96 auc=" in out, "the Criteo sample's 96 rows scored")
     print(f"Criteo sample (native parser): 4 steps of {FIXTURE_BATCH}, 96 rows scored on {card}")
+
+
+# ------------------------------------- slice 8: in-graph data generation
+def synth_bound(b: int, n_dense: int, n_slots: int, signal_dim: int) -> tuple[float, str, dict]:
+    """The least time of one generated batch on the card: its outputs
+    written and its task read once (dense [b, n_dense] f32, ids [b, n_slots]
+    int32, labels [b] f32; dense_w, slot_proj, vocab, the step) over the
+    memory rate, against the kernel's integer operations (a draw: threefry
+    and the float conversion, INT_OPS_PER_DRAW; an id's bucket weight,
+    INT_OPS_PER_ID; each block's key derivation) over the INT32 rate."""
+    nbytes = 4 * (b * (n_dense + n_slots + 1) + n_dense + n_slots * (signal_dim + 1) + 1)
+    blocks = -(-b // SYNTH_ROWS)
+    ops = (b * ((2 * n_dense + n_slots + 1) * INT_OPS_PER_DRAW + n_slots * INT_OPS_PER_ID)
+           + blocks * SYNTH_KEY_DRAWS * (INT_OPS_PER_DRAW - 3))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OP_PER_S * 1e3
+    bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound[0], bound[1], {"bytes": nbytes, "int_ops": ops, "bytes_ms": t_bytes, "int_ops_ms": t_ops}
+
+
+def generation_phase(work: str, schema, kernels, card: str, host_sustained: float,
+                     host_c_ms: float) -> tuple[dict, dict[str, int]]:
+    """(k) In-graph data generation on the flagship at full width:
+    1. the batch kernel against its plain version at B = BATCH, steps 0, 1
+       and 2^31 - 1 (the raw draws and ids equal, dense within one ulp, a
+       label apart only where |u - p| < 1e-6), timed cold and warm beside
+       its plain version and its bound;
+    2. GEN_STEPS steps of ``jit_train_scan_gen`` against GEN_STEPS eager
+       ``train_scan_gen`` steps from one state: the losses and every state
+       tensor bit for bit; the captured generated step's ms beside (c') of
+       the same engine;
+    3. ``cli.train --data device_synth``: SUSTAIN_STEPS steps in
+       superbatches of LOOP_SCAN with no checkpoint, eval or trace (every
+       kernel of the step and the batch kernel must launch inside it; their
+       counts set to 0 just before), its sustained examples/s beside (c')
+       and the host-fed loop's (phase g), then a traced run's busy share of
+       superbatches 2-4;
+    4. resume: RESUME_STEPS generated steps straight against half and a
+       resume (checkpoints every 10), bit for bit;
+    5. eval on the generated held-out stream: ``jit_eval_gen`` over
+       GEN_EVAL_BATCHES batches against eager ``eval_step``, bit for bit.
+    Returns the kernel's row and the launches of the eager generated
+    steps (the path's launches per step)."""
+    from recmodels_tpu_torch.cli import train as train_cli
+    from recmodels_tpu_torch.data import SyntheticSource
+    from recmodels_tpu_torch.data import device_synth as ds
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.train.checkpoint import CheckpointManager
+    from recmodels_tpu_torch.train.engine import Engine
+    from recmodels_tpu_torch.train.loop import VAL_SEED_OFFSET
+    from recmodels_tpu_torch.train.metrics import auc_compute, auc_init
+    from recmodels_tpu_torch.utils.config import TrainConfig
+
+    print(f"== in-graph data generation (k): the batch kernel, the generated step and loop at {BATCH}")
+    dev = torch.device("cuda")
+    fn = ds.make_device_batch_fn(schema, BATCH, seed=SEED)
+    w, proj, vocab = fn.task(dev)
+    worst_ulps, max_err, flips = 0, 0.0, 0
+    for step in SYNTH_STEPS:
+        st = torch.tensor(step, dtype=torch.int32, device=dev)
+        d, i, l, bits = fn(st, with_bits=True)
+        pd, pi, pl, pbits = ds.synth_batch_reference(st, SEED, w, proj, vocab, BATCH, with_bits=True)
+        torch.cuda.synchronize()
+        check(torch.equal(bits.long() & ds.M32, pbits), f"step {step}: the raw draws bit for bit")
+        check(torch.equal(i, pi), f"step {step}: the ids bit for bit")
+        ulps = (d.view(torch.int32) - pd.view(torch.int32)).abs().max().item()
+        check(ulps <= 1, f"step {step}: dense within one ulp ({ulps})")
+        z = ds.planted_logit(pd, ds.bucket_weight(pi), w, proj)
+        p = torch.sigmoid(z - z.mean())
+        u = ds.bits_to_unit(pbits[:, -1])
+        differ = l != pl
+        near = (u - p).abs() < SYNTH_LABEL_MARGIN
+        check(bool(near[differ].all()), f"step {step}: labels apart only within {SYNTH_LABEL_MARGIN} of p")
+        print(f"batch kernel vs plain, step {step}: draws and ids equal, dense {ulps} ulp apart at most "
+              f"({(d != pd).sum().item()} of {d.numel()} values differ), labels {differ.sum().item()} apart "
+              f"({near.sum().item()} within {SYNTH_LABEL_MARGIN} of p), label mean {l.mean().item():.4f}")
+        worst_ulps, max_err = max(worst_ulps, ulps), max(max_err, (d - pd).abs().max().item())
+        flips += differ.sum().item()
+    st = torch.tensor(SYNTH_STEPS[1], dtype=torch.int32, device=dev)
+    times = short_times(lambda: fn(st), lambda: ds.synth_batch_reference(st, SEED, w, proj, vocab, BATCH))
+    split = launch_split(lambda: fn(st))
+    bound, bound_by, counted = synth_bound(BATCH, schema.n_dense, schema.n_slots, proj.shape[1])
+    print(f"batch kernel at {BATCH}: cold {times['ms']:.4f} ms, warm {times['warm_ms']} ms (by launch "
+          f"{ {k: round(v, 4) for k, v in split.items()} }), events {times['event_ms']:.4f} ms; plain cold "
+          f"{times['plain_ms']:.4f} ms, warm {times['plain_warm_ms']} ms; bound {bound:.4f} ms by {bound_by} "
+          f"({counted['int_ops']} integer operations, {counted['int_ops_ms']:.4f} ms; {counted['bytes']} bytes, "
+          f"{counted['bytes_ms']:.4f} ms) on {card}")
+
+    # 2. the captured generated step against eager generated steps
+    cfg = TrainConfig(model="xdeepfm", bf16=True, vocab_size=VOCAB, embed_dim=DIM, cin_sizes=CIN, hidden=HIDDEN)
+    engine = Engine(build_model("xdeepfm", schema, **cfg.model_kwargs()))
+    eager = engine.init(seed=SEED, device=dev)
+    captured = to_device(eager, dev)
+    for k in kernels + (ds.synth_batch,):
+        k.launches = 0
+    eager, me = engine.train_scan_gen(eager, 0, k=GEN_STEPS, batch_fn=fn)
+    torch.cuda.synchronize()
+    path = {k.__name__: k.launches for k in kernels + (ds.synth_batch,)}
+    scan = engine.jit_train_scan_gen(fn)
+    captured, mc = scan(captured, GEN_STEPS)
+    torch.cuda.synchronize()
+    check(torch.equal(me["losses"], mc["losses"]), "the captured generated steps' losses bit for bit eager")
+    differ = [n for (n, x), (_, y) in zip(named_tensors(eager), named_tensors(captured)) if not torch.equal(x, y)]
+    check(not differ, f"the captured generated state bit for bit eager (differ: {differ[:5]})")
+    check(scan.steps.graphs == 1 and int(captured.step) == GEN_STEPS, "one graph, the step advanced")
+    check(bool(torch.isfinite(mc["losses"]).all()), "finite losses")
+    print(f"jit_train_scan_gen, {GEN_STEPS} steps: losses and every state tensor bit for bit the eager "
+          f"train_scan_gen's (losses {me['losses'][0].item():.6f} .. {me['losses'][-1].item():.6f}); launches "
+          f"a step, eager: {path}")
+    gen_ms = time_ms(lambda: scan(captured, GEN_STEPS), iters=3, warmup=1) / GEN_STEPS
+    b = next(iter(SyntheticSource(schema, batch_size=BATCH, seed=71)))
+    batch = tuple(torch.as_tensor(a, device=dev) for a in (b.dense, b.ids, b.labels))
+    ts = engine.jit_train_step()
+    c_ms = time_ms(lambda: ts(eager, *batch), iters=10)
+    print(f"captured generated step (jit_train_scan_gen, CUDA events, 3 x {GEN_STEPS} replays): {gen_ms:.4f} ms "
+          f"per step, {BATCH / gen_ms * 1e3:.1f} examples/s; (c') of the same engine (jit_train_step, a batch "
+          f"copied in, 10 calls): {c_ms:.4f} ms, {BATCH / c_ms * 1e3:.1f} examples/s; the difference "
+          f"{gen_ms - c_ms:+.4f} ms on {card}")
+    del eager, captured, scan, ts
+
+    # 3. the generated loop through cli.train
+    common = flagship_args() + ["--data", "device_synth", "--set", f"scan_steps={LOOP_SCAN}",
+                                "--set", "log_every=10"]
+    for k in kernels + (ds.synth_batch,):
+        k.launches = 0
+    sustain = run_cli(train_cli.main, common + ["--steps", str(SUSTAIN_STEPS), "--set", "eval_every=0"])
+    launches = {k.__name__: k.launches for k in kernels + (ds.synth_batch,)}
+    print(f"launches inside the generated loop (eager warm-up and capture; replays are not counted): {launches}")
+    for name, count in launches.items():
+        check(count > 0, f"{name} launched inside the generated loop")
+    train = logged(sustain, "train")
+    rates = [sc["examples_per_sec"] for step, sc in train if step > SUSTAIN_FROM]
+    check(len(rates) == (SUSTAIN_STEPS - SUSTAIN_FROM) // 10, "a train line every 10 steps of the generated run")
+    check(train[-1][1]["loss"] < train[0][1]["loss"],
+          f"the generated run's last logged loss ({train[-1][1]['loss']}) is below the first")
+    sustained = float(np.median(rates))
+    print(f"generated loop, sustained ({SUSTAIN_STEPS} steps, no checkpoint, eval or trace; the intervals after step "
+          f"{SUSTAIN_FROM}): median {sustained:.1f} examples/s (min {min(rates):.1f}, max {max(rates):.1f}); "
+          f"{sustained / (BATCH / c_ms * 1e3):.1%} of (c') {c_ms:.4f} ms, "
+          f"{sustained / (BATCH / gen_ms * 1e3):.1%} of the captured generated step; the host-fed loop "
+          f"(phase g) {host_sustained:.1f} examples/s against its (c') {host_c_ms:.4f} ms, on {card}")
+    trace_dir = os.path.join(work, "gen-trace")
+    run_cli(train_cli.main, common + ["--steps", str(GEN_TRACE_STEPS), "--set", "eval_every=0",
+                                      "--profile-dir", trace_dir])
+    busy, window = trace_busy(os.path.join(trace_dir, "trace.json"))
+    print(f"generated loop, superbatches 2-4 (torch.profiler): the card busy {busy:.3f} ms of a {window:.3f} ms "
+          f"window ({busy / window:.1%}) on {card}")
+
+    # 4. resume
+    rcommon = common + ["--set", "ckpt_every=10", "--set", "eval_every=0"]
+    a, b = os.path.join(work, "gen-resume-a"), os.path.join(work, "gen-resume-b")
+    run_cli(train_cli.main, rcommon + ["--steps", str(RESUME_STEPS), "--ckpt-dir", a])
+    run_cli(train_cli.main, rcommon + ["--steps", str(RESUME_STEPS // 2), "--ckpt-dir", b])
+    out = run_cli(train_cli.main, rcommon + ["--steps", str(RESUME_STEPS), "--ckpt-dir", b])
+    check(f"resumed from checkpoint at step {RESUME_STEPS // 2}" in out, "the generated run resumed at the half")
+    ta = saved_tensors(os.path.join(a, str(RESUME_STEPS), "state.pt"))
+    tb = saved_tensors(os.path.join(b, str(RESUME_STEPS), "state.pt"))
+    check([n for n, _ in ta] == [n for n, _ in tb], "the two final generated states hold the same tensors")
+    differ = [n for (n, x), (_, y) in zip(ta, tb) if not torch.equal(x, y)]
+    check(not differ, f"the resumed generated run bit for bit the straight one (differ: {differ[:5]})")
+    print(f"generated resume: all {len(ta)} tensors of the two step-{RESUME_STEPS} states equal bit for bit")
+
+    # 5. eval on the generated held-out stream, captured against eager
+    state, _ = CheckpointManager(a).restore(engine.init(seed=SEED, device=dev))
+    check(int(state.step) == RESUME_STEPS, f"the restored generated state is step {RESUME_STEPS}")
+    val_fn = ds.make_device_batch_fn(schema, BATCH, seed=SEED + VAL_SEED_OFFSET)
+    want, got = auc_init(device=dev), auc_init(device=dev)
+    index = torch.zeros((), dtype=torch.int32, device=dev)
+    eval_gen = engine.jit_eval_gen(val_fn)
+    for k in range(GEN_EVAL_BATCHES):
+        engine.eval_step(state, want, *val_fn(torch.tensor(k, dtype=torch.int32, device=dev)))
+        eval_gen(state, got, index)
+    torch.cuda.synchronize()
+    check(eval_gen.captured.graphs == 1 and int(index) == GEN_EVAL_BATCHES, "one eval graph, the index advanced")
+    check(all(torch.equal(x, y) for x, y in zip(want, got)), "the captured generated eval bit for bit eager")
+    out = auc_compute(got)
+    index.zero_()
+    eval_ms = time_ms(lambda: eval_gen(state, got, index), iters=GEN_EVAL_BATCHES, warmup=0)
+    print(f"generated eval, {GEN_EVAL_BATCHES} held-out batches of {BATCH} at step {RESUME_STEPS}: captured bit for "
+          f"bit eager; AUC {float(out['auc']):.6f}, logloss {float(out['logloss']):.6f}; captured {eval_ms:.4f} ms "
+          f"a batch (generation included) on {card}")
+    row = {"route": "cuda", "source": "recmodels_tpu_torch/csrc/device_synth.cu",
+           "replaces": "none: recmodels_tpu/data/device_synth.py:69 batch_fn (jax.random, no pl.pallas_call)",
+           "max_abs_err": max_err, **times, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+           "warm_by_launch": split, "loop_launches": launches["synth_batch"], "dense_ulps": worst_ulps,
+           "label_flips": flips, **counted,
+           "gen_step_ms": gen_ms, "c_prime_ms": c_ms, "gen_sustained_examples_per_s": sustained,
+           "host_sustained_examples_per_s": host_sustained, "gen_busy": busy / window,
+           "timing": SHORT_TIMING}
+    return row, path
 
 
 def serving_phase(title: str, cfg, engine, kernels, terms, dense_np, ids_np, card: str,

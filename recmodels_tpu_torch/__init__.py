@@ -23,4 +23,35 @@ the tests hold the port against the JAX package.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (the CLIs: ``--cpu``).
+
+The JAX package's top-level names (``criteo_schema``, ``CriteoTSVSource``,
+``SyntheticSource``, ``build_model``, ``MODEL_REGISTRY``, ``Engine``,
+``TrainState``, ``TrainConfig``) resolve here at first use, so importing the
+package, or its torch-free ``data`` layer (the spawned producer workers),
+loads no torch.
 """
+
+import importlib
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "criteo_schema": "recmodels_tpu_torch.data",
+    "CriteoTSVSource": "recmodels_tpu_torch.data",
+    "SyntheticSource": "recmodels_tpu_torch.data",
+    "build_model": "recmodels_tpu_torch.models",
+    "MODEL_REGISTRY": "recmodels_tpu_torch.models",
+    "Engine": "recmodels_tpu_torch.train.engine",
+    "TrainState": "recmodels_tpu_torch.train.engine",
+    "TrainConfig": "recmodels_tpu_torch.utils.config",
+}
+
+__all__ = list(_LAZY)
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_LAZY[name]), name)
+    globals()[name] = value
+    return value

@@ -3,6 +3,8 @@ CPU), with checkpoints, resume, eval and logging:
 
     python -m recmodels_tpu_torch.cli.train --model xdeepfm --steps 2000 --set batch_size=4096
     python -m recmodels_tpu_torch.cli.train --model lr --data /path/to/criteo.tsv
+    python -m recmodels_tpu_torch.cli.train --model xdeepfm --data device_synth --set batch_size=16384
+        # batches generated on the card inside the captured step: no host producer
     python -m recmodels_tpu_torch.cli.train --config runs/xdeepfm/config.json   # reproduce a run
 """
 
@@ -16,8 +18,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", default=None,
                     choices=["lr", "fm", "deepfm", "pnn", "dcn", "xdeepfm", "widedeep", "nfm", "afm"])
-    ap.add_argument("--data", default=None, help="'synthetic' or criteo TSV path")
-    ap.add_argument("--val-data", default=None)
+    ap.add_argument("--data", default=None,
+                    help="'synthetic' (host-generated), 'device_synth' (generated on the device) or a Criteo "
+                         "TSV path")
+    ap.add_argument("--val-data", default=None, help="the held-out stream, as --data (default: --data's)")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--devices", type=int, default=None, help="1 = local tables (the only kind ported)")

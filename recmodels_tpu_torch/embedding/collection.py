@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from recmodels_tpu_torch.data.schema import Schema
+from recmodels_tpu_torch.embedding.gather import gather_rows
 
 ALLOC_MULTIPLE = 1024  # table rows round up to this (the artifact layout)
 
@@ -83,6 +84,11 @@ class EmbeddingCollection:
             ) * s
         return params
 
+    def param_shapes(self) -> Dict[str, tuple]:
+        """Each group's table shape: ``(alloc_rows,)`` for dim 1, else
+        ``(alloc_rows, dim)``."""
+        return {g.name: ((g.alloc_rows,) if g.dim == 1 else (g.alloc_rows, g.dim)) for g in self.groups}
+
     def group_row_ids(self, ids: torch.Tensor) -> Dict[str, torch.Tensor]:
         """[B, n_slots] slot-local int32 ids -> per-group global row ids
         [B, n_g] int32.
@@ -104,6 +110,18 @@ class EmbeddingCollection:
             out[g.name] = cols + self._offsets[key][None, :]
         return out
 
+    def gather_rows(self, params: Dict[str, torch.Tensor], gids: Dict[str, torch.Tensor],
+                    dtype: torch.dtype | None = None) -> Dict[str, torch.Tensor]:
+        """Per-group gather: {g: [B, n_g]} global row ids -> {g: [B, n_g,
+        dim]} in ``dtype`` (default the tables', f32), through the row
+        gather (``embedding/gather.py``: the kernel for CUDA tables, its
+        plain version for CPU ones); dim-1 tables gather as one column."""
+        out = {}
+        for g in self.groups:
+            t = params[g.name]
+            out[g.name] = gather_rows(t.reshape(t.shape[0], -1), gids[g.name], dtype or t.dtype)
+        return out
+
     def combine(self, rows: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Per-group rows -> [B, n_slots, max_dim], zero-padded. A single
         group is returned as it is. Differentiable: autograd's transpose is
@@ -122,3 +140,12 @@ class EmbeddingCollection:
         """[B, n_slots, max_dim] cotangent -> per-group [B, n_g, dim], the
         transpose of ``combine``."""
         return {g.name: emb_grad[:, list(g.slot_indices), : g.dim] for g in self.groups}
+
+    def lookup(self, params: Dict[str, torch.Tensor], ids: torch.Tensor) -> torch.Tensor:
+        """Inference-path lookup: [B, n_slots] slot-local ids -> [B, n_slots,
+        max_dim]."""
+        return self.combine(self.gather_rows(params, self.group_row_ids(ids)))
+
+    def nbytes(self) -> int:
+        """The tables' logical bytes (f32 rows of every slot's vocab)."""
+        return sum(g.total_rows * g.dim * 4 for g in self.groups)

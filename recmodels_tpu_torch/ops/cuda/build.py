@@ -36,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 _SIGNATURES = {
     # device, table, ids, out, n, d1, out_bf16, stream
     "rm_gather_rows": [_I, _P, _P, _P, _L, _I, _I, _P],
@@ -62,6 +63,9 @@ _SIGNATURES = {
     "rm_fm_pairwise": [_I, _P, _P, _I, _I, _I, _L, _L, _I, _P],
     # device, x0, w, bias, out, b, d, n_layers, is_bf16, stream
     "rm_dcn_cross_stack": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # device, step (device int32), seed_hi, seed_lo, dense_w, slot_proj, vocab,
+    # dense, ids, labels, scratch, bits (or null), b, n_dense, n_slots, signal_dim, stream
+    "rm_device_synth_batch": [_I, _P, _U, _U] + [_P] * 8 + [_I] * 4 + [_P],
 }
 # functions that return something other than a CUDA error code
 _RESTYPES = {

@@ -27,6 +27,11 @@ def cin_layer(xk: torch.Tensor, x0: torch.Tensor, w: torch.Tensor) -> torch.Tens
     return out.to(xk.dtype)
 
 
+def cin_sum_pool(xk: torch.Tensor) -> torch.Tensor:
+    """Per-feature-map sum pooling over D: [B, H, D] -> [B, H]."""
+    return torch.sum(xk, dim=2)
+
+
 def cin_stack(x0: torch.Tensor, ws) -> torch.Tensor:
     """Full CIN: x0 [B, m, D], ws = [w_k: [H_k, H_{k-1}, m]] -> the
     per-layer sum pools over D, concatenated: [B, sum_k H_k]."""
@@ -34,7 +39,7 @@ def cin_stack(x0: torch.Tensor, ws) -> torch.Tensor:
     pools = []
     for w in ws:
         xk = cin_layer(xk, x0, w)
-        pools.append(torch.sum(xk, dim=2))
+        pools.append(cin_sum_pool(xk))
     return torch.cat(pools, dim=1)
 
 

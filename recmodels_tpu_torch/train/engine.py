@@ -20,8 +20,11 @@ counterparts, run the same steps as one CUDA graph per batch shape
 schedules (``train/schedules.py``) are evaluated in the step from device
 tensors: the sparse lr from ``TrainState.step``, the dense lr from the
 dense optimizer's own schedule count, so a replayed graph reads its own
-step's values. In-graph data generation and the sharded tables (with the
-cross-device merge of ``eval_step``'s histograms) come with later slices.
+step's values. ``train_scan_gen`` trains on batches generated on the
+state's device (``data/device_synth.py``), and ``jit_train_scan_gen`` and
+``jit_eval_gen`` capture "generate, then step" as one graph whose replays
+read the batch index from device memory. The sharded tables (with the
+cross-device merge of ``eval_step``'s histograms) come with a later slice.
 """
 
 from __future__ import annotations
@@ -362,6 +365,20 @@ class Engine:
         over ``train_step_accum``; results as ``train_scan``'s."""
         return self._scan(self.train_step_accum, state, dense, ids, labels)
 
+    def train_scan_gen(self, state: TrainState, step0, *, k: int, batch_fn):
+        """K steps on batches generated on the state's device: batch i is
+        ``batch_fn(step0 + i)`` (``data/device_synth.make_device_batch_fn``),
+        ``step0`` the global batch index of the first (an int or a 0-d int32
+        tensor). No host producer and no host->device batch bytes. Returns
+        (state, {'loss': the last loss, 'losses': [K], 'overflow': 0})."""
+        step0 = torch.as_tensor(step0, dtype=torch.int32, device=state.step.device)
+        losses = []
+        for i in range(k):
+            state, metrics = self.train_step(state, *batch_fn(step0 + i))
+            losses.append(metrics["loss"])
+        losses = torch.stack(losses)
+        return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+
     # ---------------------------------------------------------------- eval
     def eval_step(self, state: TrainState, auc_state: AUCState, dense: torch.Tensor,
                   ids: torch.Tensor, labels: torch.Tensor,
@@ -399,6 +416,52 @@ class Engine:
         """``train_scan_accum`` over ``jit_train_step_accum``'s graph, as
         ``jit_train_scan`` runs ``jit_train_step``'s."""
         return _captured_scan(self.jit_train_step_accum())
+
+    def jit_train_scan_gen(self, batch_fn):
+        """``train_scan_gen`` as one CUDA graph of "generate batch
+        ``state.step``, then ``train_step``", replayed K times: a callable
+        ``(state, k) -> (state, {'loss', 'losses' [K], 'overflow'})``. The
+        batch index is ``TrainState.step`` itself, read from device memory
+        by the generator when each replay runs; the JAX loop passes
+        ``int(state.step)`` as its ``step0`` too, so the stream is the same.
+        Captured as ``jit_train_step``'s graph (``train/capture.py``, with no
+        batch to copy in): the first replay of a state runs eagerly, the
+        second captures. On a CPU state the same code runs without capture.
+        ``.steps`` is the ``CapturedStep`` (its ``graphs``)."""
+        steps = CapturedStep(lambda state: self.train_step(state, *batch_fn(state.step))[1]["loss"])
+
+        def train_scan_gen(state: TrainState, k: int):
+            losses = torch.empty((k,), dtype=torch.float32, device=state.step.device)
+            for i in range(k):
+                losses[i].copy_(steps.step(state, ()))
+            return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+
+        train_scan_gen.steps = steps
+        return train_scan_gen
+
+    def jit_eval_gen(self, batch_fn) -> Callable[[TrainState, AUCState, torch.Tensor], AUCState]:
+        """``eval_step`` on generated batches as one CUDA graph: a callable
+        ``(state, auc_state, index) -> auc_state`` that adds batch
+        ``batch_fn(index)`` into the AUC state and advances ``index`` (a 0-d
+        int32 tensor on the state's device) by one, both in the graph, so
+        each replay scores the next batch. Captured as ``jit_eval_step``'s
+        graph; on a CPU state the same code runs without capture.
+        ``.captured`` is the ``CapturedEval`` (its ``graphs``)."""
+
+        def eval_gen(states):
+            state, auc_state, index = states
+            self.eval_step(state, auc_state, *batch_fn(index))
+            index.add_(1)
+            return auc_state.count
+
+        captured = CapturedEval(eval_gen)
+
+        def call(state: TrainState, auc_state: AUCState, index: torch.Tensor) -> AUCState:
+            captured.step((state, auc_state, index), ())
+            return auc_state
+
+        call.captured = captured
+        return call
 
     def jit_eval_step(self) -> CapturedEval:
         """``eval_step`` as one CUDA graph per batch shape (a batch with

@@ -8,13 +8,18 @@ evaluates on a held-out stream every ``eval_every`` steps (``jit_eval_step``),
 logs every ``log_every`` and checkpoints every ``ckpt_every`` (the state
 with both optimizers' and the data cursor), and resumes from the latest
 checkpoint of ``cfg.ckpt_dir``. The host reads a device value only at a
-log, an eval or a checkpoint. In-graph data generation
-(``data="device_synth"``) and more than one device are not ported yet.
+log, an eval or a checkpoint. With ``data="device_synth"`` the batches are
+generated on the device inside the captured step (``jit_train_scan_gen``):
+no producer, no batch bytes from the host; ``val_data="device_synth"`` (or
+that ``data`` alone) evaluates on the generated held-out stream the same
+way. More than one device is not ported yet.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import os
 import queue
 import threading
@@ -67,10 +72,6 @@ class Trainer:
     ``torch.profiler`` trace of superbatches 2-4 there."""
 
     def __init__(self, cfg: TrainConfig, logger: MetricsLogger | None = None, device="cuda"):
-        if cfg.data == "device_synth" or cfg.val_data == "device_synth":
-            raise NotImplementedError(
-                "data='device_synth' (in-graph batch generation, Engine.train_scan_gen) is not "
-                "ported yet: ROADMAP.md queue 1, item 6")
         if (cfg.n_devices or 1) > 1:
             raise NotImplementedError(
                 f"n_devices={cfg.n_devices}: the sharded path (parallel/) is not ported yet: "
@@ -106,6 +107,7 @@ class Trainer:
         self.profile_dir: str | None = None
         self.state = None
         self._auc_state = None
+        self._eval_gen = None  # (the captured generated eval, its batch index)
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         """A host batch array on the device. On the card it goes through
@@ -121,10 +123,27 @@ class Trainer:
     def run(self) -> dict:
         """Train to ``cfg.steps`` (from the latest checkpoint, if any);
         returns the last eval's {'auc', 'logloss'} ({} without eval). The
-        final state is ``self.state``."""
+        final state is ``self.state``.
+
+        Superbatches of ``scan_steps`` steps (the ragged tail shorter). With
+        ``data="device_synth"`` each is that many replays of
+        ``jit_train_scan_gen``'s graph, batch n drawn on the device from the
+        step counter n (no producer; one device and no accumulation, as the
+        JAX loop). Otherwise a producer thread builds them as numpy and
+        records the data cursor after each; a cursor is checkpointed only
+        once its superbatch has been trained on, so a resumed run replays
+        exactly the examples not yet consumed."""
         cfg = self.cfg
+        generated = cfg.data == "device_synth"
+        if generated and cfg.accum_steps > 1:
+            raise NotImplementedError("device_synth does not compose with accum_steps")
         state = self.engine.init(seed=cfg.seed, device=self.device)
-        source = build_source(cfg, self.schema, cfg.data, seed=cfg.seed)
+        if generated:
+            from recmodels_tpu_torch.data.device_synth import DeviceSynthSource, make_device_batch_fn
+
+            source = DeviceSynthSource(self.schema, cfg.batch_size, seed=cfg.seed)
+        else:
+            source = build_source(cfg, self.schema, cfg.data, seed=cfg.seed)
         start_step = 0
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             state, data_state = self.ckpt.restore(state)
@@ -136,13 +155,17 @@ class Trainer:
             with open(os.path.join(cfg.ckpt_dir, "config.json"), "w") as f:
                 f.write(cfg.to_json())
 
-        # The producer thread builds superbatches of k batches (the ragged
-        # tail shorter) and records the data cursor after each; a cursor is
-        # checkpointed only once its superbatch has been trained on, so a
-        # resumed run replays exactly the examples not yet consumed.
         k = max(1, cfg.scan_steps)
         total = cfg.steps - start_step
         plan = [k] * (total // k) + ([total % k] if total % k else [])
+        if generated:
+            scan = self.engine.jit_train_scan_gen(make_device_batch_fn(self.schema, cfg.batch_size, seed=cfg.seed))
+            ends = itertools.accumulate(plan, initial=start_step)
+            next(ends)
+            # replay kk reads its batch index from state.step
+            return self._train(state, start_step, source.state(),
+                               ((kk, {"step": end}, functools.partial(scan, k=kk)) for kk, end in zip(plan, ends)))
+
         workers = cfg.producer_workers
         if workers == 0:  # auto: parallel generation for synthetic data only
             workers = min(8, (os.cpu_count() or 4) // 2) if cfg.data == "synthetic" else 1
@@ -192,29 +215,42 @@ class Trainer:
                     err.append(e)
                     q.put(None)
 
-        th = threading.Thread(target=producer, daemon=True)
-        th.start()
-
-        t_last = time.time()
-        examples_since = 0
-        final: dict = {}
-        step_no = start_step
-        last_cursor = source.state()
-        profiling = contextlib.ExitStack()
-        try:
-            for n_sb, _ in enumerate(plan):
+        def superbatches():
+            for _ in plan:
                 item = q.get()
                 if item is None:
                     raise err[0]
                 kk, lead, arrays, cursor = item
-                last_cursor = cursor
+                step = self.train_step if lead == 0 else self.train_scan
+                # the batch goes to the device when the superbatch trains
+                yield kk, cursor, lambda state: step(state, *(self._put(x) for x in arrays))
+
+        th = threading.Thread(target=producer, daemon=True)
+        th.start()
+        try:
+            return self._train(state, start_step, source.state(), superbatches())
+        finally:
+            stop.set()
+            if pool is not None:
+                pool.close()
+
+    def _train(self, state, start_step: int, cursor: dict, superbatches) -> dict:
+        """The loop both feeds share: for each (steps, data cursor after
+        them, ``train(state) -> (state, metrics)``) of ``superbatches``,
+        train, then log every ``log_every`` (the host's one device sync of
+        the interval), evaluate every ``eval_every`` and checkpoint with the
+        cursor; a ``torch.profiler`` trace of superbatches 2-4 when
+        ``profile_dir`` is set. Then the last eval and checkpoint."""
+        cfg = self.cfg
+        t_last = time.time()
+        examples_since = 0
+        final: dict = {}
+        step_no = start_step
+        with contextlib.ExitStack() as profiling:
+            for n_sb, (kk, cursor, train) in enumerate(superbatches):
                 if self.profile_dir is not None and n_sb == 2:
                     profiling.enter_context(trace(self.profile_dir))
-                dense, ids, labels = (self._put(x) for x in arrays)
-                if lead == 0:
-                    state, m = self.train_step(state, dense, ids, labels)
-                else:
-                    state, m = self.train_scan(state, dense, ids, labels)
+                state, m = train(state)
                 prev = step_no
                 step_no += kk
                 examples_since += kk * cfg.batch_size
@@ -237,38 +273,62 @@ class Trainer:
                     final = self.evaluate(state, step_no)
                 if self.ckpt is not None:
                     self.ckpt.save(step_no, state, data_state=cursor)
-        finally:
-            stop.set()
-            profiling.close()
-            if pool is not None:
-                pool.close()
         if cfg.eval_every and cfg.steps % cfg.eval_every:
             final = self.evaluate(state, cfg.steps)
         if self.ckpt is not None:
             if self.ckpt.latest_step() != cfg.steps:  # the loop may have saved it
-                self.ckpt.save(cfg.steps, state, data_state=last_cursor, force=True)
+                self.ckpt.save(cfg.steps, state, data_state=cursor, force=True)
             self.ckpt.wait()
         self.state = state
         return final
 
-    def evaluate(self, state, step_no: int) -> dict:
-        """AUC and logloss over ``eval_batches`` batches of the held-out
-        stream (synthetic data: the seed ``cfg.seed + 7,777,777``, the same
-        planted task); logged under ``val``."""
-        cfg = self.cfg
-        val_src = build_source(cfg, self.schema, cfg.val_data or cfg.data,
-                               seed=cfg.seed + VAL_SEED_OFFSET)
-        # one AUC state, zeroed for each eval, so the eval graphs are kept
+    def _zeroed_auc_state(self):
+        """The Trainer's one AUC state, zeroed: one state for every eval, so
+        the eval graphs are kept."""
         if self._auc_state is None:
             self._auc_state = metrics_lib.auc_init(device=self.device)
         for t in self._auc_state:
             t.zero_()
-        vit = iter(val_src)
-        for _ in range(cfg.eval_batches):
-            b = next(vit)
-            self.eval_step(state, self._auc_state,
-                           *(self._put(x) for x in (b.dense, b.ids, b.labels)))
+        return self._auc_state
+
+    def _log_eval(self, step_no: int) -> dict:
         out = metrics_lib.auc_compute(self._auc_state)
         scalars = {"auc": float(out["auc"]), "logloss": float(out["logloss"])}
         self.logger.log_scalars(step_no, scalars, prefix="val")
         return scalars
+
+    def evaluate(self, state, step_no: int) -> dict:
+        """AUC and logloss over ``eval_batches`` batches of the held-out
+        stream (synthetic data: the seed ``cfg.seed + 7,777,777``, the same
+        planted task; ``device_synth``: that stream generated on the
+        device); logged under ``val``."""
+        cfg = self.cfg
+        if (cfg.val_data or cfg.data) == "device_synth":
+            return self._evaluate_device_synth(state, step_no)
+        val_src = build_source(cfg, self.schema, cfg.val_data or cfg.data,
+                               seed=cfg.seed + VAL_SEED_OFFSET)
+        auc_state = self._zeroed_auc_state()
+        vit = iter(val_src)
+        for _ in range(cfg.eval_batches):
+            b = next(vit)
+            self.eval_step(state, auc_state, *(self._put(x) for x in (b.dense, b.ids, b.labels)))
+        return self._log_eval(step_no)
+
+    def _evaluate_device_synth(self, state, step_no: int) -> dict:
+        """The held-out generated stream (the seed ``cfg.seed +
+        VAL_SEED_OFFSET``, the same planted task): batches 0 ..
+        ``eval_batches`` - 1 at every eval, each generated and scored by one
+        replay of ``jit_eval_gen``'s graph from a device batch index."""
+        from recmodels_tpu_torch.data.device_synth import make_device_batch_fn
+
+        cfg = self.cfg
+        if self._eval_gen is None:
+            val_fn = make_device_batch_fn(self.schema, cfg.batch_size, seed=cfg.seed + VAL_SEED_OFFSET)
+            self._eval_gen = (self.engine.jit_eval_gen(val_fn),
+                              torch.zeros((), dtype=torch.int32, device=self.device))
+        eval_gen, index = self._eval_gen
+        auc_state = self._zeroed_auc_state()
+        index.zero_()
+        for _ in range(cfg.eval_batches):
+            eval_gen(state, auc_state, index)
+        return self._log_eval(step_no)

@@ -37,7 +37,7 @@ class TrainConfig:
     lr_end_scale: float = 0.0
     dense_weight_decay: float = 0.0
     # data
-    data: str = "synthetic"
+    data: str = "synthetic"  # "synthetic" | "device_synth" (generated on the device) | criteo TSV path
     val_data: str | None = None
     batch_size: int = 8192
     shuffle_buffer: int = 0

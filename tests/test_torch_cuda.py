@@ -1131,3 +1131,123 @@ def test_checkpoint_round_trip_of_a_card_state(cuda, tmp_path):
     torch.cuda.synchronize()
     assert ts.graphs == 1
     assert all(torch.equal(a, b) for a, b in zip(_tensors(target), _tensors(eager)))
+
+
+# ------------------------------------------- slice 8: in-graph generation
+def _synth_check(fn, step, cuda):
+    """The batch kernel against its plain version on the card at batch
+    ``step`` of ``fn``'s stream: one launch; the raw draws and the ids bit
+    for bit; dense within one ulp (both take the card's log1pf); a label
+    differs only where its uniform lies within 1e-6 of its probability (the
+    logit and its mean summed in another order). Returns the kernel's
+    batch."""
+    from recmodels_tpu_torch.data import device_synth as ds
+
+    st = torch.tensor(step, dtype=torch.int32, device=cuda)
+    before = ds.synth_batch.launches
+    d, i, l, bits = fn(st, with_bits=True)
+    torch.cuda.synchronize()
+    assert ds.synth_batch.launches == before + 1
+    w, proj, vocab = fn.task(st.device)
+    pd, pi, pl, pbits = ds.synth_batch_reference(st, fn.seed, w, proj, vocab, fn.batch_size, with_bits=True)
+    assert torch.equal(bits.long() & ds.M32, pbits) and torch.equal(i, pi)
+    assert (d.view(torch.int32) - pd.view(torch.int32)).abs().max().item() <= 1
+    z = ds.planted_logit(pd, ds.bucket_weight(pi), w, proj)
+    p = torch.sigmoid(z - z.mean())
+    u = ds.bits_to_unit(pbits[:, -1])
+    differ = l != pl
+    assert bool(((u - p).abs()[differ] < 1e-6).all()), differ.sum().item()
+    return d, i, l
+
+
+def _synth_schema(name):
+    """The flagship's schema (13 dense, 26 slots of 1e5 ids), or one of 5
+    dense features and 10 slots of vocabs 7 to 2^31 - 1."""
+    from recmodels_tpu_torch.data.schema import FeatureSpec, Schema, criteo_schema
+
+    if name == "flagship":
+        return criteo_schema(vocab_size=100_000, embed_dim=16)
+    vocabs = [7] * 4 + [300] * 5 + [2**31 - 1]
+    return Schema(n_dense=5, slots=tuple(FeatureSpec(f"c{i}", v, 8) for i, v in enumerate(vocabs)))
+
+
+@pytest.mark.parametrize("b,schema,signal_dim", [(16_384, "flagship", 4), (1_000, "ten-slots", 3)])
+@pytest.mark.parametrize("step", [0, 1, 2**31 - 1])
+def test_device_synth_kernel_matches_its_plain_version(cuda, b, schema, signal_dim, step):
+    """At the flagship's schema and B = 16,384, and at a ragged batch (not a
+    multiple of the block's 64 examples) of a schema with 5 dense features,
+    10 slots of vocabs up to 2^31 - 1 and a signal of 3 dimensions."""
+    from recmodels_tpu_torch.data import device_synth as ds
+
+    schema = _synth_schema(schema)
+    fn = ds.make_device_batch_fn(schema, b, seed=5, signal_dim=signal_dim)
+    d, i, l = _synth_check(fn, step, cuda)
+    assert d.shape == (b, schema.n_dense) and i.shape == (b, schema.n_slots) and l.shape == (b,)
+    vocab = torch.tensor(schema.vocab_sizes, device=cuda)
+    assert bool((i >= 0).all()) and bool((i < vocab).all()) and 0.2 < l.mean().item() < 0.8
+
+
+def test_device_synth_kernel_reads_the_step_when_it_runs(cuda):
+    """A graph of the kernel and the step's advance, replayed twice from
+    step s: the replays draw batches s and s + 1, bit for bit the eager
+    kernel's."""
+    from recmodels_tpu_torch.data import device_synth as ds
+    from recmodels_tpu_torch.data.schema import criteo_schema
+
+    fn = ds.make_device_batch_fn(criteo_schema(vocab_size=1000, embed_dim=8), 512, seed=2)
+    step = torch.tensor(41, dtype=torch.int32, device=cuda)
+    want = [fn(torch.tensor(s, dtype=torch.int32, device=cuda)) for s in (41, 42)]  # also builds, outside
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(step)
+        step.add_(1)
+    for k in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want[k]))
+    assert int(step) == 43
+
+
+@pytest.mark.parametrize("path", ["slice2", "deepfm"])
+def test_captured_generated_steps_equal_eager_ones(cuda, path):
+    """``jit_train_scan_gen`` (an eager warm-up, the capture, replays; the
+    batch index is the state's step) over superbatches of 3 and a ragged 2
+    against eager ``train_scan_gen`` from the same step: the losses and
+    every state tensor bit for bit, one graph, and seven launches of the
+    batch kernel counted: the five eager steps', the warm-up's and the
+    capture's (replays are not counted)."""
+    from recmodels_tpu_torch.data import device_synth as ds
+
+    eng, schema, _ = _small_engine(path)
+    fn = ds.make_device_batch_fn(schema, 512, seed=6)
+    eager, captured = eng.init(seed=0, device=cuda), eng.init(seed=0, device=cuda)
+    scan = eng.jit_train_scan_gen(fn)
+    before = ds.synth_batch.launches
+    for k in (3, 2):
+        eager, me = eng.train_scan_gen(eager, int(eager.step), k=k, batch_fn=fn)
+        captured, mc = scan(captured, k)
+        assert torch.equal(me["losses"], mc["losses"])
+    torch.cuda.synchronize()
+    assert scan.steps.graphs == 1 and int(captured.step) == 5
+    assert ds.synth_batch.launches - before == 5 + 2
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(captured), _tensors(eager)))
+
+
+def test_captured_generated_eval_equals_eager_eval(cuda):
+    """``jit_eval_gen`` (generate batch ``index``, score it, advance
+    ``index``; one graph) over four batches against ``eval_step`` on
+    ``batch_fn(0..3)``: the AUC state bit for bit."""
+    from recmodels_tpu_torch.data import device_synth as ds
+    from recmodels_tpu_torch.train.metrics import auc_init
+
+    eng, schema, _ = _small_engine("slice2")
+    state, fn = eng.init(seed=0, device=cuda), ds.make_device_batch_fn(schema, 512, seed=7)
+    eager, captured = auc_init(device=cuda), auc_init(device=cuda)
+    index = torch.zeros((), dtype=torch.int32, device=cuda)
+    eval_gen = eng.jit_eval_gen(fn)
+    for k in range(4):
+        eng.eval_step(state, eager, *fn(torch.tensor(k, dtype=torch.int32, device=cuda)))
+        eval_gen(state, captured, index)
+    torch.cuda.synchronize()
+    assert eval_gen.captured.graphs == 1 and int(index) == 4 and int(captured.count) == 4 * 512
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))

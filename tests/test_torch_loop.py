@@ -144,8 +144,10 @@ def test_trainer_accum_steps_composes_with_scan():
 
 
 def test_trainer_raises_for_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        Trainer(_cfg(data="device_synth"), device="cpu")
+    # in-graph generation is ported; with accumulation it raises, as JAX's
+    with pytest.raises(NotImplementedError, match="device_synth does not compose with accum_steps"):
+        Trainer(_cfg(data="device_synth", accum_steps=2), device="cpu",
+                logger=MetricsLogger(stream=io.StringIO())).run()
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
         Trainer(_cfg(n_devices=8), device="cpu")
     with pytest.raises(ValueError, match="not divisible by accum_steps"):

@@ -153,9 +153,26 @@ Phases, each on its own lines:
          host-fed loop's (g), and a traced run's busy share; resume (40
          straight, 20 + 20) bit for bit; captured eval on the generated
          held-out stream bit for bit eager;
+     (l) slice 9, the sharded path (``parallel/``) in an NCCL process group
+         of one rank: full-width bf16 xDeepFM through
+         ``build_parallel_engine`` (capacity factor 1.25) and the local
+         engine from one global start state (``shard_state``), 30 steps
+         side by side, every loss and the final state bit for bit, the
+         overflow 0 and #1-#6 launched on every sharded step;
+         ``build_parallel_steps``' captured steps (NCCL's collectives in
+         the graph) over 30 steps and ``build_parallel_scan`` over 10, bit
+         for bit eager; its eval of 4 held-out batches, the AUC state the
+         local ``jit_eval_step``'s; ``gather_with_stats`` at a capacity
+         factor of 0.05 against the CPU's plain sharded engine (a gloo
+         group beside the NCCL one): the same overflow count, overflowed
+         rows zero, the rest the local gather's; the sharded (c') beside
+         the local one, their kernels by part and the exchange's stages;
+         the owner's #1 and #4 at its 532,480 positions; then the slice-3
+         configuration (lazy Adam on both tables) 5 steps bit for bit the
+         local engine's, #7 twice a step;
  11. a JSON line listing the kernels (launches from the run of each kernel's
-     path), then the card line again, then the result line
-     {"ok": true, "device": {...}}.
+     path; phase l's sharded paths last), then the card line again, then
+     the result line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero before the result line.
 It also exits non-zero when no CUDA device is present, and when it stands
@@ -260,6 +277,16 @@ FIXTURE_BATCH = 32
 # each of phases g-j takes under a minute; one still running after this many
 # seconds is hung: every thread's stack is printed and the script exits
 PHASE_LIMIT_S = 300
+# slice 9, the sharded path (phase l): SHARDED_STEPS steps in lockstep with
+# the local engine and as captured steps, a scan of SHARDED_SCAN,
+# SHARDED_EVAL_BATCHES held-out batches, SHARDED3_STEPS lazy-Adam steps; the
+# capacity factor of the run and of the overflow check
+SHARDED_STEPS = 30
+SHARDED_SCAN = 10
+SHARDED_EVAL_BATCHES = 4
+SHARDED3_STEPS = 5
+SHARDED_CAPACITY = 1.25
+OVERFLOW_CAPACITY = 0.05
 # kernel vs plain on bf16 outputs: both sum in f32 in different orders and then
 # round to bf16, so a value may land one bf16 step (2^-8 relative) apart; p2
 # sums 3,328 such inputs. 1% of the largest magnitude covers that, and a
@@ -385,11 +412,13 @@ def cold_ms(fn, iters: int = 20) -> float:
     return sum(start.elapsed_time(end) for start, end in pairs) / iters
 
 
-def launch_split(fn, calls: int = 20, tries: int = 3) -> dict[str, float]:
+def launch_split(fn, calls: int = 20, tries: int = 3, full_names: bool = False) -> dict[str, float]:
     """Device time per call of each kernel ``fn`` launches, by name, from
     torch.profiler over back-to-back calls (with the L2 as the previous call
-    left it; a kernel launched twice a call counts both). Empty if in
-    ``tries`` windows the profiler recorded no kernel of the card."""
+    left it; a kernel launched twice a call counts both). Names are cut to
+    the function's own unless ``full_names`` (a templated PyTorch kernel's
+    arguments garble the cut). Empty if in ``tries`` windows the profiler
+    recorded no kernel of the card."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -405,8 +434,10 @@ def launch_split(fn, calls: int = 20, tries: int = 3) -> dict[str, float]:
             if str(e.device_type).endswith("CUDA"):
                 dev_us = getattr(e, "self_device_time_total", None)
                 dev_us = e.self_cuda_time_total if dev_us is None else dev_us
-                name = e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
-                name = name.split("::")[-1]
+                name = e.key
+                if not full_names:
+                    name = name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+                    name = name.split("::")[-1]
                 split[name] = split.get(name, 0.0) + dev_us / 1e3 / calls
         if sum(split.values()) > 0:
             return split
@@ -1320,6 +1351,9 @@ def main() -> int:
         # -------------------------- slice 8: in-graph data generation, phase k
         report["synth_batch"], paths["device_synth"] = watched(
             generation_phase, work, schema, step_kernels, card, host_sustained, loop_c_ms)
+
+    # ---------------- slice 9: the sharded path in an NCCL world of one, phase l
+    paths["sharded"], paths["sharded3"] = watched(sharded_phase, engine, engine3, schema, report, card)
 
     # each kernel's launches come from the first path in this order that
     # runs it (slice 2's for the six kernels of the xDeepFM step, slice 3's
@@ -2463,6 +2497,312 @@ def adam_dense_check(engine3, ids, card: str, gen: torch.Generator) -> None:
     ms = time_ms(lambda: apply_updates(opt, t, {"m": m, "v": v}, gids, grads, step, lr), iters=10)
     print(f"adam_dense update of the 2,600,960 x 16 table from {gids.numel()} ids: {ms:.4f} ms on {card} "
           f"(index_put_ accumulate: two runs bit-identical)")
+
+
+
+# ------------------------- slice 9: the sharded path in an NCCL world of one
+def states_differ(a, b) -> str | None:
+    """The path of the first tensor where two states differ, or None."""
+    for (name, x), (_, y) in zip(named_tensors(a), named_tensors(b)):
+        if not torch.equal(x, y):
+            return name
+    return None
+
+
+def step_part(name: str) -> str:
+    """The part of a training step a kernel or copy belongs to, by name."""
+    n = name.lower()
+    for part, keys in (("row gather (#1)", ("gather_tiles", "gather_values")), ("sparse update", ("sorted_update",)),
+                       ("nccl", ("nccl",)), ("copies", ("memcpy", "memset")), ("searchsorted", ("searchsorted",)),
+                       ("index gathers", ("index", "gather")), ("sorts", ("sort",)),
+                       ("elementwise and reductions", ("elementwise", "reduce", "foreach"))):
+        if any(k in n for k in keys):
+            return part
+    return "the rest"
+
+
+def compare_step_profiles(sharded_fn, local_fn, card: str) -> None:
+    """The kernel time per replay of the sharded and the local captured
+    step, by part (``step_part``) and, for the kernels that differ most,
+    by name."""
+    by_name = {k: launch_split(fn, calls=10, full_names=True) for k, fn in (("sharded", sharded_fn),
+                                                                          ("local", local_fn))}
+    parts = {k: {} for k in by_name}
+    for k, names in by_name.items():
+        for name, ms in names.items():
+            parts[k][step_part(name)] = parts[k].get(step_part(name), 0.0) + ms
+    for part in sorted(set(parts["sharded"]) | set(parts["local"]), key=lambda p: -parts["sharded"].get(p, 0.0)):
+        a, b = parts["sharded"].get(part, 0.0), parts["local"].get(part, 0.0)
+        print(f"step parts: {part}: sharded {a:.4f} ms, local {b:.4f} ms ({a - b:+.4f}) per replay on {card}")
+    print(f"step parts: kernels and copies, sharded {sum(parts['sharded'].values()):.4f} ms, local "
+          f"{sum(parts['local'].values()):.4f} ms per replay, on {card}")
+    names = set(by_name["sharded"]) | set(by_name["local"])
+    diffs = sorted(names, key=lambda n: -abs(by_name["sharded"].get(n, 0.0) - by_name["local"].get(n, 0.0)))
+    for name in diffs[:16]:
+        a, b = by_name["sharded"].get(name, 0.0), by_name["local"].get(name, 0.0)
+        print(f"step kernels: {a - b:+.4f} ms (sharded {a:.4f}, local {b:.4f}) {name[:110]}")
+
+
+def sharded_phase(engine, engine3, schema, report: dict, card: str) -> tuple[dict[str, int], dict[str, int]]:
+    """Phase l: the sharded path (``parallel/``) in an NCCL process group of
+    one rank on the card, against the local engine; returns the launches of
+    the flagship's and of the slice-3 path's sharded steps (the counts are
+    set to 0 just before each sharded step and read just after)."""
+    import socket
+
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0, device_id=dev)
+    try:
+        return sharded_checks(engine, engine3, schema, report, card, dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_checks(engine, engine3, schema, report: dict, card: str, dev) -> tuple[dict[str, int], dict[str, int]]:
+    """Phase l's checks, in the NCCL world of one (``sharded_phase``)."""
+    import torch.distributed as dist
+
+    from recmodels_tpu_torch.data import SyntheticSource
+    from recmodels_tpu_torch.embedding.gather import gather_rows, gather_rows_reference
+    from recmodels_tpu_torch.embedding.update import (
+        sorted_adagrad_update, sorted_adagrad_update_reference, sorted_adam_update,
+    )
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
+        cin2_backward, cin2_forward, cin_layer_backward, cin_layer_forward, split_fused_rows,
+        split_fused_rows_backward, transpose_minor2,
+    )
+    from recmodels_tpu_torch.parallel import (
+        build_parallel_engine, build_parallel_scan, build_parallel_steps, make_mesh, shard_state,
+    )
+    from recmodels_tpu_torch.train.metrics import auc_init
+    from recmodels_tpu_torch.utils.config import TrainConfig
+
+    mesh = make_mesh(1)
+    print(f"== sharded (phase l): an NCCL world of {mesh.size} on {mesh.device}, NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}; full-width bf16 xDeepFM, capacity factor "
+          f"{SHARDED_CAPACITY}")
+    check(mesh.device == dev, f"the NCCL mesh's device is {dev}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)  # phase l's own draws
+    cfg = TrainConfig(model="xdeepfm", bf16=True, vocab_size=VOCAB, embed_dim=DIM, cin_sizes=CIN, hidden=HIDDEN,
+                      batch_size=BATCH, seed=SEED)
+
+    def flagship(mesh_, capacity):
+        return build_parallel_engine(build_model(cfg.model, schema, **cfg.model_kwargs()), mesh_,
+                                     capacity_factor=capacity)
+
+    sharded = flagship(mesh, SHARDED_CAPACITY)
+    (grp,) = sharded.collections["emb"].groups
+    rows = sharded.tables.padded_rows("emb", grp)
+    check(rows == grp.alloc_rows, f"padded rows {rows} equal the local table's {grp.alloc_rows} at world 1")
+    cap = sharded.tables._capacity(BATCH * schema.n_slots)
+    print(f"table {rows} x {DIM + 1}; {BATCH * schema.n_slots} ids a step, a bucket of {cap} (the owner's "
+          f"gather and update run on {cap} positions, {cap - BATCH * schema.n_slots} of them sentinels)")
+
+    def stream(seed, n):
+        src = iter(SyntheticSource(schema, batch_size=BATCH, seed=seed))
+        return [tuple(torch.as_tensor(a, device=dev) for a in (b.dense, b.ids, b.labels))
+                for b in (next(src) for _ in range(n))]
+
+    batches = stream(11, SHARDED_STEPS)  # slice 2's training stream
+
+    # 1. lockstep: the local engine and the sharded one from one global state
+    start = sharded.init(seed=SEED, device=dev)
+    liven(start, gen)
+    local = to_device(start, dev)  # at world 1 the global state is a local one
+    eager = shard_state(start, mesh)
+    kernels = (gather_rows, split_fused_rows, cin2_forward, sorted_adagrad_update, split_fused_rows_backward,
+               cin2_backward)
+    launches = {k.__name__: 0 for k in kernels}
+    losses = []
+    t0 = time.perf_counter()
+    for k, (dense, ids, labels) in enumerate(batches):
+        local, ml = engine.train_step(local, dense, ids, labels)
+        for kern in kernels:
+            kern.launches = 0
+        eager, ms = sharded.train_step(eager, dense, ids, labels)
+        for kern in kernels:
+            check(kern.launches >= 1, f"{kern.__name__} launched on sharded step {k}")
+            launches[kern.__name__] += kern.launches
+        check(int(ms["overflow"]) == 0, f"overflow 0 on sharded step {k} ({int(ms['overflow'])})")
+        check(torch.equal(ms["loss"], ml["loss"]),
+              f"sharded loss of step {k} equals the local step's bit for bit ({ms['loss'].item()!r}, "
+              f"{ml['loss'].item()!r})")
+        losses.append(ms["loss"])
+    wall = time.perf_counter() - t0
+    diff = states_differ(eager, local)
+    check(diff is None, f"the sharded state after {SHARDED_STEPS} steps equals the local one (first difference: "
+          f"{diff})")
+    print(f"lockstep: {SHARDED_STEPS} sharded steps bit for bit the local engine's (every loss; tables, "
+          f"accumulators and dense state at the end), overflow 0 on every step; {wall:.3f} s for both runs")
+    print(f"sharded launches over {SHARDED_STEPS} steps: {launches}")
+    print("sharded losses: " + " ".join(f"{v:.5f}" for v in torch.stack(losses).tolist()))
+
+    # 2. the captured steps (NCCL's collectives inside the graph) and scan
+    train, evaluate = build_parallel_steps(sharded, mesh)
+    captured = shard_state(start, mesh)
+    for k, batch in enumerate(batches):
+        captured, mc = train(captured, *batch)
+        check(torch.equal(mc["loss"], losses[k]) and int(mc["overflow"]) == 0,
+              f"captured sharded step {k}: loss bit for bit eager's, overflow 0")
+    check(train.captured.graphs == 1, f"one graph captured ({train.captured.graphs})")
+    diff = states_differ(captured, eager)
+    check(diff is None, f"the captured sharded state equals the eager one (first difference: {diff})")
+    scanned = shard_state(start, mesh)
+    stacked = [torch.stack([b[j] for b in batches[:SHARDED_SCAN]]) for j in range(3)]
+    scanned, m = build_parallel_scan(sharded, mesh)(scanned, *stacked)
+    check(torch.equal(m["losses"], torch.stack(losses[:SHARDED_SCAN])) and int(m["overflow"]) == 0,
+          f"build_parallel_scan of {SHARDED_SCAN} steps: losses bit for bit the eager steps', overflow 0")
+    print(f"captured: build_parallel_steps' graph (NCCL all_to_all_single and all_reduce captured) over "
+          f"{SHARDED_STEPS} steps and build_parallel_scan over {SHARDED_SCAN}: bit for bit the eager steps")
+    del scanned, stacked, captured
+
+    # 3. eval of the trained state against the local engine's captured eval
+    auc_s, auc_l = auc_init(device=dev), auc_init(device=dev)
+    es = engine.jit_eval_step()
+    for batch in stream(EVAL_SEED, SHARDED_EVAL_BATCHES):
+        evaluate(eager, auc_s, *batch)
+        es(local, auc_l, *batch)
+    check(all(torch.equal(a, b) for a, b in zip(auc_s, auc_l)),
+          "build_parallel_steps' eval AUC state equals the local jit_eval_step's bit for bit")
+    print(f"eval: {SHARDED_EVAL_BATCHES} held-out batches, the sharded (captured) AUC state bit for bit the local "
+          f"jit_eval_step's ({int(auc_s.count)} examples)")
+
+    # 5. overflow at a capacity factor of 0.05 against the CPU's plain
+    # sharded engine (a gloo world of one beside the NCCL one)
+    dense, ids, labels = batches[0]
+    low = flagship(mesh, OVERFLOW_CAPACITY)
+    got, ovf = low.tables.gather_with_stats(eager.emb_params, low._group_ids(ids))
+    cpu_mesh = make_mesh(1, group=dist.new_group(backend="gloo"))
+    low_cpu = flagship(cpu_mesh, OVERFLOW_CAPACITY)
+    got_cpu, ovf_cpu = low_cpu.tables.gather_with_stats(to_device(eager.emb_params, "cpu"),
+                                                        low_cpu._group_ids(ids.cpu()))
+    want = engine.tables.gather(local.emb_params, engine._group_ids(ids), torch.float32)
+    r, w = got["emb"]["d17"].reshape(-1, DIM + 1), want["emb"]["d17"].reshape(-1, DIM + 1)
+    zero = ~r.any(dim=1)
+    check(int(ovf) == int(ovf_cpu) > 0, f"overflow count {int(ovf)} equals the CPU plain sharded engine's "
+          f"{int(ovf_cpu)}")
+    check(not bool((~w.any(dim=1)).any()) and int(zero.sum()) == int(ovf),
+          f"the {int(ovf)} overflowed lookups, and only they, are zero rows")
+    check(torch.equal(r[~zero], w[~zero]), "the other rows equal the local gather's bit for bit")
+    check(torch.equal(got_cpu["emb"]["d17"], got["emb"]["d17"].cpu()), "the card's rows equal the CPU's")
+    print(f"overflow at capacity factor {OVERFLOW_CAPACITY}: a bucket of {low.tables._capacity(ids.numel())}, "
+          f"{int(ovf)} lookups dropped (the CPU's plain sharded engine: {int(ovf_cpu)}), each a zero row; the "
+          f"other rows the local gather's bit for bit")
+    del got, got_cpu, want, r, w, zero, low, low_cpu
+
+    # 6. times: (c') of the sharded step beside the local one, the step's
+    # parts by the profiler, and the owner's #1 and #4 at cap ids
+    dense, ids, labels = batches[-1]
+    ts_local = engine.jit_train_step()
+    local_ms = time_ms(lambda: ts_local(local, dense, ids, labels), iters=10)
+    sharded_ms = time_ms(lambda: train(eager, dense, ids, labels), iters=10)
+    print(f"(c') sharded step at {BATCH}: {sharded_ms:.4f} ms per step, local (c') {local_ms:.4f} ms "
+          f"(CUDA events, 10 back-to-back calls of each captured step), {sharded_ms - local_ms:+.4f} ms, "
+          f"on {card}")
+    compare_step_profiles(lambda: train(eager, dense, ids, labels), lambda: ts_local(local, dense, ids, labels),
+                          card)
+    # the exchange's stages, eager, by their kernels' device time: the plan
+    # (sort, bounds, bucket maps, hop 1, the owner's stream), the gather's
+    # route (#1 at cap ids, hop 2, the readback) and the update's (the
+    # grads' bucket gather, their hop, #4), beside the local gather and
+    # update of the same batch
+    gids_s, gids_l = sharded._group_ids(ids), engine._group_ids(ids)
+    plans = sharded.tables.plan(gids_s)
+    g_rows = {"emb": {"d17": (torch.randn((BATCH, schema.n_slots, DIM + 1), generator=gen, device=dev)
+                              * 1e-3).to(torch.bfloat16)}}
+    lr_t, step_t = torch.tensor(1e-2, device=dev), eager.step.clone()
+    stages = (
+        ("plan", lambda: sharded.tables.plan(gids_s), None),
+        ("gather", lambda: sharded.tables.gather(eager.emb_params, plans, torch.bfloat16),
+         lambda: engine.tables.gather(local.emb_params, gids_l, torch.bfloat16)),
+        ("update", lambda: sharded.tables.apply_grads(eager.emb_params, eager.emb_opt, plans, g_rows, step_t, lr_t),
+         lambda: engine.tables.apply_grads(local.emb_params, local.emb_opt, gids_l, g_rows, step_t, lr_t)),
+    )
+    for stage, fn_s, fn_l in stages:
+        a = device_ms(fn_s)
+        b = device_ms(fn_l) if fn_l is not None else 0.0
+        fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa: E731
+        print(f"exchange stage {stage}: sharded {fmt(a)}, local {fmt(b)} of kernels a call (eager, "
+              f"torch.profiler) on {card}")
+    del plans, g_rows
+    plan = sharded.tables.plan(sharded._group_ids(ids))["emb"]["d17"]
+    table = eager.emb_params["emb"]["d17"]
+    owner_ids, owner_stream = plan.gather_ids, plan.stream_ids
+    ref = gather_rows_reference(table, owner_ids, torch.bfloat16)
+    check(torch.equal(gather_rows(table, owner_ids, torch.bfloat16), ref), "owner's gather bit for bit its plain "
+          "version at cap ids")
+    touched = torch.unique(owner_ids).numel()
+    owner = {"owner_max_abs_err": 0.0}
+    owner["owner_bound_ms"], owner["owner_bound_by"] = bound_ms(touched * (DIM + 1) * 4 + cap * 4
+                                                                + ref.numel() * 2)
+    owner.update(short_times(lambda: gather_rows(table, owner_ids, torch.bfloat16),
+                             lambda: gather_rows_reference(table, owner_ids, torch.bfloat16),
+                             lambda: torch.index_select(table, 0, owner_ids).to(torch.bfloat16), "owner_"))
+    report["gather_rows"].update(owner)
+    report["gather_rows"]["shapes"] += ("; owner_: the sharded owner's gather at world 1, cap = 532,480 ids "
+                                        "(the batch's 425,984 sorted, then sentinels clamped to the last row)")
+    grads = (torch.randn((cap, DIM + 1), generator=gen, device=dev) * 0.01).to(torch.bfloat16)
+    t_up, a_up = table.clone(), eager.emb_opt["emb"]["d17"]["acc"].clone()
+    eps = 1e-8
+    t_cpu, a_cpu = t_up.cpu(), a_up.cpu()
+    sorted_adagrad_update_reference(t_cpu, a_cpu, owner_stream.cpu(), grads.cpu(), lr_t.cpu(), eps)
+    sorted_adagrad_update(t_up, a_up, owner_stream, grads, lr_t, eps)
+    err = max((t_up.cpu() - t_cpu).abs().max().item(), (a_up.cpu() - a_cpu).abs().max().item())
+    check(err == 0.0, f"owner's sparse update at cap ids with its sentinel tail bit for bit the CPU's ({err})")
+    # the kernel reads the grads of real ids only: the sentinel tail's are
+    # skipped with their ids
+    real = int((owner_stream < rows).sum())
+    touched = torch.unique(owner_stream[owner_stream < rows]).numel()
+    upd = {"owner_max_abs_err": err}
+    upd["owner_bound_ms"], upd["owner_bound_by"] = bound_ms(cap * 4 + real * (DIM + 1) * 2 + touched * (DIM + 1) * 16)
+    upd.update(short_times(lambda: sorted_adagrad_update(t_up, a_up, owner_stream, grads, lr_t, eps),
+                           lambda: sorted_adagrad_update_reference(t_up, a_up, owner_stream, grads, lr_t, eps),
+                           adagrad_library_step(t_up, owner_stream, grads, 1e-2, eps), "owner_"))
+    report["sorted_adagrad_update"].update(upd)
+    report["sorted_adagrad_update"]["shapes"] += ("; owner_: the sharded owner's stream at world 1, cap = "
+                                                  "532,480 positions, the last 106,496 sentinels")
+    for name, r_ in (("gather_rows", owner), ("sorted_adagrad_update", upd)):
+        print(f"owner's {name} at {cap} positions: {r_['owner_ms']:.4f} ms cold, warm "
+              f"{r_['owner_warm_ms'] if r_['owner_warm_ms'] is None else format(r_['owner_warm_ms'], '.4f')} ms; "
+              f"plain {r_['owner_plain_ms']:.4f} ms, library {r_['owner_library_ms']:.4f} ms, bound "
+              f"{r_['owner_bound_ms']:.4f} ms ({r_['owner_bound_by']}) on {card}")
+    del t_up, a_up, t_cpu, a_cpu, grads, plan, ref, eager, local, start
+
+    # 4. lazy Adam: the slice-3 configuration, sharded against local
+    cfg3 = TrainConfig(model="xdeepfm", bf16=True, vocab_size=VOCAB, embed_dim=DIM, cin_sizes=CIN3,
+                       hidden=HIDDEN, batch_size=BATCH, seed=SEED)
+    sharded3 = build_parallel_engine(build_model(cfg3.model, schema, **cfg3.model_kwargs()), mesh,
+                                     dense_lr=engine3.dense_lr, emb_lr=engine3.emb_lr, sparse_optimizer="adam",
+                                     capacity_factor=SHARDED_CAPACITY, fuse_wide=False)
+    start3 = sharded3.init(seed=SEED, device=dev)
+    liven(start3, gen)
+    local3, eager3 = to_device(start3, dev), shard_state(start3, mesh)
+    del start3
+    kernels3 = (gather_rows, transpose_minor2, cin_layer_forward, cin_layer_backward, sorted_adam_update)
+    launches3 = {k.__name__: 0 for k in kernels3}
+    for k, batch in enumerate(stream(13, SHARDED3_STEPS)):  # slice 3's training stream
+        local3, ml = engine3.train_step(local3, *batch)
+        for kern in kernels3:
+            kern.launches = 0
+        eager3, ms = sharded3.train_step(eager3, *batch)
+        check(sorted_adam_update.launches >= 2, f"lazy Adam launched on both tables on sharded step {k}")
+        for kern in kernels3:
+            check(kern.launches >= 1, f"{kern.__name__} launched on sharded slice-3 step {k}")
+            launches3[kern.__name__] += kern.launches
+        check(torch.equal(ms["loss"], ml["loss"]) and int(ms["overflow"]) == 0,
+              f"sharded slice-3 step {k}: loss bit for bit the local step's, overflow 0")
+    diff = states_differ(eager3, local3)
+    check(diff is None, f"the sharded slice-3 state equals the local one (first difference: {diff})")
+    print(f"lazy Adam (slice 3, CIN{CIN3}, unfused wide table): {SHARDED3_STEPS} sharded steps bit for bit the "
+          f"local engine's; launches {launches3}")
+    return launches, launches3
 
 
 if __name__ == "__main__":

@@ -103,10 +103,16 @@ class SparseOptimizer:
 def _adam_dense_update(table, state, ids_flat, grads_flat, step: torch.Tensor, lr: torch.Tensor,
                        h) -> None:
     """Dense Adam over the full table, in place, in the JAX package's order
-    of operations (``optim.dense_adam``)."""
+    of operations (``optim.dense_adam``). Ids outside ``[0, rows)`` (the
+    sharded owner's sentinels) are dropped, as JAX's ``mode="drop"``
+    scatter drops them: their grads land in a spare row past the table."""
     b1, b2, eps = h["b1"], h["b2"], h["eps"]
-    g = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
-    g.index_put_((ids_flat.long(),), grads_flat.float(), accumulate=True)
+    rows = table.shape[0]
+    ids = ids_flat.long()
+    ids = torch.where((ids >= 0) & (ids < rows), ids, rows)
+    g = torch.zeros((rows + 1, *table.shape[1:]), dtype=torch.float32, device=table.device)
+    g.index_put_((ids,), grads_flat.float(), accumulate=True)
+    g = g[:rows]
     m, v = state["m"], state["v"]
     m.copy_(b1 * m + (1.0 - b1) * g)
     v.copy_(b2 * v + (1.0 - b2) * g * g)
@@ -134,17 +140,28 @@ def apply_updates(opt: SparseOptimizer, table, state, ids_2d, grads_flat, step: 
     it already for another group of the same ids), the grad permute and the
     sorted-stream update (the CUDA kernels on the card); dense Adam takes
     the dense route."""
-    h = opt.hyper
     if not needs_sort(opt):
-        _adam_dense_update(table, state, ids_2d.reshape(-1), grads_flat, step, lr, h)
+        _adam_dense_update(table, state, ids_2d.reshape(-1), grads_flat, step, lr, opt.hyper)
         return table, state
     sorted_ids, order, _ = slot_sorted_ids(ids_2d) if sorted_stream is None else sorted_stream
-    grads_sorted = torch.index_select(grads_flat, 0, order.long())
+    return apply_sorted_updates(opt, table, state, sorted_ids, torch.index_select(grads_flat, 0, order.long()),
+                                step, lr)
+
+
+def apply_sorted_updates(opt: SparseOptimizer, table, state, sorted_ids, grads_sorted, step: torch.Tensor,
+                         lr: torch.Tensor):
+    """One group's update from an ascending id stream and its grads in the
+    same order (the JAX package's ``apply_updates(..., presorted=True)``):
+    the sharded owner's stream, whose tail may hold sentinels ``>= rows``,
+    which every route skips. In place; returns the table and its state."""
+    h = opt.hyper
     if opt.name == "adam":
         sorted_adam_update(table, state["m"], state["v"], sorted_ids, grads_sorted,
                            adam_scalars(lr, step, h["b1"], h["b2"]), h["b1"], h["b2"], h["eps"])
-    else:
+    elif opt.name == "adagrad":
         sorted_adagrad_update(table, state["acc"], sorted_ids, grads_sorted, lr, h["eps"])
+    else:
+        _adam_dense_update(table, state, sorted_ids, grads_sorted, step, lr, h)
     return table, state
 
 

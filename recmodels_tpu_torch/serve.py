@@ -83,7 +83,9 @@ def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
     ``params.npz`` holds them: f32 ``[rows, dim]``, and ``[rows]`` for a
     dim-1 group (LR's only table, ``emb/wide/d1``). The engine's collections
     name the keys: ``emb/emb/d17`` for a fused table, ``emb/emb/d16`` for
-    PNN's and DCN's.
+    PNN's and DCN's. A table strategy whose tables have more rows
+    (``ShardedTables.padded_rows``) gets the global padded state: the
+    canonical rows, then zero rows.
 
     Raises ``ValueError`` unless the leaf count and every shape match this
     engine's model."""
@@ -106,7 +108,11 @@ def params_from_jax(engine: Engine, dense_leaves: Sequence[np.ndarray],
             shape = (g.alloc_rows,) if g.dim == 1 else (g.alloc_rows, g.dim)
             if t.shape != shape:
                 raise ValueError(f"artifact/model structure mismatch: {key} {t.shape}, expected {shape}")
-            emb_params[name][g.name] = torch.tensor(t, device=device)
+            table = torch.tensor(t, device=device)
+            pad = engine.tables.table_rows(name, g) - g.alloc_rows
+            if pad:
+                table = torch.cat([table, table.new_zeros((pad, *shape[1:]))])
+            emb_params[name][g.name] = table
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=device),
                       dense_params=dense_params, emb_params=emb_params)
 
@@ -190,6 +196,9 @@ def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.nd
     optax's ``ScaleByAdamState``. ``emb_opt`` maps each table's key to the
     group's state dict ({"acc": ...} for Adagrad, {"m": ..., "v": ...} for
     lazy or dense Adam); ``emb_acc`` = {key: acc} says the same for Adagrad.
+    Each holds the canonical rows, or as many as the engine's tables (a
+    sharded JAX state's); the padded rows of a sharded engine's global
+    state take the optimizer's initial value.
 
     Raises ``ValueError`` unless the optimizer states are the engine's and
     every shape matches this engine's model."""
@@ -222,12 +231,12 @@ def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.nd
                     f"the engine's {engine.sparse_optimizer!r} keeps {names}"
                 )
             table = state.emb_params[name][g.name]
-            tensors = {}
+            tensors = engine.sparse_opt.init(table.shape[0], g.dim, table.device)
             for k, a in group_state.items():
                 a = np.asarray(a, np.float32)
-                if a.shape != tuple(table.shape):
+                if a.shape not in (tuple(table.shape), (g.alloc_rows, *table.shape[1:])):
                     raise ValueError(f"artifact/model structure mismatch: {key} {k} {a.shape}")
-                tensors[k] = torch.tensor(a, device=table.device)
+                tensors[k][: a.shape[0]] = torch.tensor(a)
             out[name][g.name] = tensors
     return state._replace(
         step=torch.tensor(int(step), dtype=torch.int32, device=state.step.device),

@@ -117,7 +117,9 @@ class _Captured:
             self._stream = torch.cuda.Stream(device)
         if not shape.warm:
             out = warm_up(run, self._stream)
-            out.record_stream(torch.cuda.current_stream(device))
+            for t in leaves(out):
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(torch.cuda.current_stream(device))
             shape.warm = True
             return out
         if shape.graph is None:
@@ -130,12 +132,12 @@ class _Captured:
 class CapturedStep(_Captured):
     """``Engine.jit_train_step``'s callable: ``(state, dense, ids, labels) ->
     (state, {'loss', 'overflow'})``, as ``Engine.train_step``; ``fn`` is the
-    step returning its loss. The loss handed back is a copy: the static
-    output changes at the next replay."""
+    step returning its metrics. The tensors handed back are copies: the
+    static outputs change at the next replay."""
 
     def __call__(self, state, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor):
-        loss = self.step(state, (dense, ids, labels))
-        return state, {"loss": loss.clone(), "overflow": 0}
+        out = self.step(state, (dense, ids, labels))
+        return state, {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
 
 
 class CapturedEval(_Captured):

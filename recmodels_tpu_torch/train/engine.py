@@ -23,8 +23,18 @@ dense optimizer's own schedule count, so a replayed graph reads its own
 step's values. ``train_scan_gen`` trains on batches generated on the
 state's device (``data/device_synth.py``), and ``jit_train_scan_gen`` and
 ``jit_eval_gen`` capture "generate, then step" as one graph whose replays
-read the batch index from device memory. The sharded tables (with the
-cross-device merge of ``eval_step``'s histograms) come with a later slice.
+read the batch index from device memory.
+
+The data axis: an engine whose table strategy shards the tables over a mesh
+(``parallel/sharded_embedding.py`` over ``parallel/mesh.py``;
+``parallel.build_parallel_engine`` builds one) takes that mesh as its own
+and runs each step on this rank's block of the batch, as the JAX engine runs under ``shard_map`` with
+an ``axis_name``: the loss and the dense grads are summed over the ranks and
+divided by their number (``pmean``), the overflow count is summed, the row
+grads are scaled by 1/ranks (the owner sums every rank's occurrences, so an
+example weighs 1/global batch), and ``eval_step`` sums a batch's histograms
+over the ranks before adding them to the caller's state. Every step and
+``logits`` are then collectives: every rank calls them together.
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ from recmodels_tpu_torch.embedding.optim import (
 from recmodels_tpu_torch.embedding.update import device_constant
 from recmodels_tpu_torch.models.base import CTRModel
 from recmodels_tpu_torch.train.capture import CapturedEval, CapturedStep
-from recmodels_tpu_torch.train.metrics import AUCState, auc_update
+from recmodels_tpu_torch.train.metrics import AUCState, auc_init, auc_update
 from recmodels_tpu_torch.train.optim import get_dense_optimizer
 from recmodels_tpu_torch.utils import tree
 
@@ -74,7 +84,12 @@ class TrainState(NamedTuple):
 class LocalTables:
     """Single-device tables: plain row-major f32 ``[rows, dim]`` (dim-1
     groups ``[rows]``), gathered in batch order by ``gather_rows`` and
-    updated in place by the sparse optimizer."""
+    updated in place by the sparse optimizer.
+
+    A table strategy's interface (``ShardedTables`` has the same):
+    ``init_params``, ``init_opt``, ``table_rows``, ``plan`` (a step's
+    routes of the group ids, shared by ``gather`` and ``apply_grads``),
+    ``gather`` and ``apply_grads``."""
 
     def __init__(self, collections: Dict[str, EmbeddingCollection],
                  sparse_opt: SparseOptimizer | None = None):
@@ -94,9 +109,18 @@ class LocalTables:
             for name, coll in self.collections.items()
         }
 
-    def gather(self, emb_params, gids, dtype) -> Dict[str, Dict[str, torch.Tensor]]:
+    def table_rows(self, coll: str, group) -> int:
+        """The rows of the state's table (``alloc_rows``)."""
+        return group.alloc_rows
+
+    def plan(self, gids):
+        """The step's routes: local tables need none beyond the ids."""
+        return gids
+
+    def gather(self, emb_params, gids, dtype, with_stats: bool = False):
         """{coll: {group: [B, n_g]}} -> {coll: {group: [B, n_g, dim]}} in
-        ``dtype``."""
+        ``dtype``; ``with_stats``: also the overflow count, 0 (local tables
+        drop no lookups)."""
         out = {}
         for name, coll in self.collections.items():
             res = {}
@@ -104,7 +128,7 @@ class LocalTables:
                 t = emb_params[name][g.name]
                 res[g.name] = gather_rows(t.reshape(t.shape[0], -1), gids[name][g.name], dtype)
             out[name] = res
-        return out
+        return (out, 0) if with_stats else out
 
     def apply_grads(self, emb_params, emb_opt, gids, grad_rows, step, lr):
         """Apply the row grads {coll: {group: [B, n_g, dim]}} to the tables
@@ -156,6 +180,11 @@ class Engine:
     # before adagrad and sgd); the tables are not decayed
     dense_weight_decay: float = 0.0
     fuse_wide: bool = True
+    # the tables' strategy: None (LocalTables), a strategy, or a factory
+    # (collections, sparse_opt) -> strategy (parallel/); self.tables holds it,
+    # and self.mesh its data axis (a parallel.Mesh the batch is split over;
+    # None for strategies without one: a single device)
+    table_strategy: Any = None
 
     def __post_init__(self):
         # f32 products (dense @ w_dense, p @ w_cin, the widened MLP) stay
@@ -188,7 +217,13 @@ class Engine:
         self.dense_tx = get_dense_optimizer(self.dense_optimizer, self.dense_weight_decay,
                                             scheduled=self.dense_lr_schedule is not None)
         self.sparse_opt = get_sparse_optimizer(self.sparse_optimizer)
-        self.tables = LocalTables(self.collections, self.sparse_opt)
+        if self.table_strategy is None:
+            self.tables = LocalTables(self.collections, self.sparse_opt)
+        elif callable(self.table_strategy) and not hasattr(self.table_strategy, "gather"):
+            self.tables = self.table_strategy(self.collections, self.sparse_opt)
+        else:
+            self.tables = self.table_strategy
+        self.mesh = getattr(self.tables, "mesh", None)
         # rows are gathered in the compute dtype (bf16 models: bf16 rows)
         self._gather_dtype = getattr(self.model, "compute_dtype", torch.float32)
 
@@ -241,7 +276,7 @@ class Engine:
         """Inference forward: dense [B, n_dense] f32, ids [B, n_slots] int32
         slot-local, on the parameters' device -> logits [B] f32."""
         gids = self._group_ids(ids)
-        rows = self.tables.gather(state.emb_params, gids, self._gather_dtype)
+        rows = self.tables.gather(state.emb_params, self.tables.plan(gids), self._gather_dtype)
         out = self._forward_from_rows(state.dense_params, rows, dense)
         # a (B, 1) term broadcast against [B] terms would build (B, B) logits
         assert out.shape == (dense.shape[0],), out.shape
@@ -250,12 +285,14 @@ class Engine:
     # --------------------------------------------------------------- train
     def _grads(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
                labels: torch.Tensor):
-        """(loss, group ids, dense grads, row grads) of one batch at the
-        state's parameters: the loss differentiated with respect to the
-        dense leaves and the gathered rows."""
+        """(loss, overflow, group ids, their plan, dense grads, row grads)
+        of one batch at the state's parameters: the loss differentiated with
+        respect to the dense leaves and the gathered rows. Nothing is
+        reduced over the mesh yet (``_reduce``)."""
         gids = self._group_ids(ids)
+        plan = self.tables.plan(gids)
         with torch.no_grad():
-            gathered = self.tables.gather(state.emb_params, gids, self._gather_dtype)
+            gathered, overflow = self.tables.gather(state.emb_params, plan, self._gather_dtype, with_stats=True)
         # the rows are leaves of their own: the tables change in place later
         rows = {c: {g: t.detach().requires_grad_(True) for g, t in r.items()}
                 for c, r in gathered.items()}
@@ -270,9 +307,22 @@ class Engine:
             grads = torch.autograd.grad(loss, live + row_leaves)
         g_dense, g_rows_flat = list(grads[: len(live)]), iter(grads[len(live):])
         g_rows = {c: {g: next(g_rows_flat) for g in r} for c, r in rows.items()}
-        return loss.detach(), gids, g_dense, g_rows
+        return loss.detach(), overflow, gids, plan, g_dense, g_rows
 
-    def _apply(self, state: TrainState, g_dense, gids, g_rows) -> None:
+    def _reduce(self, loss, overflow, g_dense, g_rows):
+        """The data axis, in place (``pmean`` of the loss and the dense
+        grads: summed, then divided; ``psum`` of the overflow; the row grads
+        times 1/ranks); returns (loss, overflow). Nothing without a mesh."""
+        if self.mesh is None:
+            return loss, overflow
+        with torch.no_grad():
+            self.mesh.mean_([loss] + g_dense)
+            self.mesh.sum_([overflow])
+            inv = 1.0 / self.mesh.size
+            torch._foreach_mul_([t for r in g_rows.values() for t in r.values()], inv)
+        return loss, overflow
+
+    def _apply(self, state: TrainState, g_dense, plan, g_rows) -> None:
         """Both optimizers once, in place, then the step: the dense
         optimizer at the dense lr (or its schedule), the sparse one at the
         embedding lr, or its schedule at the step before the update."""
@@ -282,7 +332,7 @@ class Engine:
                 self.dense_lr_schedule if self.dense_lr_schedule is not None else self.dense_lr)
             lr = (self.emb_lr_schedule(state.step) if self.emb_lr_schedule is not None
                   else device_constant(self.emb_lr, state.step.device))
-            self.tables.apply_grads(state.emb_params, state.emb_opt, gids, g_rows, state.step, lr)
+            self.tables.apply_grads(state.emb_params, state.emb_opt, plan, g_rows, state.step, lr)
             state.step.add_(1)
 
     def train_step(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
@@ -290,27 +340,29 @@ class Engine:
         """One optimizer step on a batch (dense [B, n_dense] f32, ids [B,
         n_slots] int32 slot-local, labels [B] f32, on the state's device).
         Updates the state's tensors in place, its step included, and returns
-        (state, {'loss': mean BCE, a 0-d tensor; 'overflow': 0, as local
-        tables drop no lookups})."""
-        loss, gids, g_dense, g_rows = self._grads(state, dense, ids, labels)
-        self._apply(state, g_dense, gids, g_rows)
-        return state, {"loss": loss, "overflow": 0}
+        (state, {'loss': mean BCE, a 0-d tensor; 'overflow': the lookups
+        dropped by sharded tables, summed over the ranks, a 0-d int32
+        tensor, and 0 for local tables, which drop none}). With a mesh the
+        batch is this rank's block and the loss the mean over the ranks."""
+        loss, overflow, _, plan, g_dense, g_rows = self._grads(state, dense, ids, labels)
+        loss, overflow = self._reduce(loss, overflow, g_dense, g_rows)
+        self._apply(state, g_dense, plan, g_rows)
+        return state, {"loss": loss, "overflow": overflow}
 
     def train_scan(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
                    labels: torch.Tensor):
         """K steps on batches stacked [K, B, ...]: a loop over
         ``train_step``. Returns (state, {'loss': the last loss, 'losses':
-        [K], 'overflow': 0})."""
+        [K], 'overflow': the largest step's})."""
         return self._scan(self.train_step, state, dense, ids, labels)
 
     @staticmethod
     def _scan(step, state, dense, ids, labels):
-        losses = []
+        outs = []
         for k in range(dense.shape[0]):
             state, metrics = step(state, dense[k], ids[k], labels[k])
-            losses.append(metrics["loss"])
-        losses = torch.stack(losses)
-        return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+            outs.append(metrics)
+        return state, scan_metrics(outs)
 
     # ------------------------------------------------- gradient accumulation
     def train_step_accum(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
@@ -323,17 +375,20 @@ class Engine:
         both optimizers applied once. Collections that share one ids tensor
         share its concatenation, so the update sorts it once. Equals
         ``train_step`` on the concatenated batch up to f32 summation order.
-        Returns (state, {'loss': the mean of the micro-batches' losses,
-        'overflow': 0})."""
+        With a mesh, the reductions of ``train_step`` follow the micro-batch
+        means. Returns (state, {'loss': the mean of the micro-batches'
+        losses, 'overflow': their overflow summed})."""
         a = dense.shape[0]
         losses, gids_list, rows_list = [], [], []
         g_dense = None
+        overflow = 0
         for i in range(a):
-            loss, gids, g, g_rows = self._grads(state, dense[i], ids[i], labels[i])
+            loss, ovf, gids, _, g, g_rows = self._grads(state, dense[i], ids[i], labels[i])
             if g_dense is None:
                 g_dense = g
             else:
                 torch._foreach_add_(g_dense, g)
+            overflow = overflow + ovf
             losses.append(loss)
             gids_list.append(gids)
             rows_list.append(g_rows)
@@ -356,8 +411,9 @@ class Engine:
         gids = {name: {g: cat_ids(name, g) for g in per} for name, per in gids_list[0].items()}
         g_rows = {name: {g: torch.cat([r[name][g] for r in rows_list]) * inv_a for g in per}
                   for name, per in rows_list[0].items()}
-        self._apply(state, g_dense, gids, g_rows)
-        return state, {"loss": loss, "overflow": 0}
+        loss, overflow = self._reduce(loss, overflow, g_dense, g_rows)
+        self._apply(state, g_dense, self.tables.plan(gids), g_rows)
+        return state, {"loss": loss, "overflow": overflow}
 
     def train_scan_accum(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
                          labels: torch.Tensor):
@@ -372,12 +428,11 @@ class Engine:
         tensor). No host producer and no host->device batch bytes. Returns
         (state, {'loss': the last loss, 'losses': [K], 'overflow': 0})."""
         step0 = torch.as_tensor(step0, dtype=torch.int32, device=state.step.device)
-        losses = []
+        outs = []
         for i in range(k):
             state, metrics = self.train_step(state, *batch_fn(step0 + i))
-            losses.append(metrics["loss"])
-        losses = torch.stack(losses)
-        return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+            outs.append(metrics)
+        return state, scan_metrics(outs)
 
     # ---------------------------------------------------------------- eval
     def eval_step(self, state: TrainState, auc_state: AUCState, dense: torch.Tensor,
@@ -386,9 +441,17 @@ class Engine:
         """Score a batch and add it to ``auc_state`` in place (its
         histograms, loss sum and count; ``weight`` a [B] 0/1 mask for padded
         tail rows); returns ``auc_state``. Inputs as for ``train_step``, the
-        AUC state on the same device."""
+        AUC state on the same device. With a mesh the batch's histograms,
+        loss sum and count are summed over the ranks, then added to
+        ``auc_state``, which every rank holds whole."""
         with torch.no_grad():
-            return auc_update(auc_state, self.logits(state, dense, ids), labels, weight)
+            logits = self.logits(state, dense, ids)
+            if self.mesh is None:
+                return auc_update(auc_state, logits, labels, weight)
+            new = auc_update(auc_init(auc_state.pos_hist.shape[0], logits.device), logits, labels, weight)
+            self.mesh.sum_(list(new))
+            torch._foreach_add_(list(auc_state), list(new))
+            return auc_state
 
     # ------------------------------------------------------------- capture
     def jit_train_step(self) -> CapturedStep:
@@ -398,7 +461,7 @@ class Engine:
         second captures the step and replays it, and later calls replay; a
         state with other tensors captures again. On a CPU state it runs the
         same static-buffer code without capture."""
-        return CapturedStep(lambda state, *batch: self.train_step(state, *batch)[1]["loss"])
+        return CapturedStep(lambda state, *batch: self.train_step(state, *batch)[1])
 
     def jit_train_scan(self):
         """``train_scan`` over ``jit_train_step``'s graph: K replays, batch k
@@ -410,7 +473,7 @@ class Engine:
     def jit_train_step_accum(self) -> CapturedStep:
         """``train_step_accum`` as one CUDA graph per batch shape ([A, Bm,
         ...]), captured and replayed as ``jit_train_step``'s."""
-        return CapturedStep(lambda state, *batch: self.train_step_accum(state, *batch)[1]["loss"])
+        return CapturedStep(lambda state, *batch: self.train_step_accum(state, *batch)[1])
 
     def jit_train_scan_accum(self):
         """``train_scan_accum`` over ``jit_train_step_accum``'s graph, as
@@ -428,13 +491,10 @@ class Engine:
         batch to copy in): the first replay of a state runs eagerly, the
         second captures. On a CPU state the same code runs without capture.
         ``.steps`` is the ``CapturedStep`` (its ``graphs``)."""
-        steps = CapturedStep(lambda state: self.train_step(state, *batch_fn(state.step))[1]["loss"])
+        steps = CapturedStep(lambda state: self.train_step(state, *batch_fn(state.step))[1])
 
         def train_scan_gen(state: TrainState, k: int):
-            losses = torch.empty((k,), dtype=torch.float32, device=state.step.device)
-            for i in range(k):
-                losses[i].copy_(steps.step(state, ()))
-            return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+            return state, _replays(lambda: steps.step(state, ()), k, state.step.device)
 
         train_scan_gen.steps = steps
         return train_scan_gen
@@ -474,14 +534,35 @@ class Engine:
         return CapturedEval(lambda states, *batch: self.eval_step(*states, *batch).count)
 
 
+def scan_metrics(outs: list) -> dict:
+    """The metrics of K steps: {'loss': the last loss, 'losses': [K],
+    'overflow': the largest step's (0 for local tables)}."""
+    losses = torch.stack([m["loss"] for m in outs])
+    overflows = [m["overflow"] for m in outs]
+    overflow = torch.stack(overflows).max() if isinstance(overflows[0], torch.Tensor) else 0
+    return {"loss": losses[-1], "losses": losses, "overflow": overflow}
+
+
+def _replays(step: Callable[[], dict], k: int, device) -> dict:
+    """``step`` (one replay, returning its graph's static metrics) K times,
+    loss i written into a [K] buffer on ``device`` and the overflow kept as
+    the largest step's; results as ``scan_metrics``'."""
+    losses = torch.empty((k,), dtype=torch.float32, device=device)
+    overflow = 0
+    for i in range(k):
+        out = step()
+        losses[i].copy_(out["loss"])
+        if isinstance(out["overflow"], torch.Tensor):
+            overflow = out["overflow"].clone() if i == 0 else torch.maximum(overflow, out["overflow"])
+    return {"loss": losses[-1], "losses": losses, "overflow": overflow}
+
+
 def _captured_scan(steps: CapturedStep):
     """K replays of ``steps``' graph over batches stacked on a leading axis,
     loss k written into a [K] buffer on the state's device."""
 
     def train_scan(state: TrainState, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor):
-        losses = torch.empty((dense.shape[0],), dtype=torch.float32, device=state.step.device)
-        for k in range(dense.shape[0]):
-            losses[k].copy_(steps.step(state, (dense[k], ids[k], labels[k])))
-        return state, {"loss": losses[-1], "losses": losses, "overflow": 0}
+        batches = iter(zip(dense, ids, labels))
+        return state, _replays(lambda: steps.step(state, next(batches)), dense.shape[0], state.step.device)
 
     return train_scan

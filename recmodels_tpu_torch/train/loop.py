@@ -12,7 +12,9 @@ log, an eval or a checkpoint. With ``data="device_synth"`` the batches are
 generated on the device inside the captured step (``jit_train_scan_gen``):
 no producer, no batch bytes from the host; ``val_data="device_synth"`` (or
 that ``data`` alone) evaluates on the generated held-out stream the same
-way. More than one device is not ported yet.
+way. The Trainer runs one device; the sharded path (``parallel/``) runs in
+a process group that its caller starts (the Trainer's ``n_devices > 1`` is
+ROADMAP.md queue 1, item 7b).
 """
 
 from __future__ import annotations
@@ -74,8 +76,9 @@ class Trainer:
     def __init__(self, cfg: TrainConfig, logger: MetricsLogger | None = None, device="cuda"):
         if (cfg.n_devices or 1) > 1:
             raise NotImplementedError(
-                f"n_devices={cfg.n_devices}: the sharded path (parallel/) is not ported yet: "
-                "ROADMAP.md queue 1, item 7")
+                f"n_devices={cfg.n_devices}: the Trainer runs one device; the sharded tables and steps "
+                "(parallel/) run in a process group the caller starts, and the Trainer's multi-device "
+                "branch is ROADMAP.md queue 1, item 7b")
         if cfg.accum_steps > 1 and cfg.batch_size % cfg.accum_steps:
             raise ValueError(f"batch_size {cfg.batch_size} not divisible by accum_steps {cfg.accum_steps}")
         self.cfg = cfg

@@ -1251,3 +1251,155 @@ def test_captured_generated_eval_equals_eager_eval(cuda):
     torch.cuda.synchronize()
     assert eval_gen.captured.graphs == 1 and int(index) == 4 and int(captured.count) == 4 * 512
     assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
+# ------------------------------------------ the sharded path (slice 9)
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """The mesh of an NCCL process group of one rank on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import socket
+
+    import torch.distributed as dist
+
+    from recmodels_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0, device_id=dev)
+    try:
+        yield make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_twin(path, mesh, capacity_factor=1.25):
+    """``_small_engine(path)``'s model as a sharded engine over ``mesh``."""
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.parallel import build_parallel_engine
+
+    eng, schema, cfg = _small_engine(path)
+    opts = dict(sparse_optimizer="adam", fuse_wide=False) if path == "slice3" else {}
+    model = build_model(cfg.model, schema, **cfg.model_kwargs())
+    return eng, build_parallel_engine(model, mesh, capacity_factor=capacity_factor, **opts), schema
+
+
+@pytest.mark.parametrize("path", ["slice2", "slice3"])
+def test_sharded_steps_equal_local_steps_on_the_card(cuda, nccl_mesh, path):
+    """In an NCCL world of one, five sharded steps (eager, then captured by
+    ``build_parallel_steps``, NCCL's collectives inside the graph) equal five
+    local steps from one start state bit for bit: every loss and every
+    tensor of the state; the overflow is 0 and the step launches the gather
+    and the sparse update."""
+    from recmodels_tpu_torch.parallel import build_parallel_steps, shard_state
+
+    local_eng, eng, schema = _sharded_twin(path, nccl_mesh)
+    start = eng.init(seed=0, device=cuda)
+    local = shard_state(start, nccl_mesh)  # a copy: at world 1 a local state too
+    eager, captured = shard_state(start, nccl_mesh), shard_state(start, nccl_mesh)
+    train, _ = build_parallel_steps(eng, nccl_mesh)
+    update = sorted_adam_update if path == "slice3" else sorted_adagrad_update
+    for b in _card_batches(schema, 5, cuda):
+        local, ml = local_eng.train_step(local, *b)
+        gathers, updates = gather_rows.launches, update.launches
+        eager, me = eng.train_step(eager, *b)
+        assert gather_rows.launches > gathers and update.launches > updates
+        captured, mc = train(captured, *b)
+        assert torch.equal(me["loss"], ml["loss"]) and torch.equal(mc["loss"], ml["loss"])
+        assert int(me["overflow"]) == 0 and int(mc["overflow"]) == 0
+    torch.cuda.synchronize()
+    assert train.captured.graphs == 1
+    for state in (eager, captured):
+        assert all(torch.equal(a, b) for a, b in zip(_tensors(state), _tensors(local)))
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.05])
+def test_owner_gather_of_clamped_ids(cuda, nccl_mesh, capacity_factor):
+    """The owner's gather runs the row-gather kernel on its receive stream
+    with the sentinel tail clamped to the last row (the kernel's contract:
+    every id in range), bit for bit its plain version; the requester's rows
+    are the local gather's, and at a capacity factor of 0.05 the overflowed
+    lookups, and only they, are zero rows."""
+    _, eng, schema = _sharded_twin("slice2", nccl_mesh, capacity_factor)
+    state = eng.init(seed=0, device=cuda)
+    (dense, ids, _), = _card_batches(schema, 1, cuda)
+    gids = eng._group_ids(ids)
+    plan = eng.tables.plan(gids)["emb"]["d17"]
+    table = state.emb_params["emb"]["d17"]
+    rows = table.shape[0]
+    tail = capacity_factor > 1  # a bucket past the batch's ids ends in sentinels, clamped to the last row
+    assert (int(plan.stream_ids.max()) == rows) == tail and (int(plan.gather_ids.max()) == rows - 1) == tail
+    got = gather_rows(table, plan.gather_ids, torch.bfloat16)
+    assert torch.equal(got, gather_rows_reference(table, plan.gather_ids, torch.bfloat16))
+    out, overflow = eng.tables.gather_with_stats(state.emb_params, gids)
+    want = gather_rows(table, gids["emb"]["d17"], torch.float32).reshape(-1, table.shape[1])
+    out = out["emb"]["d17"].reshape(-1, table.shape[1])
+    zero = ~out.any(dim=1)
+    assert int(zero.sum()) == int(overflow) and (int(overflow) > 0) == (capacity_factor < 1)
+    assert torch.equal(out[~zero], want[~zero])
+
+
+@pytest.mark.parametrize("dim", [17, 16, 1])
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+def test_sorted_updates_skip_a_sentinel_tail(cuda, dim, opt):
+    """#4 and #7 on an owner's stream: the sorted ids, then a tail of the
+    sentinel R (and of INT32_MAX), update the table as the stream without
+    the tail, bit for bit, and as their plain versions."""
+    g = _gen(cuda, 23)
+    rows, n, tail = 3000, 5000, 1300
+    shape = (rows,) if dim == 1 else (rows, dim)
+    ids = torch.sort(torch.randint(0, rows, (n,), generator=g, device=cuda, dtype=torch.int32))[0]
+    sentinels = torch.full((tail,), rows, dtype=torch.int32, device=cuda)
+    sentinels[-7:] = torch.iinfo(torch.int32).max
+    grads = (torch.randn((n + tail, *shape[1:]), generator=g, device=cuda) * 0.01).to(torch.bfloat16)
+    table = torch.randn(shape, generator=g, device=cuda) * 0.05
+    state = [torch.rand(shape, generator=g, device=cuda) * 1e-3 + (0.1 if opt == "adagrad" else 0.0)
+             for _ in range(1 if opt == "adagrad" else 2)]
+    lr = torch.tensor(1e-2, device=cuda)
+    scalars = adam_scalars(lr, torch.tensor(4, dtype=torch.int32, device=cuda), 0.9, 0.999)
+
+    def run(kernel, stream, gr, device):
+        t, st = table.to(device, copy=True), [s.to(device, copy=True) for s in state]
+        if opt == "adagrad":
+            kernel(t, st[0], stream.to(device), gr.to(device), lr.to(device), 1e-8)
+        else:
+            kernel(t, *st, stream.to(device), gr.to(device), scalars.to(device), 0.9, 0.999, 1e-8)
+        return [t.cpu(), *(s.cpu() for s in st)]
+
+    kernel = sorted_adagrad_update if opt == "adagrad" else sorted_adam_update
+    plain = sorted_adagrad_update_reference if opt == "adagrad" else sorted_adam_update_reference
+    with_tail = run(kernel, torch.cat([ids, sentinels]), grads, cuda)
+    without = run(kernel, ids, grads[:n], cuda)
+    cpu = run(plain, torch.cat([ids, sentinels]), grads, "cpu")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(with_tail, without))
+    assert all(torch.equal(a, b) for a, b in zip(with_tail, cpu))
+
+
+def test_dense_adam_drops_sentinels_on_the_card(cuda):
+    """Dense Adam on an owner's stream with a sentinel tail runs without an
+    out-of-range index and equals the update of the stream without the
+    tail bit for bit, twice."""
+    from recmodels_tpu_torch.embedding.optim import apply_sorted_updates, dense_adam
+
+    g = _gen(cuda, 29)
+    rows, n, tail, dim = 4096, 6000, 900, 16
+    ids = torch.sort(torch.randint(0, rows, (n,), generator=g, device=cuda, dtype=torch.int32))[0]
+    stream = torch.cat([ids, torch.full((tail,), rows, dtype=torch.int32, device=cuda)])
+    grads = (torch.randn((n + tail, dim), generator=g, device=cuda) * 0.01).to(torch.bfloat16)
+    table = torch.randn((rows, dim), generator=g, device=cuda) * 0.05
+    opt = dense_adam()
+
+    def run(s, gr):
+        t, st = table.clone(), opt.init(rows, dim, cuda)
+        apply_sorted_updates(opt, t, st, s, gr, torch.tensor(2, dtype=torch.int32, device=cuda),
+                             torch.tensor(1e-2, device=cuda))
+        return [t, st["m"], st["v"]]
+
+    a, b, c = run(stream, grads), run(stream, grads), run(ids, grads[:n])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, c))

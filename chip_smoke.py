@@ -170,9 +170,24 @@ Phases, each on its own lines:
          the owner's #1 and #4 at its 532,480 positions; then the slice-3
          configuration (lazy Adam on both tables) 5 steps bit for bit the
          local engine's, #7 twice a step;
+     (m) slice 10, several processes: ``multihost.initialize`` forms the
+         NCCL world of one that phases l and m run in; the flagship trained
+         10 captured steps on the local engine and checkpointed, restored by
+         ``restore_cross_geometry`` into the world-1 sharded engine (state
+         and logits bit for bit the local ones), 10 eager sharded steps from
+         there (#1-#6 on each), saved through ``gather_state`` (the stall:
+         the gather and the host copy, beside the local save's), restored
+         into the local engine (the gathered state bit for bit) and
+         exported from the sharded state (byte for byte the local
+         restore's artifact); then at vocab 700 a slot a checkpoint of a
+         world of 4's padded rows (20,480) restored into the world-1
+         sharded engine (18,432) and back to local, bit for bit;
+     (n) ``graft_entry_torch``: ``entry()``'s forward on the card against
+         the CPU's plain path, and ``dryrun_multichip(1)`` (one rank in an
+         NCCL world of its own, a process of its own);
  11. a JSON line listing the kernels (launches from the run of each kernel's
-     path; phase l's sharded paths last), then the card line again, then
-     the result line {"ok": true, "device": {...}}.
+     path; phase l's sharded paths and phase m's restored one last), then
+     the card line again, then the result line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero before the result line.
 It also exits non-zero when no CUDA device is present, and when it stands
@@ -287,6 +302,15 @@ SHARDED_EVAL_BATCHES = 4
 SHARDED3_STEPS = 5
 SHARDED_CAPACITY = 1.25
 OVERFLOW_CAPACITY = 0.05
+# slice 10, several processes (phase m): the local flagship's steps before its
+# checkpoint and the sharded steps after the restore; the geometry change at
+# vocab 700 a slot (alloc 18,432 rows: a world of 4 pads to 20,480, while at
+# world 1 no vocab changes the tables' shape) at a batch of 1,024
+RESTORE_STEPS = 10
+SHARDED_RESUME_STEPS = 10
+GEOMETRY_VOCAB = 700
+GEOMETRY_WORLD = 4
+GEOMETRY_BATCH = 1024
 # kernel vs plain on bf16 outputs: both sum in f32 in different orders and then
 # round to bf16, so a value may land one bf16 step (2^-8 relative) apart; p2
 # sums 3,328 such inputs. 1% of the largest magnitude covers that, and a
@@ -1352,8 +1376,26 @@ def main() -> int:
         report["synth_batch"], paths["device_synth"] = watched(
             generation_phase, work, schema, step_kernels, card, host_sustained, loop_c_ms)
 
-    # ---------------- slice 9: the sharded path in an NCCL world of one, phase l
-    paths["sharded"], paths["sharded3"] = watched(sharded_phase, engine, engine3, schema, report, card)
+    # ----- slices 9-10: an NCCL world of one, formed by multihost.initialize
+    import socket
+
+    import torch.distributed as dist
+
+    from recmodels_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1 and multihost.host_shard() == (0, 1),
+          "multihost.initialize formed an NCCL world of one")
+    try:
+        paths["sharded"], paths["sharded3"] = watched(sharded_phase, engine, engine3, schema, report, card)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as work:
+            paths["sharded_restored"] = watched(multihost_phase, engine, schema, work, card)
+    finally:
+        dist.destroy_process_group()
+    watched(graft_phase, card)
 
     # each kernel's launches come from the first path in this order that
     # runs it (slice 2's for the six kernels of the xDeepFM step, slice 3's
@@ -2544,28 +2586,11 @@ def compare_step_profiles(sharded_fn, local_fn, card: str) -> None:
 
 
 def sharded_phase(engine, engine3, schema, report: dict, card: str) -> tuple[dict[str, int], dict[str, int]]:
-    """Phase l: the sharded path (``parallel/``) in an NCCL process group of
-    one rank on the card, against the local engine; returns the launches of
-    the flagship's and of the slice-3 path's sharded steps (the counts are
-    set to 0 just before each sharded step and read just after)."""
-    import socket
-
-    import torch.distributed as dist
-
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0, device_id=dev)
-    try:
-        return sharded_checks(engine, engine3, schema, report, card, dev)
-    finally:
-        dist.destroy_process_group()
-
-
-def sharded_checks(engine, engine3, schema, report: dict, card: str, dev) -> tuple[dict[str, int], dict[str, int]]:
-    """Phase l's checks, in the NCCL world of one (``sharded_phase``)."""
+    """Phase l: the sharded path (``parallel/``) in the NCCL process group of
+    one rank on the card that ``main`` formed, against the local engine;
+    returns the launches of the flagship's and of the slice-3 path's sharded
+    steps (the counts are set to 0 just before each sharded step and read
+    just after)."""
     import torch.distributed as dist
 
     from recmodels_tpu_torch.data import SyntheticSource
@@ -2584,6 +2609,7 @@ def sharded_checks(engine, engine3, schema, report: dict, card: str, dev) -> tup
     from recmodels_tpu_torch.train.metrics import auc_init
     from recmodels_tpu_torch.utils.config import TrainConfig
 
+    dev = torch.device("cuda", 0)
     mesh = make_mesh(1)
     print(f"== sharded (phase l): an NCCL world of {mesh.size} on {mesh.device}, NCCL "
           f"{'.'.join(map(str, torch.cuda.nccl.version()))}; full-width bf16 xDeepFM, capacity factor "
@@ -2803,6 +2829,204 @@ def sharded_checks(engine, engine3, schema, report: dict, card: str, dev) -> tup
     print(f"lazy Adam (slice 3, CIN{CIN3}, unfused wide table): {SHARDED3_STEPS} sharded steps bit for bit the "
           f"local engine's; launches {launches3}")
     return launches, launches3
+
+
+# ---------------------- slice 10: several processes and what rides on them
+def timed_s(fn):
+    """(fn(), its wall seconds, the card synchronised before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def multihost_phase(engine, schema, work: str, card: str) -> dict[str, int]:
+    """Phase m, in the NCCL world of one ``multihost.initialize`` formed:
+    the full-width bf16 flagship trained RESTORE_STEPS captured steps on the
+    local engine and checkpointed; ``restore_cross_geometry`` into the
+    world-1 sharded engine (its state and logits the local ones bit for
+    bit); SHARDED_RESUME_STEPS eager sharded steps (every kernel of the step
+    on each; their launches returned, the counts set to 0 just before and
+    read just after); the sharded save through ``gather_state`` (its stall:
+    the gather and the host copy, beside the local save's in this run); a
+    restore into the local engine (the gathered state bit for bit); export
+    from the sharded state (the artifact the local restore's, byte for
+    byte); then the geometry change at vocab GEOMETRY_VOCAB: a checkpoint of
+    a world of GEOMETRY_WORLD's padded rows into the world-1 sharded engine
+    and back to local."""
+    from recmodels_tpu_torch.data import SyntheticSource, criteo_schema
+    from recmodels_tpu_torch.embedding.gather import gather_rows
+    from recmodels_tpu_torch.embedding.update import sorted_adagrad_update
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
+        cin2_backward, cin2_forward, split_fused_rows, split_fused_rows_backward,
+    )
+    from recmodels_tpu_torch.parallel import Mesh, build_parallel_engine, gather_state, make_mesh, shard_state
+    from recmodels_tpu_torch.serve import export_model
+    from recmodels_tpu_torch.train.checkpoint import CheckpointManager
+    from recmodels_tpu_torch.train.engine import Engine
+    from recmodels_tpu_torch.utils.config import TrainConfig
+
+    mesh = make_mesh(1)
+    dev = mesh.device
+    print(f"== several processes (phase m): multihost.initialize's NCCL world of {mesh.size} on {dev}; "
+          f"full-width bf16 xDeepFM, capacity factor {SHARDED_CAPACITY}")
+    cfg = TrainConfig(model="xdeepfm", bf16=True, vocab_size=VOCAB, embed_dim=DIM, cin_sizes=CIN, hidden=HIDDEN,
+                      batch_size=BATCH, seed=SEED, capacity_factor=SHARDED_CAPACITY)
+    sharded = build_parallel_engine(build_model(cfg.model, schema, **cfg.model_kwargs()), mesh,
+                                    capacity_factor=SHARDED_CAPACITY)
+    src = iter(SyntheticSource(schema, batch_size=BATCH, seed=19))
+    batches = [tuple(torch.as_tensor(a, device=dev) for a in (b.dense, b.ids, b.labels))
+               for b in (next(src) for _ in range(RESTORE_STEPS + SHARDED_RESUME_STEPS + 1))]
+
+    # 1. the local flagship, trained and checkpointed
+    local = engine.init(seed=SEED, device=dev)
+    ts = engine.jit_train_step()
+    for b in batches[:RESTORE_STEPS]:
+        local, m = ts(local, *b)
+    check(bool(torch.isfinite(m["loss"])), f"local loss after {RESTORE_STEPS} captured steps finite")
+    local_dir = os.path.join(work, "local")
+    mgr = CheckpointManager(local_dir)
+    _, local_stall = timed_s(lambda: mgr.save(RESTORE_STEPS, local, {"step": RESTORE_STEPS}))
+    mgr.wait()
+    size = sum(os.path.getsize(os.path.join(local_dir, str(RESTORE_STEPS), f))
+               for f in os.listdir(os.path.join(local_dir, str(RESTORE_STEPS))))
+
+    # 2. into the world-1 sharded engine
+    target = shard_state(sharded.init(seed=SEED + 1, device=dev), mesh)
+    (state, data), restore_s = timed_s(
+        lambda: CheckpointManager(local_dir, mesh=mesh).restore_cross_geometry(target))
+    diff = states_differ(state, local)
+    check(state is target and data == {"step": RESTORE_STEPS} and diff is None,
+          f"restore_cross_geometry into the world-1 sharded engine: the local state bit for bit (first "
+          f"difference: {diff})")
+    dense, ids, _ = batches[-1]
+    with torch.no_grad():
+        check(torch.equal(sharded.logits(state, dense, ids), engine.logits(local, dense, ids)),
+              "the restored sharded engine's logits equal the local engine's bit for bit")
+    print(f"restore: {size / 2**20:.1f} MiB, local -> world-1 sharded (restore_cross_geometry) "
+          f"{1e3 * restore_s:.1f} ms; state and logits bit for bit the local engine's, on {card}")
+
+    # 3. sharded steps from the restored state
+    kernels = (gather_rows, split_fused_rows, cin2_forward, sorted_adagrad_update, split_fused_rows_backward,
+               cin2_backward)
+    for kern in kernels:
+        kern.launches = 0
+    losses = []
+    for b in batches[RESTORE_STEPS:RESTORE_STEPS + SHARDED_RESUME_STEPS]:
+        state, ms = sharded.train_step(state, *b)
+        check(int(ms["overflow"]) == 0, "overflow 0 on a restored sharded step")
+        losses.append(ms["loss"])
+    launches = {k.__name__: k.launches for k in kernels}
+    for name, n in launches.items():
+        check(n >= SHARDED_RESUME_STEPS, f"{name} launched on every restored sharded step ({n} in "
+              f"{SHARDED_RESUME_STEPS})")
+    check(bool(torch.isfinite(torch.stack(losses)).all()), "restored sharded losses finite")
+    print(f"{SHARDED_RESUME_STEPS} sharded steps from the restore: launches {launches}; losses "
+          + " ".join(f"{v:.5f}" for v in torch.stack(losses).tolist()))
+
+    # 4. the sharded save: gather_state, then the host copy
+    glob, gather_s = timed_s(lambda: gather_state(state, mesh))
+    sharded_dir = os.path.join(work, "sharded")
+    smgr = CheckpointManager(sharded_dir, mesh=mesh)
+    step = RESTORE_STEPS + SHARDED_RESUME_STEPS
+    _, stall = timed_s(lambda: smgr.save(step, state, {"step": step}))
+    _, write_s = timed_s(smgr.wait)
+    print(f"sharded save: {1e3 * stall:.1f} ms stall (gather_state {1e3 * gather_s:.1f} ms of it, alone) + "
+          f"{1e3 * write_s:.1f} ms to write (background); the local save of the same {size / 2**20:.1f} MiB "
+          f"stalled {1e3 * local_stall:.1f} ms in this run, on {card}")
+
+    # 5. back into the local engine
+    (back, _), back_s = timed_s(
+        lambda: CheckpointManager(sharded_dir).restore_cross_geometry(engine.init(seed=SEED + 2, device=dev)))
+    diff = states_differ(back, glob)
+    check(diff is None, f"the sharded checkpoint restored into the local engine equals the gathered state bit "
+          f"for bit (first difference: {diff})")
+    del glob
+
+    # 6. export from the sharded state, and from the local restore
+    _, export_s = timed_s(lambda: export_model(os.path.join(work, "art-sharded"), cfg, sharded, state))
+    export_model(os.path.join(work, "art-local"), cfg, engine, back)
+    for name in ("params.npz", "model.json"):
+        with open(os.path.join(work, "art-sharded", name), "rb") as f1, \
+                open(os.path.join(work, "art-local", name), "rb") as f2:
+            check(f1.read() == f2.read(), f"the sharded export's {name} equals the local restore's byte for byte")
+    print(f"world-1 sharded -> local restore {1e3 * back_s:.1f} ms (the gathered state bit for bit); export "
+          f"from the sharded state {1e3 * export_s:.1f} ms, its artifact the local restore's byte for byte, "
+          f"on {card}")
+    del state, back, local, target
+
+    # 7. a geometry change at vocab GEOMETRY_VOCAB: world 4's padded rows -> world 1 -> local
+    schema7 = criteo_schema(vocab_size=GEOMETRY_VOCAB, embed_dim=DIM)
+    model7 = build_model(cfg.model, schema7, **cfg.model_kwargs())
+    local7 = Engine(model7)
+    sharded7 = build_parallel_engine(model7, mesh, capacity_factor=SHARDED_CAPACITY)
+    src7 = iter(SyntheticSource(schema7, batch_size=GEOMETRY_BATCH, seed=23))
+    b7 = [tuple(torch.as_tensor(a, device=dev) for a in (b.dense, b.ids, b.labels)) for b in (next(src7) for _ in range(3))]
+    st7 = local7.init(seed=SEED, device=dev)
+    for b in b7[:2]:
+        st7, _ = local7.train_step(st7, *b)
+    m7 = CheckpointManager(os.path.join(work, "g-local"))
+    m7.save(2, st7, {"step": 2})
+    m7.wait()
+    blocks = []
+    for r in range(GEOMETRY_WORLD):  # each rank's block of a world of 4, by the manager's fit
+        fake = Mesh(group=None, size=GEOMETRY_WORLD, rank=r, device=dev)
+        eng4 = build_parallel_engine(model7, fake, capacity_factor=SHARDED_CAPACITY)
+        blocks.append(m7.restore_cross_geometry(shard_state(eng4.init(seed=SEED, device=dev), fake), mesh=fake)[0])
+    (g7,) = sharded7.collections["emb"].groups
+    rows4 = eng4.tables.padded_rows("emb", g7)
+    world4 = blocks[0]._replace(
+        emb_params={"emb": {g7.name: torch.cat([b.emb_params["emb"][g7.name] for b in blocks])}},
+        emb_opt={"emb": {g7.name: {k: torch.cat([b.emb_opt["emb"][g7.name][k] for b in blocks])
+                                   for k in blocks[0].emb_opt["emb"][g7.name]}}})
+    check(world4.emb_params["emb"][g7.name].shape[0] == rows4 > g7.alloc_rows,
+          f"a world of {GEOMETRY_WORLD} pads {g7.alloc_rows} rows to {rows4}")
+    m4 = CheckpointManager(os.path.join(work, "g-world4"))
+    m4.save(2, world4, {"step": 2})
+    m4.wait()
+    del blocks, world4
+    got7, _ = CheckpointManager(os.path.join(work, "g-world4"), mesh=mesh).restore_cross_geometry(
+        shard_state(sharded7.init(seed=SEED + 1, device=dev), mesh))
+    diff = states_differ(got7, st7)
+    check(diff is None, f"world {GEOMETRY_WORLD} ({rows4} rows) -> world-1 sharded ({g7.alloc_rows}): the local "
+          f"state bit for bit (first difference: {diff})")
+    dense7, ids7, _ = b7[2]
+    with torch.no_grad():
+        check(torch.equal(sharded7.logits(got7, dense7, ids7), local7.logits(st7, dense7, ids7)),
+              "its logits the local engine's bit for bit")
+    m1 = CheckpointManager(os.path.join(work, "g-world1"), mesh=mesh)
+    m1.save(2, got7, {"step": 2})
+    m1.wait()
+    back7, _ = CheckpointManager(os.path.join(work, "g-world1")).restore_cross_geometry(
+        local7.init(seed=SEED + 2, device=dev))
+    check(states_differ(back7, st7) is None, "world-1 sharded -> local: the local state bit for bit")
+    print(f"geometry at vocab {GEOMETRY_VOCAB}: local ({g7.alloc_rows} rows) -> world {GEOMETRY_WORLD} "
+          f"({rows4}) -> world-1 sharded ({g7.alloc_rows}) -> local, bit for bit, logits equal")
+    return launches
+
+
+def graft_phase(card: str) -> None:
+    """Phase n: ``graft_entry_torch``: ``entry()``'s forward on the card
+    (finite, the CPU plain path's on the same state within LOGIT_REL_TOL of
+    its largest logit) and ``dryrun_multichip(1)``, one rank in an NCCL
+    world of its own."""
+    import graft_entry_torch
+
+    print("== graft entry (phase n)")
+    forward, (state, dense, ids) = graft_entry_torch.entry()
+    with torch.no_grad():
+        got = forward(state, dense, ids)
+        want = forward(to_device(state, "cpu"), dense.cpu(), ids.cpu())
+    err = (got.cpu() - want).abs().max().item()
+    check(got.shape == (256,) and bool(torch.isfinite(got).all()) and err <= LOGIT_REL_TOL * want.abs().max().item(),
+          f"entry()'s forward: 256 finite logits, the CPU plain path's within {LOGIT_REL_TOL} of the largest "
+          f"({err:.3g})")
+    print(f"entry(): xDeepFM bf16 at vocab 10,000, dim 16, CIN(128,128), DNN(400,400), batch 256: max |card - "
+          f"CPU| {err:.3g}")
+    _, s = timed_s(lambda: graft_entry_torch.dryrun_multichip(1))
+    print(f"dryrun_multichip(1): {s:.1f} s, the rank's start included, on {card}")
 
 
 if __name__ == "__main__":

@@ -30,10 +30,10 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from recmodels_tpu_torch.serve import Predictor, load_predictor
+    from recmodels_tpu_torch.serve import Predictor, load_predictor, restore_checkpoint
     from recmodels_tpu_torch.train import metrics as metrics_lib
     from recmodels_tpu_torch.train.engine import resolve_device
-    from recmodels_tpu_torch.train.loop import Trainer, build_schema, build_source
+    from recmodels_tpu_torch.train.loop import build_schema, build_source
     from recmodels_tpu_torch.utils.config import TrainConfig
     from recmodels_tpu_torch.utils.logging import MetricsLogger
 
@@ -45,18 +45,15 @@ def main(argv=None) -> int:
     overrides = [f"data={args.data!r}", "steps=0", "eval_every=0"]
     if args.batch_size:
         overrides.append(f"batch_size={args.batch_size}")
+    cfg = cfg.apply_overrides(overrides)
+    logger = MetricsLogger(None)
     if args.model_dir:
-        cfg = cfg.apply_overrides(overrides)
         pred = load_predictor(args.model_dir, device=device)
-        logger = MetricsLogger(None)
         logger.log_text(f"loaded serving artifact from {args.model_dir}")
-    else:
-        cfg = cfg.apply_overrides(overrides + [f"ckpt_dir={args.ckpt_dir!r}", "tb_dir=None"])
-        trainer = Trainer(cfg, device=device)
-        logger = trainer.logger
-        state, _ = trainer.ckpt.restore(trainer.engine.init(seed=cfg.seed, device=device))
+    else:  # any world's checkpoint, restored into the local engine
+        _, engine, state = restore_checkpoint(args.ckpt_dir, device)
         logger.log_text(f"restored step {int(state.step)} from {args.ckpt_dir}")
-        pred = Predictor(trainer.engine, state, device)
+        pred = Predictor(engine, state, device)
 
     # loop=False: a file source yields each row once, the ragged tail batch
     # included (padded and masked below, so every row counts)

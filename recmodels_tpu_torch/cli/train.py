@@ -6,6 +6,8 @@ CPU), with checkpoints, resume, eval and logging:
     python -m recmodels_tpu_torch.cli.train --model xdeepfm --data device_synth --set batch_size=16384
         # batches generated on the card inside the captured step: no host producer
     python -m recmodels_tpu_torch.cli.train --config runs/xdeepfm/config.json   # reproduce a run
+    torchrun --nproc_per_node 4 -m recmodels_tpu_torch.cli.train --model xdeepfm --devices 4
+        # one process a card, the tables row-sharded over the four (NCCL)
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ def main(argv=None) -> int:
     ap.add_argument("--val-data", default=None, help="the held-out stream, as --data (default: --data's)")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
-    ap.add_argument("--devices", type=int, default=None, help="1 = local tables (the only kind ported)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="1 = local tables; N > 1 = tables row-sharded over a process group of N ranks, one "
+                         "device each (launch with torchrun); default: the group's size, 1 without one")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--tb-dir", default=None)
     ap.add_argument("--config", default=None, help="load a config.json")
@@ -35,6 +39,7 @@ def main(argv=None) -> int:
                     help="write a torch.profiler trace of superbatches 2-4 into this dir")
     args = ap.parse_args(argv)
 
+    from recmodels_tpu_torch.parallel import multihost
     from recmodels_tpu_torch.train.loop import Trainer
     from recmodels_tpu_torch.utils.config import TrainConfig
 
@@ -56,7 +61,9 @@ def main(argv=None) -> int:
     overrides = [f"{k}={v!r}" for k, v in direct.items() if v is not None]
     cfg = cfg.apply_overrides(overrides + args.set)
 
-    trainer = Trainer(cfg, device="cpu" if args.cpu else "cuda")
+    device = "cpu" if args.cpu else "cuda"
+    multihost.initialize(device=device)  # a launcher's process group (torchrun), if any
+    trainer = Trainer(cfg, device=device)
     trainer.logger.log_text(
         f"model={cfg.model} device={trainer.device} batch={cfg.batch_size} "
         f"steps={cfg.steps} data={cfg.data}"

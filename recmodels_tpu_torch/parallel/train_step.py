@@ -13,6 +13,16 @@ runs on this rank's contiguous block of it, rows ``[r*B/d, (r+1)*B/d)``, as
 ``PartitionSpec('data')`` splits it (the batch axis of a stacked ``[K, B,
 ...]`` scan or ``[A, Bm, ...]`` accumulated batch). B must divide by d.
 
+The per-rank form, the counterpart of ``jax.make_array_from_process_local_data``
+(where each process reads its own shard of the input, as the Trainer does):
+the engine's own steps, ``engine.jit_train_step()``, ``jit_train_scan()``,
+``jit_train_step_accum()``, ``jit_train_scan_accum()`` and
+``jit_eval_step()`` of a ``build_parallel_engine`` engine, take this rank's
+block itself (``[B, ...]``, ``[K, B, ...]``, ``[A, Bm, ...]``); the global
+batch is the ranks' blocks in rank order, and nothing gathers it. The
+``build_parallel_*`` functions below narrow a global batch to that block
+and call those steps (``build_parallel_steps``' ``.captured``).
+
 On an NCCL mesh the steps are the engine's CUDA graphs
 (``Engine.jit_train_step`` and its kin, ``train/capture.py``), the
 counterpart of ``jax.jit``: NCCL's ``all_to_all_single`` and
@@ -21,6 +31,8 @@ mesh the same callables run the steps without capture, eagerly.
 """
 
 from __future__ import annotations
+
+import torch.distributed as dist
 
 from recmodels_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 from recmodels_tpu_torch.parallel.sharded_embedding import ShardedTables
@@ -86,6 +98,40 @@ def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
     Every tensor must lie on the mesh's device."""
     specs = state_specs(state)
     return TrainState(*(_place(getattr(state, f), getattr(specs, f), mesh, f) for f in TrainState._fields))
+
+
+def gather_state(state: TrainState, mesh: Mesh) -> TrainState | None:
+    """The inverse of ``shard_state``: the GLOBAL padded state on the
+    mesh's rank 0, None on every other rank. Each row-sharded tensor (the tables
+    and their sparse optimizer state) is gathered from every rank's block
+    into one new tensor on the mesh's device, one tensor at a time, so the
+    peak is one global table beside the state; the replicated tensors are
+    this rank's own (shared with ``state``, not copied). A field left None
+    (a serving state's optimizers) stays None. A collective: every rank
+    calls it together, between steps and outside any graph capture
+    (NCCL and gloo)."""
+    specs = state_specs(state)
+    mine = mesh.rank == 0
+    root = 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
+
+    def gather(tree, spec, what):
+        if isinstance(tree, dict):
+            return {k: gather(v, spec[k], f"{what}/{k}") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(gather(v, s, f"{what}/{i}") for i, (v, s) in enumerate(zip(tree, spec)))
+        if tree is None or spec == REPLICATED:
+            return tree
+        mesh.require(what, tree)
+        block = tree.contiguous()
+        if mesh.size == 1:
+            return block.clone()
+        out = block.new_empty((mesh.size * block.shape[0], *block.shape[1:])) if mine else None
+        # the gather writes each rank's block straight into its rows of out
+        dist.gather(block, list(out.chunk(mesh.size)) if mine else None, dst=root, group=mesh.group)
+        return out
+
+    out = TrainState(*(gather(getattr(state, f), getattr(specs, f), f) for f in TrainState._fields))
+    return out if mine else None
 
 
 def _local(t, axis: int, mesh: Mesh):

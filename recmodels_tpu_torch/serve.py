@@ -51,7 +51,17 @@ def treedef_str(tree) -> str:
 
 
 def export_model(out_dir: str, cfg: TrainConfig, engine: Engine, state: TrainState) -> None:
-    """Write a serving artifact that either package loads."""
+    """Write a serving artifact that either package loads: each table cut
+    to its ``alloc_rows`` (a sharded engine's padding dropped). On a
+    sharded engine every rank calls it with its own block of the state: the
+    tables are gathered to the primary (``parallel.gather_state``, a
+    collective), which alone writes."""
+    if engine.mesh is not None:
+        from recmodels_tpu_torch.parallel.train_step import gather_state
+
+        state = gather_state(state._replace(dense_opt=None, emb_opt=None), engine.mesh)
+        if state is None:  # not the primary
+            return
     os.makedirs(out_dir, exist_ok=True)
     arrays = {
         f"dense/{i}": np.asarray(t.detach().cpu(), np.float32)
@@ -244,19 +254,32 @@ def train_state_from_jax(engine: Engine, step: int, dense_leaves: Sequence[np.nd
     )
 
 
-def export_from_checkpoint(ckpt_dir: str, out_dir: str, device="cuda") -> None:
-    """Restore the latest training checkpoint of ``ckpt_dir`` (its
-    ``config.json`` names the model) on ``device`` and export it for
-    serving."""
-    from recmodels_tpu_torch.train.loop import Trainer
+def restore_checkpoint(ckpt_dir: str, device="cuda"):
+    """(cfg, engine, state): the latest training checkpoint of ``ckpt_dir``
+    (its ``config.json`` names the model) restored into the model's local
+    engine on ``device``. One process, no process group, whatever world
+    wrote the checkpoint: the state goes through ``restore_cross_geometry``'s
+    fit (the data cursor is not read)."""
+    from recmodels_tpu_torch.train.checkpoint import CheckpointManager
+    from recmodels_tpu_torch.train.loop import build_engine
 
+    device = resolve_device(device)
     with open(os.path.join(ckpt_dir, "config.json")) as f:
         cfg = TrainConfig.from_json(f.read())
-    cfg = cfg.apply_overrides([f"ckpt_dir={ckpt_dir!r}", "tb_dir=None"])
-    trainer = Trainer(cfg, device=device)
-    state = trainer.engine.init(seed=cfg.seed, device=trainer.device)
-    state, _ = trainer.ckpt.restore(state)
-    export_model(out_dir, cfg, trainer.engine, state)
+    engine = build_engine(cfg)
+    state = engine.init(seed=cfg.seed, device=device)
+    mgr = CheckpointManager(ckpt_dir)
+    saved, _, _ = mgr._load(None)
+    mgr._fit(state, saved, None)
+    return cfg, engine, state
+
+
+def export_from_checkpoint(ckpt_dir: str, out_dir: str, device="cuda") -> None:
+    """Restore the latest training checkpoint of ``ckpt_dir`` on ``device``
+    (``restore_checkpoint``: any world's, in one process) and export it for
+    serving."""
+    cfg, engine, state = restore_checkpoint(ckpt_dir, device)
+    export_model(out_dir, cfg, engine, state)
 
 
 class _Bucket:

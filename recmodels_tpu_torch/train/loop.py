@@ -1,5 +1,5 @@
 """The outer training loop: data feed, logging, eval, checkpoint, resume
-(port of ``recmodels_tpu/train/loop.py`` for one device).
+(port of ``recmodels_tpu/train/loop.py``).
 
 ``Trainer(cfg).run()`` trains ``cfg``'s model on its data for ``cfg.steps``
 steps through the engine's CUDA graphs (``jit_train_step`` or
@@ -12,9 +12,16 @@ log, an eval or a checkpoint. With ``data="device_synth"`` the batches are
 generated on the device inside the captured step (``jit_train_scan_gen``):
 no producer, no batch bytes from the host; ``val_data="device_synth"`` (or
 that ``data`` alone) evaluates on the generated held-out stream the same
-way. The Trainer runs one device; the sharded path (``parallel/``) runs in
-a process group that its caller starts (the Trainer's ``n_devices > 1`` is
-ROADMAP.md queue 1, item 7b).
+way.
+
+Several devices (``n_devices``, default the process group's size): one
+process a device in a group of exactly that many ranks
+(``parallel.multihost``), the tables row-sharded over its mesh. Every rank
+runs this same loop on its own shard of the data (``host_shard()``), a
+batch of ``batch_size`` examples a rank (the global batch is ``batch_size``
+times the ranks, the JAX package's semantics for a device a process), and
+feeds it to the engine's per-rank steps; the primary alone writes
+TensorBoard scalars, the run's config and the checkpoints.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from recmodels_tpu_torch.data.criteo import Batch, CriteoTSVSource, SyntheticSource
 from recmodels_tpu_torch.data.schema import Schema
 from recmodels_tpu_torch.models import build_model
+from recmodels_tpu_torch.parallel import build_parallel_engine, make_mesh, multihost, shard_state
 from recmodels_tpu_torch.train import metrics as metrics_lib
 from recmodels_tpu_torch.train.checkpoint import CheckpointManager
 from recmodels_tpu_torch.train.engine import Engine, resolve_device
@@ -43,7 +51,7 @@ from recmodels_tpu_torch.utils.profiling import trace
 
 VAL_SEED_OFFSET = 7_777_777  # the held-out stream's seed: cfg.seed + this
 
-__all__ = ["Trainer", "build_schema", "build_source", "make_producer_pool"]
+__all__ = ["Trainer", "build_engine", "build_schema", "build_source", "make_producer_pool"]
 
 
 def build_source(cfg: TrainConfig, schema: Schema, spec: str, seed: int,
@@ -68,36 +76,66 @@ def make_producer_pool(source, workers: int, steps):
     return genpool.make_pool(source, workers, steps)
 
 
+def build_engine(cfg: TrainConfig, mesh=None) -> Engine:
+    """``cfg``'s engine: its model, both optimizers with their schedules
+    and decay, on local tables, or on tables row-sharded over ``mesh``
+    (``parallel.build_parallel_engine`` with ``cfg.capacity_factor``)."""
+
+    def schedule(base):
+        s = build_lr_schedule(base, cfg.lr_schedule, warmup_steps=cfg.warmup_steps,
+                              total_steps=cfg.steps, end_scale=cfg.lr_end_scale)
+        return None if isinstance(s, float) else s
+
+    model = build_model(cfg.model, build_schema(cfg), **cfg.model_kwargs())
+    kw = dict(dense_optimizer=cfg.dense_optimizer, sparse_optimizer=cfg.sparse_optimizer, dense_lr=cfg.dense_lr,
+              emb_lr=cfg.emb_lr, dense_lr_schedule=schedule(cfg.dense_lr), emb_lr_schedule=schedule(cfg.emb_lr),
+              dense_weight_decay=cfg.dense_weight_decay)
+    if mesh is None:
+        return Engine(model, **kw)
+    return build_parallel_engine(model, mesh, capacity_factor=cfg.capacity_factor, **kw)
+
+
 class Trainer:
     """Trains ``cfg``'s model on ``device`` (default the CUDA card; raises
     without one). ``profile_dir``, when set before ``run``, records a
-    ``torch.profiler`` trace of superbatches 2-4 there."""
+    ``torch.profiler`` trace of superbatches 2-4 there.
+
+    ``n_devices`` > 1 (or, when it is None, a process group of several
+    ranks) runs the sharded engine over the group's mesh, whose device
+    (NCCL: this rank's card; gloo: the CPU) must be of ``device``'s type;
+    without a group of exactly that many ranks it raises ``RuntimeError``
+    saying how to start one."""
 
     def __init__(self, cfg: TrainConfig, logger: MetricsLogger | None = None, device="cuda"):
-        if (cfg.n_devices or 1) > 1:
-            raise NotImplementedError(
-                f"n_devices={cfg.n_devices}: the Trainer runs one device; the sharded tables and steps "
-                "(parallel/) run in a process group the caller starts, and the Trainer's multi-device "
-                "branch is ROADMAP.md queue 1, item 7b")
         if cfg.accum_steps > 1 and cfg.batch_size % cfg.accum_steps:
             raise ValueError(f"batch_size {cfg.batch_size} not divisible by accum_steps {cfg.accum_steps}")
+        n_dev = cfg.n_devices or multihost.host_shard()[1]
+        if n_dev > 1 and "device_synth" in (cfg.data, cfg.val_data):
+            raise NotImplementedError("data=device_synth drives the single-device product loop; use the host "
+                                      "pipeline for meshes")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.n_devices = 1
+        self.n_devices = n_dev
         self.schema = build_schema(cfg)
-        self.logger = logger or MetricsLogger(cfg.tb_dir)
-
-        def schedule(base):
-            s = build_lr_schedule(base, cfg.lr_schedule, warmup_steps=cfg.warmup_steps,
-                                  total_steps=cfg.steps, end_scale=cfg.lr_end_scale)
-            return None if isinstance(s, float) else s
-
-        self.engine = Engine(
-            build_model(cfg.model, self.schema, **cfg.model_kwargs()),
-            dense_optimizer=cfg.dense_optimizer, sparse_optimizer=cfg.sparse_optimizer,
-            dense_lr=cfg.dense_lr, emb_lr=cfg.emb_lr, dense_lr_schedule=schedule(cfg.dense_lr),
-            emb_lr_schedule=schedule(cfg.emb_lr), dense_weight_decay=cfg.dense_weight_decay,
-        )
+        self.mesh = None
+        self._shard = lambda state: state
+        if n_dev > 1:
+            world = multihost.host_shard()[1]
+            if world != n_dev:
+                raise RuntimeError(
+                    f"n_devices={n_dev} runs one process a device in a process group of {n_dev} ranks, and this "
+                    f"process is in {'a group of ' + str(world) if world > 1 else 'none'}: launch it with "
+                    f"`torchrun --nproc_per_node {n_dev} -m recmodels_tpu_torch.cli.train ...`, or call "
+                    f"recmodels_tpu_torch.parallel.multihost.initialize(address, {n_dev}, rank) in each process")
+            self.mesh = make_mesh(n_dev)
+            if self.mesh.device.type != self.device.type:
+                raise ValueError(f"the process group's collectives run on {self.mesh.device}, not {self.device}")
+            self.device = self.mesh.device
+            self._shard = lambda state: shard_state(state, self.mesh)
+        self.logger = logger or MetricsLogger(cfg.tb_dir if multihost.is_primary() else None)
+        # a mesh's engine steps take this rank's block of the batch: the
+        # per-rank form of the parallel steps (parallel/train_step.py)
+        self.engine = build_engine(cfg, self.mesh)
         self.eval_step = self.engine.jit_eval_step()
         if cfg.accum_steps > 1:
             self.train_step = self.engine.jit_train_step_accum()
@@ -105,7 +143,7 @@ class Trainer:
         else:
             self.train_step = self.engine.jit_train_step()
             self.train_scan = self.engine.jit_train_scan() if cfg.scan_steps > 1 else None
-        self.ckpt = (CheckpointManager(cfg.ckpt_dir, save_interval_steps=cfg.ckpt_every)
+        self.ckpt = (CheckpointManager(cfg.ckpt_dir, save_interval_steps=cfg.ckpt_every, mesh=self.mesh)
                      if cfg.ckpt_dir else None)
         self.profile_dir: str | None = None
         self.state = None
@@ -140,20 +178,22 @@ class Trainer:
         generated = cfg.data == "device_synth"
         if generated and cfg.accum_steps > 1:
             raise NotImplementedError("device_synth does not compose with accum_steps")
-        state = self.engine.init(seed=cfg.seed, device=self.device)
+        state = self._shard(self.engine.init(seed=cfg.seed, device=self.device))
         if generated:
             from recmodels_tpu_torch.data.device_synth import DeviceSynthSource, make_device_batch_fn
 
             source = DeviceSynthSource(self.schema, cfg.batch_size, seed=cfg.seed)
         else:
-            source = build_source(cfg, self.schema, cfg.data, seed=cfg.seed)
+            shard_index, shard_count = multihost.host_shard()
+            source = build_source(cfg, self.schema, cfg.data, seed=cfg.seed, shard_index=shard_index,
+                                  shard_count=shard_count)
         start_step = 0
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             state, data_state = self.ckpt.restore(state)
             source.set_state(data_state)
             start_step = int(state.step)
             self.logger.log_text(f"resumed from checkpoint at step {start_step}")
-        if cfg.ckpt_dir:
+        if cfg.ckpt_dir and multihost.is_primary():
             os.makedirs(cfg.ckpt_dir, exist_ok=True)
             with open(os.path.join(cfg.ckpt_dir, "config.json"), "w") as f:
                 f.write(cfg.to_json())
@@ -268,7 +308,7 @@ class Trainer:
                     self.logger.log_scalars(step_no, {
                         "loss": loss,
                         "examples_per_sec": examples_since / max(now - t_last, 1e-9),
-                        # local tables drop no lookups: always 0 here
+                        # dropped lookups of every rank (local tables drop none)
                         "embedding_overflow": float(m.get("overflow", 0)),
                     })
                     t_last, examples_since = now, 0
@@ -308,8 +348,10 @@ class Trainer:
         cfg = self.cfg
         if (cfg.val_data or cfg.data) == "device_synth":
             return self._evaluate_device_synth(state, step_no)
-        val_src = build_source(cfg, self.schema, cfg.val_data or cfg.data,
-                               seed=cfg.seed + VAL_SEED_OFFSET)
+        # each rank evaluates its own shard; the engine sums the histograms
+        shard_index, shard_count = multihost.host_shard()
+        val_src = build_source(cfg, self.schema, cfg.val_data or cfg.data, seed=cfg.seed + VAL_SEED_OFFSET,
+                               shard_index=shard_index, shard_count=shard_count)
         auc_state = self._zeroed_auc_state()
         vit = iter(val_src)
         for _ in range(cfg.eval_batches):

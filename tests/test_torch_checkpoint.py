@@ -175,3 +175,124 @@ def test_a_failed_write_raises_at_wait(tmp_path, monkeypatch):
         mgr.wait()
     assert mgr.latest_step() is None and not os.path.exists(tmp_path / "2")
     assert os.listdir(tmp_path) == []
+
+
+# ------------------------------------------- sharded states and geometries
+def _fake_mesh(size: int, rank: int):
+    """A mesh's geometry (no process group): enough for ``ShardedTables``'
+    shapes and for ``restore_cross_geometry``'s fit, which runs no
+    collective."""
+    from recmodels_tpu_torch.parallel import Mesh
+
+    return Mesh(group=None, size=size, rank=rank, device=torch.device("cpu"))
+
+
+def _sharded_engine(mesh, model="fm", **kw):
+    from recmodels_tpu_torch.parallel import build_parallel_engine
+
+    return build_parallel_engine(build_model(model, SCH), mesh, dense_lr=1e-2, emb_lr=5e-2, **kw)
+
+
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+def test_restore_cross_geometry_fits_each_ranks_block(tmp_path, opt):
+    """A local checkpoint restored into each rank's block of a world of 4
+    (the manager's fit, rank by rank): the blocks together are the saved
+    tables and sparse states padded with zero rows to ``padded_rows``; the
+    dense state, the step and the cursor pass through; each block is
+    copied into the target's own tensors. Back from those blocks, saved as
+    one global state, a local restore gives the saved state bit for bit."""
+    from recmodels_tpu_torch.parallel import shard_state
+
+    eng = _engine(sparse_optimizer=opt)
+    state = eng.init(seed=0, device="cpu")
+    b = next(iter(SyntheticSource(SCH, batch_size=64, seed=2)))
+    state, _ = eng.train_step(state, *_args(b))
+    mgr = CheckpointManager(str(tmp_path / "local"))
+    mgr.save(1, state, {"step": 1})
+    mgr.wait()
+    blocks = []
+    for rank in range(4):
+        mesh = _fake_mesh(4, rank)
+        sharded = _sharded_engine(mesh, sparse_optimizer=opt)
+        target = shard_state(sharded.init(seed=5, device="cpu"), mesh)
+        ptrs = [t.data_ptr() for t in _tensors(target)]
+        got, data = mgr.restore_cross_geometry(target, mesh=mesh)
+        assert got is target and [t.data_ptr() for t in _tensors(got)] == ptrs and data == {"step": 1}
+        blocks.append(got)
+    (g,) = eng.collections["emb"].groups
+    rows = _sharded_engine(_fake_mesh(4, 0)).tables.padded_rows("emb", g)
+    table = torch.cat([blk.emb_params["emb"][g.name] for blk in blocks])
+    assert table.shape[0] == rows > g.alloc_rows
+    assert torch.equal(table[: g.alloc_rows], state.emb_params["emb"][g.name])
+    assert not table[g.alloc_rows:].any()
+    for k, v in state.emb_opt["emb"][g.name].items():
+        joined = torch.cat([blk.emb_opt["emb"][g.name][k] for blk in blocks])
+        assert torch.equal(joined[: g.alloc_rows], v) and not joined[g.alloc_rows:].any()
+    for blk in blocks:
+        assert all(torch.equal(a, b) for a, b in zip(leaves(blk.dense_params), leaves(state.dense_params)))
+        assert all(torch.equal(a, b) for a, b in zip(leaves(blk.dense_opt), leaves(state.dense_opt)))
+        assert int(blk.step) == 1
+
+    glob = blocks[0]._replace(emb_params={"emb": {g.name: table}}, emb_opt={"emb": {g.name: {
+        k: torch.cat([blk.emb_opt["emb"][g.name][k] for blk in blocks]) for k in state.emb_opt["emb"][g.name]}}})
+    mgr4 = CheckpointManager(str(tmp_path / "world4"))
+    mgr4.save(1, glob, {"step": 1})
+    with pytest.raises(ValueError, match="structure mismatch"):  # same-geometry restore refuses it
+        mgr4.restore(eng.init(seed=6, device="cpu"))
+    back, _ = mgr4.restore_cross_geometry(eng.init(seed=6, device="cpu"))
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(back), _tensors(state)))
+
+
+def test_restore_cross_geometry_rejects_another_model(tmp_path):
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, _engine("fm").init(seed=0, device="cpu"))
+    with pytest.raises(ValueError, match="structure mismatch"):
+        mgr.restore_cross_geometry(_engine("deepfm").init(seed=0, device="cpu"))
+    with pytest.raises(ValueError, match="structure mismatch"):
+        mgr.restore_cross_geometry(_engine("fm", sparse_optimizer="adam").init(seed=0, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def world_of_one():
+    """A gloo world of one rank in this process."""
+    import torch.distributed as dist
+
+    from recmodels_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        yield make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_save_gathers_and_restore_copies_rows(tmp_path, world_of_one):
+    """A manager with the run's mesh (a world of one): ``gather_state`` is
+    the global state (new tensors for the tables, the replicated ones
+    shared); ``save`` writes it, ``restore`` copies it back into the
+    block's own tensors bit for bit, and a resumed step equals the
+    continued one."""
+    from recmodels_tpu_torch.parallel import gather_state, shard_state
+
+    mesh = world_of_one
+    eng = _sharded_engine(mesh, "xdeepfm", sparse_optimizer="adam", fuse_wide=False)
+    start = eng.init(seed=0, device="cpu")
+    state = shard_state(start, mesh)
+    it = iter(SyntheticSource(SCH, batch_size=64, seed=3))
+    state, _ = eng.train_step(state, *_args(next(it)))
+    glob = gather_state(state, mesh)
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(glob), _tensors(state)))
+    assert glob.emb_params["emb"]["d8"].data_ptr() != state.emb_params["emb"]["d8"].data_ptr()
+    assert all(a is b for a, b in zip(leaves(glob.dense_params), leaves(state.dense_params)))
+    mgr = CheckpointManager(str(tmp_path), mesh=mesh)
+    assert mgr.save(1, state, {"step": 1})
+    mgr.wait()
+    batch = _args(next(it))
+    cont, _ = eng.train_step(state, *batch)
+    want = [t.clone() for t in _tensors(cont)]
+    target = shard_state(eng.init(seed=9, device="cpu"), mesh)
+    ptrs = [t.data_ptr() for t in _tensors(target)]
+    restored, data = mgr.restore(target)
+    assert [t.data_ptr() for t in _tensors(restored)] == ptrs and data == {"step": 1}
+    restored, _ = eng.train_step(restored, *batch)
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(restored), want))

@@ -1256,22 +1256,22 @@ def test_captured_generated_eval_equals_eager_eval(cuda):
 # ------------------------------------------ the sharded path (slice 9)
 @pytest.fixture(scope="module")
 def nccl_mesh():
-    """The mesh of an NCCL process group of one rank on the card."""
+    """The mesh of an NCCL process group of one rank on the card, formed by
+    ``multihost.initialize``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     import socket
 
     import torch.distributed as dist
 
-    from recmodels_tpu_torch.parallel import make_mesh
+    from recmodels_tpu_torch.parallel import make_mesh, multihost
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0, device_id=dev)
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0)
     try:
+        assert dist.get_backend() == "nccl" and torch.cuda.current_device() == 0
         yield make_mesh(1)
     finally:
         dist.destroy_process_group()
@@ -1403,3 +1403,136 @@ def test_dense_adam_drops_sentinels_on_the_card(cuda):
     a, b, c = run(stream, grads), run(stream, grads), run(ids, grads[:n])
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, c))
+
+
+# ------------------- checkpoints of sharded states, export, the graft entry
+def _fm700(mesh=None):
+    """FM at vocab 700 a slot, dim 8: 18,200 rows, allocated 18,432; a
+    world of 4 pads them to 20,480 (at world 1 the sharded and the local
+    tables have one shape for any vocab: alloc_rows is a multiple of 1,024)."""
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.parallel import build_parallel_engine
+    from recmodels_tpu_torch.train.engine import Engine
+    from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
+
+    schema = build_schema(TrainConfig(model="fm", vocab_size=700, embed_dim=8))
+    model = build_model("fm", schema)
+    eng = Engine(model, emb_lr=5e-2) if mesh is None else build_parallel_engine(model, mesh, emb_lr=5e-2)
+    return eng, schema
+
+
+def test_gather_state_equals_the_unsharded_state_on_the_card(cuda, nccl_mesh):
+    """Two sharded steps, then ``gather_state``: every tensor the local
+    engine's after the same steps, the tables new tensors on the card."""
+    from recmodels_tpu_torch.parallel import gather_state, shard_state
+
+    local_eng, eng, schema = _sharded_twin("slice2", nccl_mesh)
+    start = eng.init(seed=0, device=cuda)
+    local, state = shard_state(start, nccl_mesh), shard_state(start, nccl_mesh)
+    for b in _card_batches(schema, 2, cuda):
+        local, _ = local_eng.train_step(local, *b)
+        state, _ = eng.train_step(state, *b)
+    glob = gather_state(state, nccl_mesh)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(glob), _tensors(local)))
+    table = glob.emb_params["emb"]["d17"]
+    assert table.is_cuda and table.data_ptr() != state.emb_params["emb"]["d17"].data_ptr()
+
+
+def test_sharded_checkpoint_round_trip_on_the_card(cuda, nccl_mesh, tmp_path):
+    """A manager with the NCCL mesh saves the gathered state and restores
+    it into another state's own tensors bit for bit; the restored state's
+    next captured step equals the saved state's next eager step."""
+    from recmodels_tpu_torch.parallel import build_parallel_steps, shard_state
+    from recmodels_tpu_torch.train.checkpoint import CheckpointManager
+
+    _, eng, schema = _sharded_twin("slice3", nccl_mesh)
+    state = shard_state(eng.init(seed=0, device=cuda), nccl_mesh)
+    b1, b2 = _card_batches(schema, 2, cuda)
+    state, _ = eng.train_step(state, *b1)
+    mgr = CheckpointManager(str(tmp_path), mesh=nccl_mesh)
+    assert mgr.save(1, state, {"step": 1})
+    mgr.wait()
+    target = shard_state(eng.init(seed=4, device=cuda), nccl_mesh)
+    ptrs = [t.data_ptr() for t in _tensors(target)]
+    restored, data = mgr.restore(target)
+    assert data == {"step": 1} and [t.data_ptr() for t in _tensors(restored)] == ptrs
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(restored), _tensors(state)))
+    train, _ = build_parallel_steps(eng, nccl_mesh)
+    state, m1 = eng.train_step(state, *b2)
+    restored, m2 = train(restored, *b2)
+    torch.cuda.synchronize()
+    assert torch.equal(m1["loss"], m2["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(restored), _tensors(state)))
+
+
+def test_cross_geometry_restore_on_the_card(cuda, nccl_mesh, tmp_path):
+    """local -> the world-1 sharded engine, a world-4 checkpoint (20,480
+    padded rows) -> the world-1 sharded engine (18,432), and that engine's
+    gathered save -> local: each restore is the local state bit for bit,
+    and the sharded logits the local ones."""
+    from recmodels_tpu_torch.parallel import shard_state
+    from recmodels_tpu_torch.train.checkpoint import CheckpointManager
+
+    local_eng, schema = _fm700()
+    eng, _ = _fm700(nccl_mesh)
+    local = local_eng.init(seed=0, device=cuda)
+    batches = _card_batches(schema, 3, cuda)
+    for b in batches[:2]:
+        local, _ = local_eng.train_step(local, *b)
+    dense, ids, _ = batches[2]
+    want = local_eng.logits(local, dense, ids)
+    saver = CheckpointManager(str(tmp_path / "local"))
+    saver.save(2, local, {"step": 2})
+    saver.wait()
+
+    def pad(t):  # the global padded state of a world of 4
+        return torch.cat([t, t.new_zeros((20_480 - t.shape[0], *t.shape[1:]))])
+
+    cpu = local._replace(**{f: {c: {g: (pad(v.cpu()) if isinstance(v, torch.Tensor) else
+                                        {k: pad(x.cpu()) for k, x in v.items()}) for g, v in groups.items()}
+                                for c, groups in getattr(local, f).items()} for f in ("emb_params", "emb_opt")})
+    world4 = CheckpointManager(str(tmp_path / "world4"))
+    world4.save(2, cpu, {"step": 2})
+    world4.wait()
+    for src in ("local", "world4"):
+        target = shard_state(eng.init(seed=5, device=cuda), nccl_mesh)
+        mgr = CheckpointManager(str(tmp_path / src), mesh=nccl_mesh)
+        got, data = mgr.restore_cross_geometry(target)
+        assert data == {"step": 2} and got.emb_params["emb"]["d9"].shape[0] == 18_432
+        assert all(torch.equal(a, b) for a, b in zip(_tensors(got), _tensors(local))), src
+        assert torch.equal(eng.logits(got, dense, ids), want), src
+    mgr = CheckpointManager(str(tmp_path / "sharded"), mesh=nccl_mesh)
+    mgr.save(2, got, {"step": 2})
+    mgr.wait()
+    back, _ = CheckpointManager(str(tmp_path / "sharded")).restore_cross_geometry(local_eng.init(seed=6, device=cuda))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(back), _tensors(local)))
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def test_graft_entry_on_the_card(cuda):
+    """``entry()`` on the card: its forward runs the gather and the fused
+    CIN kernels and gives finite logits that the CPU's plain path, from the
+    same seed and batch, matches within the bf16 tolerance."""
+    import graft_entry_torch
+
+    forward, args = graft_entry_torch.entry()
+    gathers, cins = gather_rows.launches, K.cin2_forward.launches
+    with torch.no_grad():
+        got = forward(*args)
+    torch.cuda.synchronize()
+    assert gather_rows.launches > gathers and K.cin2_forward.launches > cins
+    assert got.shape == (256,) and bool(torch.isfinite(got).all())
+    state, dense, ids = args  # the card's state (its generator's draws), on the CPU's plain path
+    cpu = type(state)(*(_to_cpu(x) for x in state))
+    with torch.no_grad():
+        want = forward(cpu, dense.cpu(), ids.cpu())
+    assert (got.cpu() - want).abs().max() <= BF16_REL_TOL * want.abs().max()

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``recmodels_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package. A static scan:
+"""The port stands alone: no file of ``recmodels_tpu_torch/``, not
+``chip_smoke.py`` and not ``graft_entry_torch.py`` imports JAX or anything of the JAX package. A static scan:
 a runtime ``sys.modules`` check cannot work in a process where JAX is already
 imported (the test lane imports it)."""
 
@@ -11,7 +11,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "recmodels_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py", "graft_entry_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "recmodels_tpu")
 
 

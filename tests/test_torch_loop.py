@@ -148,7 +148,8 @@ def test_trainer_raises_for_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="device_synth does not compose with accum_steps"):
         Trainer(_cfg(data="device_synth", accum_steps=2), device="cpu",
                 logger=MetricsLogger(stream=io.StringIO())).run()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
+    # several devices need a process group of as many ranks; none here
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 8 -m recmodels_tpu_torch.cli.train"):
         Trainer(_cfg(n_devices=8), device="cpu")
     with pytest.raises(ValueError, match="not divisible by accum_steps"):
         Trainer(_cfg(accum_steps=3), device="cpu")

@@ -411,3 +411,30 @@ def test_zoo_treedef_mismatch_rejected_by_both_loaders(model, tmp_path):
         jload(str(art))
     with pytest.raises(ValueError, match="structure mismatch"):
         load_predictor(str(art), device="cpu")
+
+
+def test_export_from_a_sharded_state_gathers_on_the_primary(tmp_path):
+    """``export_model`` on a sharded engine's block (a gloo world of one in
+    this process) gathers the tables to the primary, which writes the
+    artifact the local engine writes for the same state, byte for byte
+    (the cut of the padding past ``alloc_rows`` at world 4:
+    ``tests/test_torch_cross_geometry.py``); JAX's loader loads it."""
+    import torch.distributed as dist
+
+    from recmodels_tpu_torch.parallel import build_parallel_engine, make_mesh, shard_state
+
+    cfg = TrainConfig(model="fm", vocab_size=700, embed_dim=8)
+    schema = build_schema(cfg)
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        sharded = build_parallel_engine(build_model("fm", schema), mesh)
+        state = sharded.init(seed=0, device="cpu")
+        export_model(str(tmp_path / "sharded"), cfg, sharded, shard_state(state, mesh))
+    finally:
+        dist.destroy_process_group()
+    export_model(str(tmp_path / "local"), cfg, Engine(build_model("fm", schema)), state)
+    for name in ("params.npz", "model.json"):
+        assert (tmp_path / "sharded" / name).read_bytes() == (tmp_path / "local" / name).read_bytes()
+    jload(str(tmp_path / "sharded"))

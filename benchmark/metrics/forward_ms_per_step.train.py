@@ -1,0 +1,10 @@
+"""Device time a training step spends in the forward pass: the model on the
+gathered rows and the loss: the median over the traced stretch's samples of
+the program's ``step.forward`` phase, timed by CUDA events in the timed twin
+of the step's graph (about one sample a superbatch)."""
+
+from benchmark import program_trace
+
+
+def read(ctx):
+    return program_trace.phase_ms(ctx, "step.forward")

@@ -12,6 +12,9 @@ runs when the package is imported.
 The C functions take the device index, raw pointers, sizes and the CUDA
 stream, launch on that stream, allocate nothing, and return
 ``cudaGetLastError()``; ``check`` turns a nonzero code into an exception.
+
+The first ``library()`` adds its host time to the counter ``kernels.load_s``
+and 1 to ``kernels.built`` when it ran nvcc (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from recmodels_tpu_torch.utils import profiling
 
 PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
@@ -146,15 +151,17 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    for name, (argtypes, restype) in _RESTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
+    with profiling.timed("kernels.load_s"):
+        profiling.count("kernels.built", int(not library_path().exists()))
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        for name, (argtypes, restype) in _RESTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
     return lib
 
 

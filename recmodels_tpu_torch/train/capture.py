@@ -21,6 +21,16 @@ addresses): a new shape gets a graph of its own, as JAX retraces, and a call
 with another state drops the graphs and captures again, so no replay writes
 into the tensors of a state other than the one it was given. A capture that
 fails raises; nothing falls back to eager steps on the card.
+
+Tracing (``utils/profiling.py``): each call is a span (``train.step``, the
+eval graphs' ``eval.step``) with children for the state key, the copy into
+the static buffers and the replay, capture or warm-up; with no profiler
+active a span is a flag check. A training step's graph has a timed twin,
+captured right after it in the same memory pool, whose replays also record
+CUDA timing events at the step's phases (``Engine._grads``, ``_apply``).
+The twin replays only while a profiler is active, so an untraced run
+replays exactly the plain graph. Every capture's host time adds to the
+counter ``graph.capture_s``.
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ from typing import Callable
 
 import torch
 
+from recmodels_tpu_torch.utils import profiling
+from recmodels_tpu_torch.utils.profiling import annotate
 from recmodels_tpu_torch.utils.tree import leaves
 
 
@@ -50,7 +62,7 @@ def capture(fn: Callable, pool, stream: torch.cuda.Stream):
     capture executes nothing; ``graph.replay()`` runs it on the current
     stream."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, stream=stream):
+    with profiling.timed("graph.capture_s"), torch.cuda.graph(graph, pool=pool, stream=stream):
         out = fn()
     return graph, out
 
@@ -70,6 +82,9 @@ class _Shape:
         self.warm = False
         self.graph = None
         self.out = None  # the graph's static output
+        self.twin = None  # the timed twin, its static output and its phase events
+        self.twin_out = None
+        self.marks = None
 
 
 class _Captured:
@@ -80,10 +95,15 @@ class _Captured:
     of the sequence); the second copies it in, captures ``fn`` (which
     executes nothing) and replays it once; later calls copy in and replay.
     On a CPU state every call copies into the same buffers and runs ``fn``
-    on them."""
+    on them. ``span`` names the calls' spans; ``timed``: capture each
+    graph's timed twin as well."""
+
+    span = "train.step"
+    timed = False
 
     def __init__(self, fn: Callable):
         self.fn = fn
+        self._spans = {k: f"{self.span}.{k}" for k in ("key", "copy_in", "warm_up", "capture", "replay")}
         self._state = None  # state_key of the state the graphs write into
         self._shapes: dict[tuple, _Shape] = {}
         self._pool = None  # one memory pool for every shape's graph
@@ -98,7 +118,13 @@ class _Captured:
         """``fn`` of ``state`` on ``batch`` (a tuple of tensors); returns
         ``fn``'s output, on the card the graph's static output: copy it
         before the next call."""
-        key = state_key(state)
+        with annotate(self.span):
+            return self._step(state, batch)
+
+    def _step(self, state, batch):
+        spans = self._spans
+        with annotate(spans["key"]):
+            key = state_key(state)
         if key != self._state:  # another state: its own buffers and graphs
             self._shapes.clear()
             self._pool = None
@@ -108,24 +134,37 @@ class _Captured:
         shape = self._shapes.get(sig)
         if shape is None:
             shape = self._shapes[sig] = _Shape(batch, device)
-        for buf, t in zip(shape.inputs, batch):
-            buf.copy_(t)
+        with annotate(spans["copy_in"]):
+            for buf, t in zip(shape.inputs, batch):
+                buf.copy_(t)
         run = lambda: self.fn(state, *shape.inputs)  # noqa: E731
         if device.type != "cuda":
             return run()
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
         if not shape.warm:
-            out = warm_up(run, self._stream)
-            for t in leaves(out):
-                if isinstance(t, torch.Tensor):
-                    t.record_stream(torch.cuda.current_stream(device))
+            with annotate(spans["warm_up"]):
+                out = warm_up(run, self._stream)
+                for t in leaves(out):
+                    if isinstance(t, torch.Tensor):
+                        t.record_stream(torch.cuda.current_stream(device))
             shape.warm = True
             return out
         if shape.graph is None:
-            shape.graph, shape.out = capture(run, self._pool, self._stream)
-            self._pool = shape.graph.pool()
-        shape.graph.replay()
+            with annotate(spans["capture"]):
+                shape.graph, shape.out = capture(run, self._pool, self._stream)
+                self._pool = shape.graph.pool()
+                if self.timed:
+                    with profiling.timed_capture() as marks:
+                        shape.twin, shape.twin_out = capture(run, self._pool, self._stream)
+                    shape.marks = marks
+                shape.graph.replay()
+            return shape.out
+        with annotate(spans["replay"]):
+            if shape.twin is not None and profiling.tracing():
+                profiling.replay_timed(shape.twin, shape.marks)
+                return shape.twin_out
+            shape.graph.replay()
         return shape.out
 
 
@@ -133,7 +172,10 @@ class CapturedStep(_Captured):
     """``Engine.jit_train_step``'s callable: ``(state, dense, ids, labels) ->
     (state, {'loss', 'overflow'})``, as ``Engine.train_step``; ``fn`` is the
     step returning its metrics. The tensors handed back are copies: the
-    static outputs change at the next replay."""
+    static outputs change at the next replay. Each shape's graph has a timed
+    twin."""
+
+    timed = True
 
     def __call__(self, state, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor):
         out = self.step(state, (dense, ids, labels))
@@ -145,6 +187,8 @@ class CapturedEval(_Captured):
     labels, weight=None) -> auc_state``, as ``Engine.eval_step``; ``fn``
     takes ``(state, auc_state)`` as its state, so a graph belongs to both,
     and a batch with ``weight`` has graphs of its own."""
+
+    span = "eval.step"
 
     def __call__(self, state, auc_state, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor,
                  weight: torch.Tensor | None = None):

@@ -25,6 +25,13 @@ state's device (``data/device_synth.py``), and ``jit_train_scan_gen`` and
 ``jit_eval_gen`` capture "generate, then step" as one graph whose replays
 read the batch index from device memory.
 
+Tracing (``utils/profiling.py``): a step marks its phases, ``step.gather``
+(group ids, plan, gather), ``step.forward`` (model and loss),
+``step.backward``, ``step.reduce`` (with a mesh only), ``step.dense_opt``
+and ``step.sparse_update`` (lr, sparse update, step): spans in an eager step
+under a profiler, timing events in the timed twin of a captured step. A
+scan of replays is the span ``train.scan``.
+
 The data axis: an engine whose table strategy shards the tables over a mesh
 (``parallel/sharded_embedding.py`` over ``parallel/mesh.py``;
 ``parallel.build_parallel_engine`` builds one) takes that mesh as its own
@@ -57,6 +64,7 @@ from recmodels_tpu_torch.train.capture import CapturedEval, CapturedStep
 from recmodels_tpu_torch.train.metrics import AUCState, auc_init, auc_update
 from recmodels_tpu_torch.train.optim import get_dense_optimizer
 from recmodels_tpu_torch.utils import tree
+from recmodels_tpu_torch.utils.profiling import annotate, phase
 
 
 def resolve_device(device) -> torch.device:
@@ -289,22 +297,26 @@ class Engine:
         of one batch at the state's parameters: the loss differentiated with
         respect to the dense leaves and the gathered rows. Nothing is
         reduced over the mesh yet (``_reduce``)."""
-        gids = self._group_ids(ids)
-        plan = self.tables.plan(gids)
-        with torch.no_grad():
-            gathered, overflow = self.tables.gather(state.emb_params, plan, self._gather_dtype, with_stats=True)
+        with phase("step.gather"):
+            gids = self._group_ids(ids)
+            plan = self.tables.plan(gids)
+            with torch.no_grad():
+                gathered, overflow = self.tables.gather(state.emb_params, plan, self._gather_dtype,
+                                                        with_stats=True)
         # the rows are leaves of their own: the tables change in place later
         rows = {c: {g: t.detach().requires_grad_(True) for g, t in r.items()}
                 for c, r in gathered.items()}
         live = [p.detach().requires_grad_(True) for p in tree.leaves(state.dense_params)]
         row_leaves = [t for r in rows.values() for t in r.values()]
         with torch.enable_grad():
-            logits = self._forward_from_rows(tree.unflatten(state.dense_params, iter(live)),
-                                             rows, dense)
-            # a (B, 1) term broadcast against [B] terms would build (B, B) logits
-            assert logits.shape == labels.shape, (logits.shape, labels.shape)
-            loss = F.binary_cross_entropy_with_logits(logits, labels)
-            grads = torch.autograd.grad(loss, live + row_leaves)
+            with phase("step.forward"):
+                logits = self._forward_from_rows(tree.unflatten(state.dense_params, iter(live)),
+                                                 rows, dense)
+                # a (B, 1) term broadcast against [B] terms would build (B, B) logits
+                assert logits.shape == labels.shape, (logits.shape, labels.shape)
+                loss = F.binary_cross_entropy_with_logits(logits, labels)
+            with phase("step.backward"):
+                grads = torch.autograd.grad(loss, live + row_leaves)
         g_dense, g_rows_flat = list(grads[: len(live)]), iter(grads[len(live):])
         g_rows = {c: {g: next(g_rows_flat) for g in r} for c, r in rows.items()}
         return loss.detach(), overflow, gids, plan, g_dense, g_rows
@@ -315,7 +327,7 @@ class Engine:
         times 1/ranks); returns (loss, overflow). Nothing without a mesh."""
         if self.mesh is None:
             return loss, overflow
-        with torch.no_grad():
+        with torch.no_grad(), phase("step.reduce"):
             self.mesh.mean_([loss] + g_dense)
             self.mesh.sum_([overflow])
             inv = 1.0 / self.mesh.size
@@ -327,13 +339,15 @@ class Engine:
         optimizer at the dense lr (or its schedule), the sparse one at the
         embedding lr, or its schedule at the step before the update."""
         with torch.no_grad():
-            self.dense_tx.update(
-                list(tree.leaves(state.dense_params)), g_dense, state.dense_opt,
-                self.dense_lr_schedule if self.dense_lr_schedule is not None else self.dense_lr)
-            lr = (self.emb_lr_schedule(state.step) if self.emb_lr_schedule is not None
-                  else device_constant(self.emb_lr, state.step.device))
-            self.tables.apply_grads(state.emb_params, state.emb_opt, plan, g_rows, state.step, lr)
-            state.step.add_(1)
+            with phase("step.dense_opt"):
+                self.dense_tx.update(
+                    list(tree.leaves(state.dense_params)), g_dense, state.dense_opt,
+                    self.dense_lr_schedule if self.dense_lr_schedule is not None else self.dense_lr)
+            with phase("step.sparse_update"):
+                lr = (self.emb_lr_schedule(state.step) if self.emb_lr_schedule is not None
+                      else device_constant(self.emb_lr, state.step.device))
+                self.tables.apply_grads(state.emb_params, state.emb_opt, plan, g_rows, state.step, lr)
+                state.step.add_(1)
 
     def train_step(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
                    labels: torch.Tensor):
@@ -494,7 +508,7 @@ class Engine:
         steps = CapturedStep(lambda state: self.train_step(state, *batch_fn(state.step))[1])
 
         def train_scan_gen(state: TrainState, k: int):
-            return state, _replays(lambda: steps.step(state, ()), k, state.step.device)
+            return state, _replays(lambda i: steps.step(state, ()), k, state.step.device)
 
         train_scan_gen.steps = steps
         return train_scan_gen
@@ -543,18 +557,20 @@ def scan_metrics(outs: list) -> dict:
     return {"loss": losses[-1], "losses": losses, "overflow": overflow}
 
 
-def _replays(step: Callable[[], dict], k: int, device) -> dict:
-    """``step`` (one replay, returning its graph's static metrics) K times,
-    loss i written into a [K] buffer on ``device`` and the overflow kept as
-    the largest step's; results as ``scan_metrics``'."""
-    losses = torch.empty((k,), dtype=torch.float32, device=device)
-    overflow = 0
-    for i in range(k):
-        out = step()
-        losses[i].copy_(out["loss"])
-        if isinstance(out["overflow"], torch.Tensor):
-            overflow = out["overflow"].clone() if i == 0 else torch.maximum(overflow, out["overflow"])
-    return {"loss": losses[-1], "losses": losses, "overflow": overflow}
+def _replays(step: Callable[[int], dict], k: int, device) -> dict:
+    """``step(i)`` (replay i, returning its graph's static metrics) for i <
+    K, loss i written into a [K] buffer on ``device`` and the overflow kept
+    as the largest step's; results as ``scan_metrics``'. The span
+    ``train.scan``."""
+    with annotate("train.scan"):
+        losses = torch.empty((k,), dtype=torch.float32, device=device)
+        overflow = 0
+        for i in range(k):
+            out = step(i)
+            losses[i].copy_(out["loss"])
+            if isinstance(out["overflow"], torch.Tensor):
+                overflow = out["overflow"].clone() if i == 0 else torch.maximum(overflow, out["overflow"])
+        return {"loss": losses[-1], "losses": losses, "overflow": overflow}
 
 
 def _captured_scan(steps: CapturedStep):
@@ -562,7 +578,7 @@ def _captured_scan(steps: CapturedStep):
     loss k written into a [K] buffer on the state's device."""
 
     def train_scan(state: TrainState, dense: torch.Tensor, ids: torch.Tensor, labels: torch.Tensor):
-        batches = iter(zip(dense, ids, labels))
-        return state, _replays(lambda: steps.step(state, next(batches)), dense.shape[0], state.step.device)
+        return state, _replays(lambda i: steps.step(state, (dense[i], ids[i], labels[i])), dense.shape[0],
+                               state.step.device)
 
     return train_scan

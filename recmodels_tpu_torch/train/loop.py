@@ -22,6 +22,13 @@ batch of ``batch_size`` examples a rank (the global batch is ``batch_size``
 times the ranks, the JAX package's semantics for a device a process), and
 feeds it to the engine's per-rank steps; the primary alone writes
 TensorBoard scalars, the run's config and the checkpoints.
+
+Spans (``utils/profiling.annotate``, in the ``profile_dir`` trace):
+``trainer.wait`` (the training thread waits for a superbatch),
+``trainer.put`` (a batch array to the device), ``trainer.sync`` (the log's
+device read), ``trainer.eval``, ``trainer.save``; in the producer thread
+``producer.build`` (a superbatch made and stacked) and ``producer.wait``
+(blocked on a full queue).
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ from recmodels_tpu_torch.train.engine import Engine, resolve_device
 from recmodels_tpu_torch.train.schedules import build_lr_schedule
 from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
 from recmodels_tpu_torch.utils.logging import MetricsLogger
-from recmodels_tpu_torch.utils.profiling import trace
+from recmodels_tpu_torch.utils.profiling import annotate, trace
 
 VAL_SEED_OFFSET = 7_777_777  # the held-out stream's seed: cfg.seed + this
 
@@ -155,10 +162,11 @@ class Trainer:
         pinned memory, so the copy does not hold the host; this runs in the
         training thread only, between steps: a CUDA call from another thread
         while a step's graph is being captured would break the capture."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        with annotate("trainer.put"):
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if self.device.type == "cuda":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t
 
     # ------------------------------------------------------------------ run
     def run(self) -> dict:
@@ -236,21 +244,24 @@ class Trainer:
         def producer():
             try:
                 for kk in plan:
-                    parts = [next_batch() for _ in range(kk)]
-                    lead = 0 if (kk == 1 and k == 1) else 1  # a scan axis in front?
-                    arrays = tuple(getattr(parts[0], f) if lead == 0 else np.stack([getattr(b, f) for b in parts])
-                                   for f in ("dense", "ids", "labels"))
-                    if a > 1:
-                        # each batch as A micro-batches: [.., B, ...] -> [.., A, B/A, ...]
-                        arrays = tuple(x.reshape(x.shape[:lead] + (a, x.shape[lead] // a) + x.shape[lead + 1:])
-                                       for x in arrays)
-                    item = (kk, lead, arrays, source.state())
-                    while not stop.is_set():
-                        try:
-                            q.put(item, timeout=0.2)
-                            break
-                        except queue.Full:
-                            continue
+                    with annotate("producer.build"):
+                        parts = [next_batch() for _ in range(kk)]
+                        lead = 0 if (kk == 1 and k == 1) else 1  # a scan axis in front?
+                        arrays = tuple(getattr(parts[0], f) if lead == 0
+                                       else np.stack([getattr(b, f) for b in parts])
+                                       for f in ("dense", "ids", "labels"))
+                        if a > 1:
+                            # each batch as A micro-batches: [.., B, ...] -> [.., A, B/A, ...]
+                            arrays = tuple(x.reshape(x.shape[:lead] + (a, x.shape[lead] // a) + x.shape[lead + 1:])
+                                           for x in arrays)
+                        item = (kk, lead, arrays, source.state())
+                    with annotate("producer.wait"):
+                        while not stop.is_set():
+                            try:
+                                q.put(item, timeout=0.2)
+                                break
+                            except queue.Full:
+                                continue
                     if stop.is_set():
                         return
             except BaseException as e:  # noqa: BLE001 — raised in the training thread
@@ -260,7 +271,8 @@ class Trainer:
 
         def superbatches():
             for _ in plan:
-                item = q.get()
+                with annotate("trainer.wait"):
+                    item = q.get()
                 if item is None:
                     raise err[0]
                 kk, lead, arrays, cursor = item
@@ -303,7 +315,8 @@ class Trainer:
                     profiling.close()
                     self.logger.log_text(f"profiler trace written to {self.profile_dir}")
                 if prev // cfg.log_every != step_no // cfg.log_every:
-                    loss = float(m["loss"])  # the device sync of the interval
+                    with annotate("trainer.sync"):
+                        loss = float(m["loss"])  # the device sync of the interval
                     now = time.time()
                     self.logger.log_scalars(step_no, {
                         "loss": loss,
@@ -315,12 +328,14 @@ class Trainer:
                 if cfg.eval_every and prev // cfg.eval_every != step_no // cfg.eval_every:
                     final = self.evaluate(state, step_no)
                 if self.ckpt is not None:
-                    self.ckpt.save(step_no, state, data_state=cursor)
+                    with annotate("trainer.save"):
+                        self.ckpt.save(step_no, state, data_state=cursor)
         if cfg.eval_every and cfg.steps % cfg.eval_every:
             final = self.evaluate(state, cfg.steps)
         if self.ckpt is not None:
             if self.ckpt.latest_step() != cfg.steps:  # the loop may have saved it
-                self.ckpt.save(cfg.steps, state, data_state=cursor, force=True)
+                with annotate("trainer.save"):
+                    self.ckpt.save(cfg.steps, state, data_state=cursor, force=True)
             self.ckpt.wait()
         self.state = state
         return final
@@ -344,7 +359,11 @@ class Trainer:
         """AUC and logloss over ``eval_batches`` batches of the held-out
         stream (synthetic data: the seed ``cfg.seed + 7,777,777``, the same
         planted task; ``device_synth``: that stream generated on the
-        device); logged under ``val``."""
+        device); logged under ``val``. The span ``trainer.eval``."""
+        with annotate("trainer.eval"):
+            return self._evaluate(state, step_no)
+
+    def _evaluate(self, state, step_no: int) -> dict:
         cfg = self.cfg
         if (cfg.val_data or cfg.data) == "device_synth":
             return self._evaluate_device_synth(state, step_no)

@@ -1213,9 +1213,9 @@ def test_captured_generated_steps_equal_eager_ones(cuda, path):
     """``jit_train_scan_gen`` (an eager warm-up, the capture, replays; the
     batch index is the state's step) over superbatches of 3 and a ragged 2
     against eager ``train_scan_gen`` from the same step: the losses and
-    every state tensor bit for bit, one graph, and seven launches of the
-    batch kernel counted: the five eager steps', the warm-up's and the
-    capture's (replays are not counted)."""
+    every state tensor bit for bit, one graph, and eight launches of the
+    batch kernel counted: the five eager steps', the warm-up's, the
+    capture's and its timed twin's (replays are not counted)."""
     from recmodels_tpu_torch.data import device_synth as ds
 
     eng, schema, _ = _small_engine(path)
@@ -1229,7 +1229,7 @@ def test_captured_generated_steps_equal_eager_ones(cuda, path):
         assert torch.equal(me["losses"], mc["losses"])
     torch.cuda.synchronize()
     assert scan.steps.graphs == 1 and int(captured.step) == 5
-    assert ds.synth_batch.launches - before == 5 + 2
+    assert ds.synth_batch.launches - before == 5 + 3
     assert all(torch.equal(a, b) for a, b in zip(_tensors(captured), _tensors(eager)))
 
 

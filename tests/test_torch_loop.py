@@ -255,17 +255,14 @@ def test_logger_writes_tensorboard_scalars(monkeypatch, tmp_path):
 
 
 def test_profiling_trace_annotate_and_step_timer(tmp_path):
-    from recmodels_tpu_torch.utils.profiling import StepTimer, annotate, trace
+    """``trace`` writes the block's trace with the spans ``annotate`` names
+    in it (``StepTimer``, a host clock nothing read, is gone)."""
+    from recmodels_tpu_torch.utils.profiling import annotate, trace
 
     with trace(str(tmp_path)):
         with annotate("the-region"):
             torch.ones(8).sum()
     assert "the-region" in (tmp_path / "trace.json").read_text()
-    timer = StepTimer(alpha=0.5)
-    assert timer.tick() is None
-    time.sleep(0.01)
-    first = timer.tick()
-    assert first is not None and first > 0 and timer.ema_s == first
 
 
 def test_a_failing_step_stops_the_run_and_its_pool():

@@ -747,6 +747,130 @@ def adam_step_of(before_table, m, v, scalars: torch.Tensor) -> torch.Tensor:
     return before_table + (-lr * (m / bc1)) / den
 
 
+def cin_macs(rows: int, b: int, m: int, h1: int, h2: int) -> tuple[int, int]:
+    """Multiply-adds of the fused two-layer CIN's forward and backward in
+    its pair-pool form (the forms ``csrc/cin2.cu`` and ``csrc/cin2_bwd.cu``
+    state) at rows = B * D."""
+    fwd = rows * m * m * h1 + rows * m * h1 + b * m * h1 * h2
+    bwd = 2 * rows * m * m * h1 + 2 * b * h2 * m * h1 + 2 * rows * m * h1 + 2 * rows * m * m
+    return fwd, bwd
+
+
+def cin2_padded_rows(report: dict, x02: torch.Tensor, m: int, dev) -> None:
+    """#3 and #5 at the benchmark's xDeepFM CIN(200,200), zero-padded to
+    208 as ``cin_stack_dm_flat`` runs it (``cin2_route_widths``,
+    ``cin2_pad_weights``), on the same x0 [262144, 26]: weights at the
+    model's initial scale and pool grads N(0, 1), cut to 200 and padded
+    with zeros as the route's are, from a generator of their own (the later
+    phases' draws do not move). Each time beside its plain version's at
+    208, its bound from the 200-wide CIN's own operations and bytes (the
+    padding is work the CIN does not need), and the route's pad of the
+    weights (device time); then the whole route's forward and backward
+    against ``Cin2`` on weights padded beforehand, by device time, whose
+    difference is what the pad and the cuts cost a step. Keys ``w208_`` in the rows ``cin2_forward`` and
+    ``cin2_backward``."""
+    from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
+        Cin2, cin2_backward, cin2_backward_reference, cin2_forward, cin2_forward_reference, cin2_pad_weights,
+        cin2_route_widths, cin_stack_dm_flat,
+    )
+
+    h = 200
+    hp = cin2_route_widths(DIM, m, h, h, torch.bfloat16)
+    check(hp == (208, 208), f"CIN({h},{h}) takes the fused route at {hp}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 208)
+    w1 = (torch.randn((m, m * h), generator=gen, device=dev) * (2.0 / (m * m)) ** 0.5).to(torch.bfloat16)
+    w2 = (torch.randn((h, m * h), generator=gen, device=dev) * (2.0 / (h * m)) ** 0.5).to(torch.bfloat16)
+    w1p, w2p = cin2_pad_weights(w1, w2, m, *hp)
+    rows = x02.shape[0]
+    fwd_macs, bwd_macs = cin_macs(rows, BATCH, m, h, h)
+
+    outs = cin2_forward(x02, w1p, w2p, DIM, want_x1=True, want_q=True)
+    refs = cin2_forward_reference(x02, w1p, w2p, DIM, want_x1=True, want_q=True)
+    errs = []
+    for name, o, r in zip(("x1", "p1", "p2", "Q"), outs, refs):
+        err, scale = rel_err(o, r)
+        print(f"cin2_forward w208 {name}: max err {err:.6g}, max |ref| {scale:.6g}, tol {BF16_REL_TOL * scale:.6g}")
+        check(err <= BF16_REL_TOL * scale, f"cin2_forward w208 {name} within {BF16_REL_TOL} of max |ref|")
+        errs.append((err, BF16_REL_TOL * scale))
+    x1, p1, p2, q = outs
+    check(not x1[:, h:].any() and not p1[:, h:].any() and not p2[:, h:].any()
+          and not q.reshape(BATCH, m, hp[0])[..., h:].any(), "cin2_forward w208: the padded channels are zeros")
+    del refs
+    b_ms, b_by = bound_ms((x02.numel() + w1.numel() + w2.numel() + BATCH * 2 * h) * 2, 2 * fwd_macs)
+    report["cin2_forward"].update(
+        w208_max_abs_err=max(e for e, _ in errs), w208_tol=max(t for _, t in errs),
+        w208_ms=time_ms(lambda: cin2_forward(x02, w1p, w2p, DIM)),
+        w208_plain_ms=time_ms(lambda: cin2_forward_reference(x02, w1p, w2p, DIM), iters=5),
+        w208_library_ms=None, w208_bound_ms=b_ms, w208_bound_by=b_by,
+        w208_pad_ms=device_ms(lambda: cin2_pad_weights(w1, w2, m, *hp)),
+        w208_launch_ms=launch_split(lambda: cin2_forward(x02, w1p, w2p, DIM), calls=10),
+        w208_launch_ms_train=launch_split(
+            lambda: cin2_forward(x02, w1p, w2p, DIM, want_x1=True, want_q=True), calls=10),
+        w208_shapes=f"CIN({h},{h}) padded to {hp}: x0 [{rows}, {m}], w1 [{m}, {m * hp[0]}], "
+                    f"w2 [{hp[0]}, {m * hp[1]}]; bound_ms counts the {h}-wide CIN",
+    )
+
+    pad = torch.nn.functional.pad
+    g1p = pad(torch.randn((BATCH, h), generator=gen, device=dev), (0, hp[0] - h)).to(torch.bfloat16)
+    g2p = pad(torch.randn((BATCH, h), generator=gen, device=dev), (0, hp[1] - h)).to(torch.bfloat16)
+    bwd = cin2_backward(x02, x1, w1p, w2p, q, g1p, g2p, DIM)
+    ref = cin2_backward_reference(x02, x1, w1p, w2p, q, g1p, g2p, DIM)
+    errs = []
+    for name, o, r in zip(("gx0", "gw1", "gw2"), bwd, ref):
+        err, scale = rel_err(o, r)
+        print(f"cin2_backward w208 {name}: max err {err:.6g}, max |ref| {scale:.6g}, tol {BF16_REL_TOL * scale:.6g}")
+        check(err <= BF16_REL_TOL * scale, f"cin2_backward w208 {name} within {BF16_REL_TOL} of max |ref|")
+        errs.append((err, BF16_REL_TOL * scale))
+    gw1, gw2 = bwd[1].reshape(m, m, hp[0]), bwd[2].reshape(hp[0], m, hp[1])
+    check(not gw1[..., h:].any() and not gw2[h:].any() and not gw2[..., h:].any(),
+          "cin2_backward w208: the padded weights' gradients are zeros")
+    check(all(torch.equal(a, b) for a, b in zip(bwd, cin2_backward(x02, x1, w1p, w2p, q, g1p, g2p, DIM))),
+          "cin2_backward w208 repeats bit for bit")
+    del ref
+    nbytes = (x02.numel() + rows * h + w1.numel() + w2.numel() + BATCH * m * h + BATCH * 2 * h
+              + x02.numel() + w1.numel() + w2.numel()) * 2
+    b_ms, b_by = bound_ms(nbytes, 2 * bwd_macs)
+    report["cin2_backward"].update(
+        w208_max_abs_err=max(e for e, _ in errs), w208_tol=max(t for _, t in errs),
+        w208_ms=time_ms(lambda: cin2_backward(x02, x1, w1p, w2p, q, g1p, g2p, DIM)),
+        w208_plain_ms=time_ms(lambda: cin2_backward_reference(x02, x1, w1p, w2p, q, g1p, g2p, DIM), iters=3),
+        w208_library_ms=None, w208_bound_ms=b_ms, w208_bound_by=b_by,
+        w208_launch_ms=launch_split(lambda: cin2_backward(x02, x1, w1p, w2p, q, g1p, g2p, DIM), calls=10),
+    )
+    for name in ("cin2_forward", "cin2_backward"):
+        r = report[name]
+        print(f"{name} w208: {r['w208_ms']:.4f} ms (w128 {r['ms']:.4f}), bound {r['w208_bound_ms']:.4f} "
+              f"({r['w208_bound_by']}), plain {r['w208_plain_ms']:.4f}")
+    del bwd, x1, p1, p2, q, outs
+
+    # the route's own cost: the device time of cin_stack_dm_flat forward and
+    # backward at width 200 against Cin2 on weights padded beforehand (the
+    # same kernels but the pad of the weights and the cut of their grads),
+    # in turns; events over back-to-back eager calls would time the host
+    x_dm = x02.reshape(BATCH, DIM, m)
+    cot = torch.randn((BATCH, 2 * h), generator=gen, device=dev).to(torch.bfloat16)
+
+    def route():
+        ins = [t.detach().requires_grad_(True) for t in (x_dm, w1, w2)]
+        pools = cin_stack_dm_flat(ins[0], ins[1:])
+        torch.autograd.grad((pools.float() * cot.float()).sum(), ins)
+
+    def prepadded():
+        ins = [t.detach().requires_grad_(True) for t in (x02, w1p, w2p)]
+        p1, p2 = Cin2.apply(*ins, DIM)
+        pools = torch.cat([p1[:, :h], p2[:, :h]], 1)
+        torch.autograd.grad((pools.float() * cot.float()).sum(), ins)
+
+    turns = [launch_split(fn, calls=10) for fn in (prepadded, route, route, prepadded)]
+    ms = [sum(t.values()) for t in turns]
+    pad_ms = (ms[1] + ms[2] - ms[0] - ms[3]) / 2
+    report["cin2_backward"].update(w208_route_ms=(ms[1] + ms[2]) / 2, w208_prepadded_ms=(ms[0] + ms[3]) / 2,
+                                   w208_route_pad_ms=pad_ms, w208_route_launch_ms=turns[2],
+                                   w208_prepadded_launch_ms=turns[3])
+    print(f"CIN(200,200) route forward and backward, device time: {ms[1]:.4f}, {ms[2]:.4f} ms against "
+          f"{ms[0]:.4f}, {ms[3]:.4f} prepadded: the pad and cuts {pad_ms:.4f} ms a step")
+
+
 def slice3_kernels(report: dict, engine3, ids, card: str, gen: torch.Generator) -> None:
     """The kernels of the slice-3 path against their plain versions at its
     shapes; adds their rows to ``report``."""
@@ -1139,7 +1263,7 @@ def main() -> int:
         errs.append((err, BF16_REL_TOL * scale))
     _, p1, p2, _ = cin2_forward(x02, w1, w2, DIM)
     check(torch.equal(p1, outs[1]) and torch.equal(p2, outs[2]), "cin2_forward pools do not depend on want_x1/want_q")
-    macs = BATCH * DIM * m * m * h1 + BATCH * DIM * m * h1 + BATCH * m * h1 * h2
+    macs = cin_macs(BATCH * DIM, BATCH, m, h1, h2)[0]
     b_ms, b_by = bound_ms((x02.numel() + w1.numel() + w2.numel() + BATCH * (h1 + h2)) * 2, 2 * macs)
     report["cin2_forward"] = dict(
         route="cuda", source="recmodels_tpu_torch/csrc/cin2.cu",
@@ -1201,8 +1325,7 @@ def main() -> int:
           "cin2_backward repeats bit for bit")
     del ref
     rows_ = BATCH * DIM
-    macs = (2 * rows_ * m * m * h1 + 2 * BATCH * h2 * m * h1 + 2 * rows_ * m * h1
-            + 2 * rows_ * m * m)
+    macs = cin_macs(rows_, BATCH, m, h1, h2)[1]
     nbytes = (x02.numel() + x1.numel() + w1.numel() + w2.numel() + q.numel() + g1p.numel()
               + g2p.numel() + sum(t.numel() for t in bwd)) * 2
     b_ms, b_by = bound_ms(nbytes, 2 * macs)
@@ -1215,9 +1338,11 @@ def main() -> int:
         library_ms=None, bound_ms=b_ms, bound_by=b_by,
         launch_ms=launch_split(lambda: cin2_backward(x02, x1, w1, w2, q, g1p, g2p, DIM), calls=10),
     )
+    cin2_padded_rows(report, x02, m, dev)
     for name in ("cin2_forward", "cin2_backward"):
-        split = ", ".join(f"{k} {v:.4f}" for k, v in report[name]["launch_ms"].items())
-        print(f"{name} launches by device time (ms a call): {split} on {card}")
+        for label in ("", "w208_"):
+            split = ", ".join(f"{k} {v:.4f}" for k, v in report[name][f"{label}launch_ms"].items())
+            print(f"{name} {label or 'w128_'}launches by device time (ms a call): {split} on {card}")
     del bwd, x1, q, g1p, g2p, x02
 
     # 6. sorted_adagrad_update: the batch's sorted stream (425,984 ids) into
@@ -2438,10 +2563,10 @@ def training3_phase(engine3, schema, card: str, gen: torch.Generator) -> dict[st
 def repaired_shapes_phase(card: str, gen: torch.Generator) -> None:
     """Shapes the card once refused (ROADMAP queue 3), served and trained one
     step at REPAIR_BATCH examples against the CPU plain path: bf16 xDeepFM at
-    dim 32 (CIN(128,128)) and with CIN(256,256), which take the fused CIN
-    kernels, with CIN(100,100), which goes layer by layer, and bf16 DCN at
-    dim 40 (x0 of 1,053, the cross stack's wide-row path). The route must
-    launch the kernels ``cin2_takes`` names and no others."""
+    dim 32 (CIN(128,128)), with CIN(256,256) and with CIN(100,100), which
+    take the fused CIN kernels (CIN(100,100) zero-padded to 112), and bf16
+    DCN at dim 40 (x0 of 1,053, the cross stack's wide-row path). The route
+    must launch the kernels ``cin2_route_widths`` names and no others."""
     from recmodels_tpu_torch.data import SyntheticSource
     from recmodels_tpu_torch.models import build_model
     from recmodels_tpu_torch.ops.cuda.interactions_cuda import (
@@ -2452,11 +2577,11 @@ def repaired_shapes_phase(card: str, gen: torch.Generator) -> None:
     from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
 
     dev = torch.device("cuda")
-    fused, layered = {cin2_forward: True, cin_layer_forward: False}, {cin2_forward: False, cin_layer_forward: True}
+    fused = {cin2_forward: True, cin_layer_forward: False}
     cases = (
         ("xdeepfm", 32, dict(cin_sizes=CIN, hidden=HIDDEN), fused, {cin2_backward: True}),
         ("xdeepfm", DIM, dict(cin_sizes=(256, 256), hidden=HIDDEN), fused, {cin2_backward: True}),
-        ("xdeepfm", DIM, dict(cin_sizes=(100, 100), hidden=HIDDEN), layered, {cin2_backward: False}),
+        ("xdeepfm", DIM, dict(cin_sizes=(100, 100), hidden=HIDDEN), fused, {cin2_backward: True}),
         ("dcn", 40, dict(hidden=DCN_HIDDEN, n_cross=N_CROSS), {dcn_cross_stack_forward: True}, {}),
     )
     for model, dim, kw, serve_route, train_route in cases:

@@ -10,7 +10,8 @@ Counterpart of ``recmodels_tpu/ops/pallas/interactions_tpu.py``:
 * ``cin2_forward`` -> ``csrc/cin2.cu`` (``_cin2_fwd_call``) and
   ``cin2_backward`` -> ``csrc/cin2_bwd.cu`` (``_cin2_bwd_call``), joined by
   ``Cin2`` and reached through ``cin_stack_dm_flat`` for a 2-layer CIN in
-  bf16;
+  bf16, its widths zero-padded to multiples of 16 where they are not
+  (``cin2_route_widths``, ``cin2_pad_weights``);
 * ``cin_layer_forward`` -> ``csrc/cin_layer.cu`` (``_cin_forward_2d``) and
   ``cin_layer_backward`` -> ``csrc/cin_layer_bwd.cu`` (``_cin_bwd_pallas``),
   joined by ``CinLayer2d``: every other CIN, one layer at a time;
@@ -37,6 +38,7 @@ import torch
 from recmodels_tpu_torch.ops import interactions
 from recmodels_tpu_torch.ops.cuda import build
 from recmodels_tpu_torch.ops.cuda.launch import cuda_device, device_and_stream, require
+from recmodels_tpu_torch.utils import profiling
 
 FLOAT_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -180,6 +182,28 @@ def cin2_takes(d: int, m: int, h1: int, h2: int, dtype: torch.dtype) -> bool:
     kernels' own check (``rm_cin2_takes``) is the same."""
     return (dtype == torch.bfloat16 and 1 <= d <= CIN2_MAX_D and 1 <= m <= CIN2_MAX_M
             and all(h % 16 == 0 and 16 <= h <= CIN2_MAX_H for h in (h1, h2)))
+
+
+def cin2_route_widths(d: int, m: int, h1: int, h2: int, dtype: torch.dtype):
+    """The widths (h1', h2') at which ``cin_stack_dm_flat`` runs a two-layer
+    CIN through the fused kernels, or None where it goes layer by layer:
+    each width rounded up to a multiple of 16, if ``cin2_takes`` admits the
+    rounded shape. Widths that are multiples of 16 come back as they are."""
+    widths = (-(-h1 // 16) * 16, -(-h2 // 16) * 16)
+    return widths if cin2_takes(d, m, *widths, dtype) else None
+
+
+def cin2_pad_weights(w1: torch.Tensor, w2: torch.Tensor, m: int, h1p: int, h2p: int):
+    """Flat weights w1 [m, m*h1] and w2 [h1, m*h2] zero-padded to the widths
+    h1p >= h1 and h2p >= h2: w1 [m, m*h1p] (output columns n >= h1 zero), w2
+    [h1p, m*h2p] (rows k >= h1 and output columns n >= h2 zero). The padded
+    channels of x1, p1, Q and p2 are then exact zeros that add nothing to
+    any f32 sum, and the padded weights' gradients are zero. A differentiable
+    op: autograd hands the gradients back cut to w1's and w2's shapes."""
+    h1, h2 = w1.shape[1] // m, w2.shape[1] // m
+    w1p = torch.nn.functional.pad(w1.reshape(m, m, h1), (0, h1p - h1))
+    w2p = torch.nn.functional.pad(w2.reshape(h1, m, h2), (0, h2p - h2, 0, 0, 0, h1p - h1))
+    return w1p.reshape(m, m * h1p), w2p.reshape(h1p, m * h2p)
 
 
 def _cin2_refusal(what: str, d: int, m: int, h1: int, h2: int) -> NotImplementedError:
@@ -558,21 +582,42 @@ def cin_layer_2d(xk2: torch.Tensor, x02: torch.Tensor, w2: torch.Tensor) -> torc
 
 
 # ------------------------------------------------------------------ CIN ops
+def cin2_pools(x02: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, d: int, widths):
+    """Pools (p1 [B, h1], p2 [B, h2]) of a two-layer CIN through the fused
+    kernels (``Cin2`` when grads are wanted, else the forward alone) at
+    ``widths`` (h1', h2') >= (h1, h2). Where they differ the weights are
+    zero-padded (``cin2_pad_weights``) and the pools cut back to h1 and h2,
+    both inside autograd, and the counter ``cin.fused_padded``
+    (``utils/profiling.py``) goes up by one; where they are equal the
+    weights go in as they are."""
+    m = x02.shape[1]
+    h1, h2 = w1.shape[1] // m, w2.shape[1] // m
+    padded = tuple(widths) != (h1, h2)
+    if padded:
+        profiling.count("cin.fused_padded", 1)
+        w1, w2 = cin2_pad_weights(w1, w2, m, *widths)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x02, w1, w2)):
+        p1, p2 = Cin2.apply(x02, w1, w2, d)
+    else:
+        _, p1, p2, _ = cin2_forward(x02, w1, w2, d)
+    return (p1[:, :h1], p2[:, :h2]) if padded else (p1, p2)
+
+
 def cin_stack_dm_flat(x0_dm: torch.Tensor, w2s) -> torch.Tensor:
     """CIN pools [B, sum(H)] from a D-major field matrix [B, D, m] and flat
-    weights [H_k, m*H_next]. Two layers of the shapes ``cin2_takes`` admits
-    take the fused kernels (``Cin2``); every other CIN runs layer by layer
+    weights [H_k, m*H_next]. Two layers that ``cin2_route_widths`` admits
+    take the fused kernels (``cin2_pools``), at widths rounded up to
+    multiples of 16 where they are not; every other CIN runs layer by layer
     (``CinLayer2d``), each layer's pool the sum over D in the activation
     dtype. The route depends on shapes and dtype alone, so the CPU takes the
     plain versions of the kernels the card runs."""
     b, d, m = x0_dm.shape
     x02 = x0_dm.reshape(b * d, m)
-    if len(w2s) == 2 and cin2_takes(d, m, w2s[0].shape[1] // m, w2s[1].shape[1] // m, x0_dm.dtype):
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (x02, *w2s)):
-            p1, p2 = Cin2.apply(x02, w2s[0], w2s[1], d)
-        else:
-            _, p1, p2, _ = cin2_forward(x02, w2s[0], w2s[1], d)
-        return torch.cat([p1, p2], dim=1)
+    if len(w2s) == 2:
+        h1, h2 = (w.shape[1] // m for w in w2s)
+        widths = cin2_route_widths(d, m, h1, h2, x0_dm.dtype)
+        if widths is not None:
+            return torch.cat(cin2_pools(x02, w2s[0], w2s[1], d, widths), dim=1)
     xk2 = x02
     pools = []
     for w2 in w2s:

@@ -6,8 +6,9 @@
 * ``annotate(name)`` is the one span primitive: a ``record_function`` while
   a ``torch.profiler`` session is active, else one shared no-op context, so
   a span costs one flag check with tracing off.
-* ``count(name, value)`` adds to a host-side counter. Only set-up sites call
-  it (the kernel library's load, graph captures), never once a replay.
+* ``count(name, value)`` adds to a host-side counter. Only code that runs
+  while a step is traced or captured calls it (the kernel library's load,
+  graph captures, the CIN's padded fused route), never once a replay.
 * ``phase(name)`` marks a phase of the training step. In an eager step under
   a profiler it is a span. Inside a timed capture (``timed_capture``, the
   timed twin of a step's graph, ``train/capture.py``) it records a pair of

@@ -19,6 +19,7 @@ from recmodels_tpu_torch.embedding.update import (
 from recmodels_tpu_torch.nn.mlp import ProductF32
 from recmodels_tpu_torch.ops.cuda import build
 from recmodels_tpu_torch.ops.cuda import interactions_cuda as K
+from recmodels_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -729,37 +730,79 @@ def test_cin2_takes_matches_the_kernels_own_check(cuda):
                     assert bool(lib.rm_cin2_takes(d, m, h1, h2)) is K.cin2_takes(d, m, h1, h2, torch.bfloat16)
 
 
-@pytest.mark.parametrize("d,hs", [(32, (128, 128)), (32, (256, 256)), (16, (100, 100)), (32, (100, 100))])
+def _two_layer_cin(dev, b, d, m, h1, h2, seed):
+    """bf16 field matrix [b, d, m], flat weights at the model's initial
+    scale and a cotangent of the pools."""
+    g = _gen(dev, seed)
+    x = torch.randn((b, d, m), generator=g, device=dev).to(torch.bfloat16)
+    w1 = (torch.randn((m, m * h1), generator=g, device=dev) * (2.0 / (m * m)) ** 0.5).to(torch.bfloat16)
+    w2 = (torch.randn((h1, m * h2), generator=g, device=dev) * (2.0 / (h1 * m)) ** 0.5).to(torch.bfloat16)
+    cot = torch.randn((b, h1 + h2), generator=g, device=dev).to(torch.bfloat16)
+    return x, w1, w2, cot
+
+
+def _cin_route(ins, cot, d=None):
+    """Pools of ``cin_stack_dm_flat`` (``d`` given: of ``Cin2.apply`` on the
+    same inputs) and the grads of the field matrix and both weights."""
+    ins = [t.clone().requires_grad_(True) for t in ins]
+    if d is None:
+        pools = K.cin_stack_dm_flat(ins[0], ins[1:])
+    else:
+        b, _, m = ins[0].shape
+        pools = torch.cat(K.Cin2.apply(ins[0].reshape(b * d, m), ins[1], ins[2], d), 1)
+    grads = torch.autograd.grad((pools.float() * cot.float()).sum(), ins)
+    return [pools.detach(), *grads]
+
+
+@pytest.mark.parametrize("d,hs", [(32, (128, 128)), (32, (256, 256)), (16, (200, 200)), (16, (100, 100)),
+                                  (32, (100, 100))])
 def test_two_layer_bf16_cin_on_the_card_matches_the_cpu(cuda, d, hs):
     """``cin_stack_dm_flat`` on the card against the same call on the CPU
-    (the plain versions of the same route): d = 32 with CIN(128,128) and
-    CIN(256,256) take the fused kernels, CIN(100,100) goes layer by layer.
-    Pools by 1% of the largest, grads by the repo's bf16 rule (3%)."""
-    g = _gen(cuda, 17)
+    (the plain versions of the same route): every two-layer bf16 CIN of
+    widths up to 256 takes the fused kernels, one launch of each, CIN(200,
+    200) and CIN(100,100) at widths zero-padded to 208 and 112. Pools by 1%
+    of the largest, grads by the repo's bf16 rule (3%)."""
     b, m = 40, 26
     h1, h2 = hs
-    x = torch.randn((b, d, m), generator=g, device=cuda).to(torch.bfloat16)
-    w1 = (torch.randn((m, m * h1), generator=g, device=cuda) * (2.0 / (m * m)) ** 0.5).to(torch.bfloat16)
-    w2 = (torch.randn((h1, m * h2), generator=g, device=cuda) * (2.0 / (h1 * m)) ** 0.5).to(torch.bfloat16)
-    cot = torch.randn((b, h1 + h2), generator=g, device=cuda).to(torch.bfloat16)
-    fused = K.cin2_takes(d, m, h1, h2, torch.bfloat16)
-    assert fused is (hs != (100, 100))
+    x, w1, w2, cot = _two_layer_cin(cuda, b, d, m, h1, h2, 17)
+    assert K.cin2_route_widths(d, m, h1, h2, torch.bfloat16) is not None
     outs = []
     for dev in (cuda, torch.device("cpu")):
-        ins = [t.to(dev).clone().requires_grad_(True) for t in (x, w1, w2)]
         counts = (K.cin2_forward.launches, K.cin2_backward.launches, K.cin_layer_forward.launches)
-        pools = K.cin_stack_dm_flat(ins[0], ins[1:])
-        grads = torch.autograd.grad((pools.float() * cot.to(dev).float()).sum(), ins)
+        outs.append(_cin_route([t.to(dev) for t in (x, w1, w2)], cot.to(dev)))
         torch.cuda.synchronize()
         launched = (K.cin2_forward.launches - counts[0], K.cin2_backward.launches - counts[1],
                     K.cin_layer_forward.launches - counts[2])
         if dev.type == "cuda":
-            assert launched == ((1, 1, 0) if fused else (0, 0, 2))
-        outs.append([pools, *grads])
+            assert launched == (1, 1, 0)
     for got, want, frac in zip(outs[0], outs[1], (BF16_REL_TOL, 0.03, 0.03, 0.03)):
         assert got.dtype == torch.bfloat16 and got.shape == want.shape
-        err = (got.detach().float().cpu() - want.detach().float()).abs().max().item()
-        assert err <= frac * want.detach().float().abs().max().item()
+        err = (got.float().cpu() - want.float()).abs().max().item()
+        assert err <= frac * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("hs", [(200, 200), (100, 40)])
+def test_padded_cin_route_repeats_bit_for_bit(cuda, hs):
+    """The padded route (pools, and the grads of x0, w1 and w2 cut back to
+    their shapes) gives the same bits in two runs on the card."""
+    x, w1, w2, cot = _two_layer_cin(cuda, 300, 16, 26, *hs, 23)
+    runs = [_cin_route((x, w1, w2), cot) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_cin_route_at_widths_of_16_is_cin2_unpadded(cuda, d):
+    """At CIN(128,128) the route inserts no pad (``cin.fused_padded`` does
+    not move): its pools and grads are bit for bit those of ``Cin2.apply``
+    on the weights as they are."""
+    x, w1, w2, cot = _two_layer_cin(cuda, 65, d, 26, 128, 128, 29)
+    padded = profiling.snapshot()["counters"].get("cin.fused_padded", 0)
+    route = _cin_route((x, w1, w2), cot)
+    assert profiling.snapshot()["counters"].get("cin.fused_padded", 0) == padded
+    direct = _cin_route((x, w1, w2), cot, d=d)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(route, direct))
 
 
 @pytest.mark.parametrize("d,n_layers,dtype", [

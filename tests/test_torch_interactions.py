@@ -19,6 +19,10 @@
   kernel or einsums, by JAX's condition) and ``TransposeMinor2`` against
   ``torch.autograd`` through the plain ops; 3-layer ``cin_stack_dm_flat``
   and ``cin_stack_flat`` and their grads against the JAX ops;
+* the route: two-layer bf16 CINs of widths that are no multiples of 16
+  (CIN(100,100), CIN(200,200)) through the fused route at widths padded to
+  16 against JAX's layer path, the padding step against the unpadded plain
+  math in f32, and the CINs past the fused limits layer by layer;
 * the ops of PNN, NFM and AFM (``triu_pair_indices``, ``pnn_inner_products``,
   ``pnn_outer_product``, ``fm_bi_interaction``, ``afm_pair_products``),
   plain PyTorch on every device, and their grads against JAX's ops and
@@ -39,6 +43,7 @@ from recmodels_tpu_torch.nn.mlp import ProductF32
 from recmodels_tpu_torch.ops import interactions as T
 from recmodels_tpu_torch.ops.cuda import interactions_cuda as K
 from recmodels_tpu_torch.ops.dispatch import get_op
+from recmodels_tpu_torch.utils import profiling
 
 F32_TOL = 1e-4  # f32 CIN: the same sums in another order and association
 
@@ -308,25 +313,68 @@ def test_cin2_takes_states_the_fused_kernels_limits(d, m, h1, h2, dtype, takes):
     assert K.cin2_takes(d, m, h1, h2, dtype) is takes
 
 
-@pytest.mark.parametrize("shape", [(8, 16, 10, 100, 100), (4, 4, 40, 16, 16), (4, 2, 6, 272, 272)],
-                         ids=["cin100", "m40", "h272"])
-def test_two_layer_bf16_cin_past_the_fused_limits_goes_layer_by_layer(monkeypatch, shape):
-    """bf16 CIN(100,100), a 40-field CIN and CIN(272,272): ``cin2_takes``
-    refuses them, so ``cin_stack_dm_flat`` runs them layer by layer
-    (``CinLayer2d``, the einsum backward: no layer is 128-aligned), as JAX
-    does (its layer path in interpret mode). Pools and their grads w.r.t.
-    the field matrix and both weights by the repo's bf16 rule (3%)."""
-    monkeypatch.setattr(JT, "_INTERPRET", True)
-    b, d, m, h1, h2 = shape
-    assert not K.cin2_takes(d, m, h1, h2, torch.bfloat16)
-    rng = np.random.default_rng(41)
-    x = rng.normal(size=(b, d, m)).astype(np.float32)
-    w1 = (rng.normal(size=(m, m * h1)) * np.sqrt(2.0 / (m * m))).astype(np.float32)
-    w2 = (rng.normal(size=(h1, m * h2)) * np.sqrt(2.0 / (h1 * m))).astype(np.float32)
-    cot = rng.normal(size=(b, h1 + h2)).astype(np.float32)
-    js, ts = _both([x, w1, w2, cot], "bf16")
+@pytest.mark.parametrize("d,m,h1,h2,dtype,widths", [
+    (16, 26, 128, 128, torch.bfloat16, (128, 128)),  # the flagship, as it is
+    (16, 26, 200, 200, torch.bfloat16, (208, 208)),  # the paper's Criteo width
+    (16, 10, 100, 100, torch.bfloat16, (112, 112)),
+    (16, 26, 8, 250, torch.bfloat16, (16, 256)),
+    (1, 1, 1, 1, torch.bfloat16, (16, 16)),
+    (16, 26, 257, 16, torch.bfloat16, None),         # past 256
+    (16, 40, 100, 100, torch.bfloat16, None),        # past 32 fields
+    (33, 26, 200, 200, torch.bfloat16, None),        # past 32 rows an example
+    (16, 26, 200, 200, torch.float32, None),         # f32 runs layer by layer
+])
+def test_cin2_route_widths_pads_to_multiples_of_16(d, m, h1, h2, dtype, widths):
+    assert K.cin2_route_widths(d, m, h1, h2, dtype) == widths
+
+
+def _bf16_cin(b, d, m, hs, seed):
+    """A field matrix [b, d, m], flat weights of widths ``hs`` at the
+    model's initial scale and a cotangent of the pools, as JAX and torch
+    bf16 arrays."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(size=(b, d, m)).astype(np.float32)]
+    for h_prev, h in zip((m, *hs), hs):
+        arrays.append((rng.normal(size=(h_prev, m * h)) * np.sqrt(2.0 / (h_prev * m))).astype(np.float32))
+    arrays.append(rng.normal(size=(b, sum(hs))).astype(np.float32))
+    return _both(arrays, "bf16")
+
+
+def _jax_layer_path(js):
+    """JAX's CIN a layer at a time (interpret mode) and its vjp at the
+    cotangent: (pools, grads)."""
     jout, vjp = jax.vjp(lambda *a: JT.cin_stack_dm_flat(a[0], list(a[1:])), *js[:-1])
-    jgrads = vjp(js[-1])
+    return jout, vjp(js[-1])
+
+
+def _port_cin_and_grads(ts):
+    ins = [t.clone().requires_grad_(True) for t in ts[:-1]]
+    out = get_op("cin_stack_dm_flat")(ins[0], ins[1:])
+    return out, torch.autograd.grad((out.float() * ts[-1].float()).sum(), ins)
+
+
+def _within_3pct_of_jax(out, tgrads, jout, jgrads):
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == jout.shape
+    _max_err_within(_np(out.detach()), jout.astype(jnp.float32), 0.03)
+    for got, want in zip(tgrads, jgrads):
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+        _max_err_within(_np(got), want.astype(jnp.float32), 0.03)
+
+
+@pytest.mark.parametrize("b,d,m,hs", [(4, 4, 40, (16, 16)), (4, 2, 6, (272, 272)), (8, 16, 10, (24, 40, 16))],
+                         ids=["m40", "h272", "three_layers"])
+def test_two_layer_bf16_cin_past_the_fused_limits_goes_layer_by_layer(monkeypatch, b, d, m, hs):
+    """A 40-field CIN, CIN(272,272) and, beside them, a three-layer CIN: no
+    width rounded to 16 lets ``cin2_takes`` admit the two-layer ones, and
+    the fused kernels take two layers only, so ``cin_stack_dm_flat`` runs
+    them layer by layer (``CinLayer2d``, the einsum backward: no layer is
+    128-aligned), as JAX does (its layer path in interpret mode). Pools and
+    their grads w.r.t. the field matrix and every weight by the repo's bf16
+    rule (3%)."""
+    monkeypatch.setattr(JT, "_INTERPRET", True)
+    assert len(hs) == 3 or K.cin2_route_widths(d, m, *hs, torch.bfloat16) is None
+    js, ts = _bf16_cin(b, d, m, hs, seed=41)
+    jout, jgrads = _jax_layer_path(js)
 
     def refuse(*args, **kwargs):
         raise AssertionError("the fused CIN ran")
@@ -335,15 +383,70 @@ def test_two_layer_bf16_cin_past_the_fused_limits_goes_layer_by_layer(monkeypatc
     layers = []
     plain_layer = K.cin_layer_2d
     monkeypatch.setattr(K, "cin_layer_2d", lambda *a: layers.append(a[0].shape) or plain_layer(*a))
-    ins = [t.clone().requires_grad_(True) for t in ts[:-1]]
-    out = get_op("cin_stack_dm_flat")(ins[0], ins[1:])
-    assert layers == [(b * d, m), (b * d, h1)]
-    assert out.dtype == torch.bfloat16 and tuple(out.shape) == jout.shape
-    tgrads = torch.autograd.grad((out.float() * ts[-1].float()).sum(), ins)
-    _max_err_within(_np(out.detach()), jout.astype(jnp.float32), 0.03)
-    for got, want in zip(tgrads, jgrads):
-        assert got.dtype == torch.bfloat16
-        _max_err_within(_np(got), want.astype(jnp.float32), 0.03)
+    out, tgrads = _port_cin_and_grads(ts)
+    assert layers == [(b * d, h) for h in (m, *hs[:-1])]
+    _within_3pct_of_jax(out, tgrads, jout, jgrads)
+
+
+@pytest.mark.parametrize("b,d,m,hs", [(8, 16, 10, (100, 100)), (4, 8, 26, (200, 200))],
+                         ids=["cin100", "cin200"])
+def test_bf16_cin_off_16_takes_the_padded_fused_route(monkeypatch, b, d, m, hs):
+    """bf16 CIN(100,100) and the paper's CIN(200,200): widths that are no
+    multiples of 16 are zero-padded to 112 and 208 and take the fused
+    kernels' route (``Cin2``, its plain versions on the CPU: the last layer
+    pooled first, the pair products and Q rounded to bf16), counted as
+    ``cin.fused_padded``. Against JAX's layer path (interpret mode), which
+    computes x2 and pools it: pools and their grads w.r.t. the field matrix
+    and both weights, in the weights' own shapes, by the repo's bf16 rule
+    (3%)."""
+    monkeypatch.setattr(JT, "_INTERPRET", True)
+    js, ts = _bf16_cin(b, d, m, hs, seed=43)
+    jout, jgrads = _jax_layer_path(js)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CIN ran layer by layer")
+
+    monkeypatch.setattr(K, "cin_layer_2d", refuse)
+    widths = []
+    plain_forward = K.cin2_forward
+    monkeypatch.setattr(K, "cin2_forward", lambda x02, w1, w2, d, **kw: widths.append(
+        (w1.shape[1] // m, w2.shape[1] // m)) or plain_forward(x02, w1, w2, d, **kw))
+    monkeypatch.setattr(profiling, "_counters", {})
+    out, tgrads = _port_cin_and_grads(ts)
+    assert widths == [tuple(-(-h // 16) * 16 for h in hs)]
+    assert profiling.snapshot()["counters"] == {"cin.fused_padded": 1}
+    _within_3pct_of_jax(out, tgrads, jout, jgrads)
+
+
+def test_padded_cin2_equals_the_unpadded_plain_math_in_f32(cin_inputs):
+    """The padding step on the plain versions in f32 (``cin2_pools`` at
+    widths 112 and 208 for CIN(100,200)): the pools and the grads of x0, w1
+    and w2 equal the unpadded ``cin2_forward_reference`` and
+    ``cin2_backward_reference`` to f32 rounding, and the padded weights'
+    gradients are exactly zero before autograd cuts them away. (An f32 CIN
+    still goes layer by layer in ``cin_stack_dm_flat``.)"""
+    b, d, m, h1, h2 = 5, 8, 26, 100, 200
+    x_dm, w1, w2 = cin_inputs(b, d, m, h1, h2, seed=45)
+    g1p, g2p = (torch.from_numpy(g).to(torch.bfloat16).float() for g in _pool_grads(b, h1, h2, 46))
+    x02, w1t, w2t = (torch.from_numpy(a) for a in (x_dm.reshape(b * d, m), w1, w2))
+    x1, p1, p2, q = K.cin2_forward_reference(x02, w1t, w2t, d, want_x1=True, want_q=True)
+    want = [p1, p2, *K.cin2_backward_reference(x02, x1, w1t, w2t, q, g1p, g2p, d)]
+
+    ins = [t.clone().requires_grad_(True) for t in (x02, w1t, w2t)]
+    pools = K.cin2_pools(*ins, d, (112, 208))
+    got = [*(p.detach() for p in pools),
+           *torch.autograd.grad((pools[0] * g1p).sum() + (pools[1] * g2p).sum(), ins)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=F32_TOL, atol=F32_TOL * w.abs().max().item())
+
+    w1p, w2p = K.cin2_pad_weights(w1t, w2t, m, 112, 208)
+    x1p, _, _, qp = K.cin2_forward_reference(x02, w1p, w2p, d, want_x1=True, want_q=True)
+    assert not x1p[:, h1:].any() and not qp.reshape(b, m, 112)[..., h1:].any()
+    pad = torch.nn.functional.pad
+    _, gw1p, gw2p = K.cin2_backward_reference(x02, x1p, w1p, w2p, qp, pad(g1p, (0, 12)), pad(g2p, (0, 8)), d)
+    gw1p, gw2p = gw1p.reshape(m, m, 112), gw2p.reshape(112, m, 208)
+    assert not gw1p[..., h1:].any() and not gw2p[h1:].any() and not gw2p[..., h2:].any()
 
 
 def test_product_function_matches_autograd_of_widened_product():

@@ -185,6 +185,10 @@ Phases, each on its own lines:
      (n) ``graft_entry_torch``: ``entry()``'s forward on the card against
          the CPU's plain path, and ``dryrun_multichip(1)`` (one rank in an
          NCCL world of its own, a process of its own);
+     (o) the pooled bag gather and #4 at d = 128 on a batch of the
+         benchmark's DLRM-DCNv2 cell (``bag_gather_phase``): each bit for bit
+         its plain version, timed beside the plain version,
+         ``embedding_bag(mode="sum")`` and their byte bounds;
  11. a JSON line listing the kernels (launches from the run of each kernel's
      path; phase l's sharded paths and phase m's restored one last), then
      the card line again, then the result line {"ok": true, "device": {...}}.
@@ -1521,6 +1525,7 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     watched(graft_phase, card)
+    watched(bag_gather_phase, card)
 
     # each kernel's launches come from the first path in this order that
     # runs it (slice 2's for the six kernels of the xDeepFM step, slice 3's
@@ -1545,6 +1550,83 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ----------------------------------------- pooled bags (DLRM-DCNv2)
+def bag_gather_phase(card: str, seed: int = 1) -> dict:
+    """The pooled bag gather (``csrc/bag_gather.cu``) and #4 at d = 128 on
+    one batch of the benchmark's DLRM-DCNv2 cell (``benchmark/configs/
+    dlrm-dcnv2-criteo1tb.json``: 16,384 examples, 214 ids in 26 bags, a
+    51,883,621 x 128 f32 table; ids from the cell's generator): each against
+    its plain version (bits), timed by CUDA events over back-to-back calls
+    and by torch.profiler; the gather beside the library's
+    ``torch.nn.functional.embedding_bag(mode="sum")`` with its cast to bf16,
+    and its byte bound (distinct rows, ids, the pooled bf16 output). Run it
+    alone with ``python -c "import chip_smoke as c; c.bag_gather_phase(c.card_line())"``."""
+    import torch.nn.functional as F
+
+    from benchmark import counts, counts_dcnv2
+    from benchmark.gen import multihot, zipf
+    from recmodels_tpu_torch.embedding.bag import bag_gather, bag_gather_reference
+    from recmodels_tpu_torch.embedding.optim import bag_sorted_ids
+    from recmodels_tpu_torch.embedding.update import sorted_adagrad_update, sorted_adagrad_update_reference
+
+    print("== pooled bag gather and #4 at the DLRM-DCNv2 cell's shapes")
+    cell = "dlrm-dcnv2-criteo1tb.train-zipf"
+    cfg = json.load(open(os.path.join(ROOT, "benchmark", "configs", "dlrm-dcnv2-criteo1tb.json")))
+    params = json.load(open(os.path.join(ROOT, "benchmark", "workloads", f"{cell}.json")))["params"]
+    dev = torch.device("cuda")
+    b, hot, d = cfg["batch_size"], tuple(cfg["hotness"]), cfg["embed_dim"]
+    slots = multihot.slots_for(cfg, params, seed, dev)
+    _, ids, _ = multihot.batch_pool(slots, 1, b, cfg["n_dense"], params, zipf.generator(seed, dev, 5))
+    del slots
+    off = multihot.slot_offsets(cfg)
+    cols = torch.tensor([off[s] for s, h in enumerate(hot) for _ in range(h)], dtype=torch.int32, device=dev)
+    gids = (ids[0] + cols).contiguous()
+    n_rows = multihot.n_rows(cfg)
+    table = torch.empty((n_rows, d), device=dev).normal_(generator=torch.Generator(dev).manual_seed(seed))
+    got = bag_gather(table, gids, hot, torch.bfloat16)
+    check(torch.equal(got, bag_gather_reference(table, gids, hot, torch.bfloat16)),
+          "bag_gather bit for bit its plain version at the cell's shapes")
+    first = torch.tensor([sum(hot[:s]) for s in range(len(hot))], device=dev)
+    bag_starts = (torch.arange(b, device=dev)[:, None] * sum(hot) + first).reshape(-1)
+    flat = gids.reshape(-1).long()
+    library = lambda: F.embedding_bag(flat, table, bag_starts, mode="sum").to(torch.bfloat16)  # noqa: E731
+    lib = library().reshape(b, len(hot), d).float()
+    err = float((lib - got.float()).abs().max() / got.float().abs().max())
+    unique = int(torch.unique(gids).numel())
+    nbytes = counts_dcnv2.bag_gather_bytes(unique, gids.numel(), b * len(hot), d)
+    row = {"shapes": f"B = {b}, {gids.numel()} ids in {len(hot)} bags, {unique} distinct rows, table "
+                     f"{n_rows} x {d} f32, bf16 out",
+           "ms": time_ms(lambda: bag_gather(table, gids, hot, torch.bfloat16)),
+           "warm_ms": device_ms(lambda: bag_gather(table, gids, hot, torch.bfloat16)),
+           "plain_ms": time_ms(lambda: bag_gather_reference(table, gids, hot, torch.bfloat16), iters=5),
+           "library_ms": time_ms(library), "library_warm_ms": device_ms(library),
+           "library_rel_err": err, "bound_ms": counts.bound_ms(torch.cuda.get_device_name(0), nbytes=nbytes)}
+    sorted_ids, bags = bag_sorted_ids(gids, hot)
+    grads = torch.randn((b * len(hot), d), device=dev).to(torch.bfloat16).index_select(0, bags)
+    acc = torch.full_like(table, 0.1)
+    lr = torch.tensor(0.005, device=dev)
+    # the plain version sums in stream order on the CPU (index_add_ on the
+    # card adds by atomics, in no fixed order): the touched rows alone there
+    uids = torch.unique(sorted_ids.long())
+    sub_t, sub_a = table[uids].cpu(), acc[uids].cpu()
+    sorted_adagrad_update_reference(sub_t, sub_a, torch.searchsorted(uids, sorted_ids.long()).int().cpu(),
+                                    grads.cpu(), lr.cpu(), 1e-8)
+    sorted_adagrad_update(table, acc, sorted_ids, grads, lr, 1e-8)
+    check(torch.equal(table[uids].cpu(), sub_t) and torch.equal(acc[uids].cpu(), sub_a),
+          "#4 at d = 128 bit for bit its plain version")
+    update = lambda: sorted_adagrad_update(table, acc, sorted_ids, grads, lr, 1e-8)  # noqa: E731
+    row.update(update_ms=time_ms(update), update_warm_ms=device_ms(update),
+               update_plain_ms=time_ms(lambda: sorted_adagrad_update_reference(table, acc, sorted_ids, grads, lr,
+                                                                                1e-8), iters=3),
+               update_bound_ms=counts.bound_ms(torch.cuda.get_device_name(0),
+                                               nbytes=counts.adagrad_update_bytes(unique, sorted_ids.numel(), d)))
+    print(json.dumps({"bag_gather": row}))
+    print(card)
+    del table, acc, grads
+    torch.cuda.empty_cache()
+    return row
 
 
 # --------------------------------------------- slice 7: the entry point

@@ -104,6 +104,9 @@ class CriteoTSVSource:
     ):
         if not os.path.exists(path):
             raise FileNotFoundError(path)
+        if schema.multi_hot:
+            raise NotImplementedError(
+                f"a Criteo TSV row holds one id a slot; this schema's slots hold bags of {schema.hotness} ids")
         self.path = path
         self.schema = schema
         self.batch_size = batch_size

@@ -6,6 +6,12 @@ table, slot-local ids become global row ids by a per-slot offset, and groups
 are reassembled into ``[B, n_slots, max_dim]``. Allocation and init rules
 are the JAX package's: rows round up to ``ALLOC_MULTIPLE``, vector groups
 start at N(0, 0.05), dim-1 groups start at zero and are stored 1-D.
+
+Multi-hot slots (``FeatureSpec.hotness`` > 1, the port's own: the JAX
+package has none) hold a bag of ids an example: a batch is ``[B, n_ids]``
+slot-major, a group's global ids are its slots' columns with each slot's
+row offset repeated over its columns, and the group's rows are each bag's
+rows summed (``embedding/bag.py``), ``[B, n_g, dim]`` as for one-hot slots.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from recmodels_tpu_torch.data.schema import Schema
+from recmodels_tpu_torch.embedding.bag import bag_gather
 from recmodels_tpu_torch.embedding.gather import gather_rows
 
 ALLOC_MULTIPLE = 1024  # table rows round up to this (the artifact layout)
@@ -31,10 +38,16 @@ class DimGroup:
     slot_indices: tuple[int, ...]  # positions in schema.slots
     row_offsets: tuple[int, ...]  # per slot, offset into the stacked table
     total_rows: int  # logical rows (sum of vocabs)
+    hotness: tuple[int, ...] = ()  # per slot, the ids of its bag (empty: one each)
 
     @property
     def alloc_rows(self) -> int:
         return -(-self.total_rows // ALLOC_MULTIPLE) * ALLOC_MULTIPLE
+
+    @property
+    def multi_hot(self) -> bool:
+        """Whether a slot of the group holds a bag of more than one id."""
+        return any(h > 1 for h in self.hotness)
 
 
 def build_groups(schema: Schema) -> tuple[DimGroup, ...]:
@@ -55,6 +68,7 @@ def build_groups(schema: Schema) -> tuple[DimGroup, ...]:
                 slot_indices=tuple(slots),
                 row_offsets=tuple(offsets),
                 total_rows=acc,
+                hotness=tuple(schema.slots[s].hotness for s in slots),
             )
         )
     return tuple(groups)
@@ -67,8 +81,15 @@ class EmbeddingCollection:
         self.schema = schema
         self.groups = build_groups(schema)
         self.max_dim = schema.max_dim
+        # each group's id columns (its slots' columns, slot-major) and the
+        # row offset of each; one column a slot when every hotness is 1
+        first = np.cumsum([0, *schema.hotness])
+        self._columns = {
+            g.name: tuple(c for s in g.slot_indices for c in range(first[s], first[s + 1]))
+            for g in self.groups
+        }
         self._np_offsets = {
-            g.name: np.asarray(g.row_offsets, dtype=np.int32) for g in self.groups
+            g.name: np.repeat(np.asarray(g.row_offsets, dtype=np.int32), g.hotness) for g in self.groups
         }
         self._offsets: dict = {}  # (group, device) -> offsets tensor
 
@@ -79,9 +100,11 @@ class EmbeddingCollection:
         for g in self.groups:
             s = 0.0 if g.dim == 1 else 0.05
             shape = (g.alloc_rows,) if g.dim == 1 else (g.alloc_rows, g.dim)
+            # scaled in place (the same bits as ``* s``): a 26.6 GB table
+            # leaves no room on the card for a scaled copy beside it
             params[g.name] = torch.randn(
                 shape, generator=generator, device=device, dtype=torch.float32
-            ) * s
+            ).mul_(s)
         return params
 
     def param_shapes(self) -> Dict[str, tuple]:
@@ -90,8 +113,9 @@ class EmbeddingCollection:
         return {g.name: ((g.alloc_rows,) if g.dim == 1 else (g.alloc_rows, g.dim)) for g in self.groups}
 
     def group_row_ids(self, ids: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """[B, n_slots] slot-local int32 ids -> per-group global row ids
-        [B, n_g] int32.
+        """[B, n_ids] slot-local int32 ids (``n_ids == n_slots`` for one-hot
+        slots) -> per-group global row ids [B, n_g] int32 (a multi-hot
+        group: [B, its id columns]).
 
         PRECONDITION: each slot-local id lies in [0, vocab_size) of its slot.
         The hashing pipeline guarantees it, and ``serve.Predictor`` refuses
@@ -103,10 +127,11 @@ class EmbeddingCollection:
             key = (g.name, ids.device)
             if key not in self._offsets:
                 self._offsets[key] = torch.as_tensor(self._np_offsets[g.name], device=ids.device)
-            if g.slot_indices == tuple(range(ids.shape[1])):
+            columns = self._columns[g.name]
+            if columns == tuple(range(ids.shape[1])):
                 cols = ids
             else:
-                cols = ids[:, list(g.slot_indices)]
+                cols = ids[:, list(columns)]
             out[g.name] = cols + self._offsets[key][None, :]
         return out
 
@@ -115,11 +140,13 @@ class EmbeddingCollection:
         """Per-group gather: {g: [B, n_g]} global row ids -> {g: [B, n_g,
         dim]} in ``dtype`` (default the tables', f32), through the row
         gather (``embedding/gather.py``: the kernel for CUDA tables, its
-        plain version for CPU ones); dim-1 tables gather as one column."""
+        plain version for CPU ones), or a multi-hot group's bags through
+        the pooled bag gather (``embedding/bag.py``); dim-1 tables gather
+        as one column."""
         out = {}
         for g in self.groups:
             t = params[g.name]
-            out[g.name] = gather_rows(t.reshape(t.shape[0], -1), gids[g.name], dtype or t.dtype)
+            out[g.name] = gather_group(t, g, gids[g.name], dtype or t.dtype)
         return out
 
     def combine(self, rows: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -142,10 +169,19 @@ class EmbeddingCollection:
         return {g.name: emb_grad[:, list(g.slot_indices), : g.dim] for g in self.groups}
 
     def lookup(self, params: Dict[str, torch.Tensor], ids: torch.Tensor) -> torch.Tensor:
-        """Inference-path lookup: [B, n_slots] slot-local ids -> [B, n_slots,
+        """Inference-path lookup: [B, n_ids] slot-local ids -> [B, n_slots,
         max_dim]."""
         return self.combine(self.gather_rows(params, self.group_row_ids(ids)))
 
     def nbytes(self) -> int:
         """The tables' logical bytes (f32 rows of every slot's vocab)."""
         return sum(g.total_rows * g.dim * 4 for g in self.groups)
+
+
+def gather_group(table: torch.Tensor, group: DimGroup, gids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One group's rows [B, n_g, dim] in ``dtype`` from its global row ids:
+    the row gather, or the bag gather where the group is multi-hot."""
+    t = table.reshape(table.shape[0], -1)
+    if group.multi_hot:
+        return bag_gather(t, gids, group.hotness, dtype)
+    return gather_rows(t, gids, dtype)

@@ -24,18 +24,29 @@ memory, so a CUDA graph of the training step replays each step's values.
   kernel of its own, so plain PyTorch ops serve it on the card as well; the
   duplicate sum is ``index_put_(accumulate=True)``, which sums each id's
   grads in stream order on both devices, so two runs give the same bits.
+
+Multi-hot groups (pooled bags, ``embedding/bag.py``): each id's grad is its
+bag's pooled grad. ``bag_sorted_ids`` sorts the group's whole id batch in
+one stable sort, so a row named in several hot columns of a slot and by
+several examples is one run (sorting each column on its own would give it
+one run a column, and the update kernel would write the row from two warps
+at once); ``apply_bag_updates`` expands the pooled grads along the sorted
+order (the bag of each sorted position) and hands them to the same sorted
+update. The one-hot path is not changed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+import functools
+from typing import Callable, Dict, Sequence
 
 import torch
 
 from recmodels_tpu_torch.embedding.update import (
     adam_scalars, bias_corrections, device_constant, sorted_adagrad_update, sorted_adam_update,
 )
+from recmodels_tpu_torch.utils.profiling import annotate
 
 
 def slot_sorted_ids(ids_2d: torch.Tensor):
@@ -62,6 +73,42 @@ def slot_sorted_inverse(order_2d: torch.Tensor) -> torch.Tensor:
     inv_2d = torch.sort(order_2d, dim=1, stable=True)[1].to(torch.int32)
     offsets = (torch.arange(ns, dtype=torch.int32, device=order_2d.device) * b)[:, None]
     return (inv_2d + offsets).t().reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def bag_columns(hotness: tuple, device: torch.device) -> torch.Tensor:
+    """The bag of each id column, [sum(hotness)] int64 on ``device``, made
+    once a device and never written (the first, eager step makes it,
+    outside any CUDA graph capture)."""
+    return torch.repeat_interleave(torch.arange(len(hotness)), torch.tensor(hotness)).to(device)
+
+
+def bag_sorted_ids(ids_2d: torch.Tensor, hotness: Sequence[int]):
+    """Sort a [B, n_ids] batch of a multi-hot group's global row ids into
+    one ascending stream by one stable sort of the whole batch, so each row
+    is one run, its positions in ascending b-major order (example, then
+    column). Returns (sorted_ids [N] int32, bags [N] int64): the bag ``b *
+    n_bags + s`` whose pooled grad each sorted position takes."""
+    b, n = ids_2d.shape
+    sorted_ids, order = torch.sort(ids_2d.reshape(-1), stable=True)
+    cols = bag_columns(tuple(hotness), ids_2d.device)
+    bags = torch.div(order, n, rounding_mode="floor") * len(hotness) + cols[order % n]
+    return sorted_ids, bags
+
+
+def apply_bag_updates(opt: SparseOptimizer, table, state, ids_2d, pooled, hotness: Sequence[int],
+                      step: torch.Tensor, lr: torch.Tensor, sorted_stream=None):
+    """A multi-hot group's update, in place; returns the table and its
+    state. ``ids_2d``: the [B, n_ids] global row ids; ``pooled``: the bags'
+    grads [B, n_bags, dim]; ``sorted_stream``: ``bag_sorted_ids(ids_2d,
+    hotness)`` when the caller has it. Each id takes its bag's grad, the
+    pooled grads expanded along the sorted order (the span
+    ``emb.bag_expand``), and the sorted stream goes to
+    ``apply_sorted_updates`` (every optimizer, dense Adam too)."""
+    sorted_ids, bags = bag_sorted_ids(ids_2d, hotness) if sorted_stream is None else sorted_stream
+    with annotate("emb.bag_expand"):
+        grads = torch.index_select(pooled.reshape(-1, pooled.shape[-1]), 0, bags).reshape(-1, *table.shape[1:])
+    return apply_sorted_updates(opt, table, state, sorted_ids, grads, step, lr)
 
 
 def dedup_segment_sum(gids: torch.Tensor, grads: torch.Tensor, num_rows: int):

@@ -1,10 +1,12 @@
 """Model registry (port of ``recmodels_tpu/models/__init__.py``): the nine
-models of the JAX zoo under the same names."""
+models of the JAX zoo under the same names, and the port's own DLRM-DCNv2
+(``dlrm_dcnv2``: multi-hot pooled slots, low-rank DCN-V2 cross layers)."""
 
 from recmodels_tpu_torch.models.afm import AFMModel
 from recmodels_tpu_torch.models.base import CTRModel, wide_schema
 from recmodels_tpu_torch.models.dcn import DCNModel
 from recmodels_tpu_torch.models.deepfm import DeepFMModel
+from recmodels_tpu_torch.models.dlrm_dcnv2 import DLRMDCNv2Model
 from recmodels_tpu_torch.models.fm import FMModel
 from recmodels_tpu_torch.models.lr import LRModel
 from recmodels_tpu_torch.models.nfm import NFMModel
@@ -22,6 +24,7 @@ MODEL_REGISTRY = {
     "widedeep": WideDeepModel,
     "nfm": NFMModel,
     "afm": AFMModel,
+    "dlrm_dcnv2": DLRMDCNv2Model,
 }
 
 
@@ -32,4 +35,5 @@ def build_model(name: str, schema, **kwargs) -> CTRModel:
 
 
 __all__ = ["CTRModel", "wide_schema", "LRModel", "FMModel", "DeepFMModel", "PNNModel", "DCNModel",
-           "XDeepFMModel", "WideDeepModel", "NFMModel", "AFMModel", "MODEL_REGISTRY", "build_model"]
+           "XDeepFMModel", "WideDeepModel", "NFMModel", "AFMModel", "DLRMDCNv2Model",
+           "MODEL_REGISTRY", "build_model"]

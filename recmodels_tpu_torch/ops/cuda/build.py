@@ -42,9 +42,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _U = ctypes.c_uint
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # device, table, ids, out, n, d1, out_bf16, stream
     "rm_gather_rows": [_I, _P, _P, _P, _L, _I, _I, _P],
+    # device, table, ids, out, b, n_ids, d, bag offsets (host ints), n_bags, out_bf16, stream
+    "rm_bag_gather": [_I, _P, _P, _P, _L, _I, _I, _IP, _I, _I, _P],
     # device, full, x_dm, wide_sum, b, m, d, is_bf16, stream
     "rm_split_fused_rows": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     # device, x0, w1, w2, x1, p1, p2, q, scratch, b, d, m, h1, h2, stream

@@ -83,6 +83,11 @@ class ShardedTables:
 
     def __init__(self, collections: Dict[str, EmbeddingCollection], sparse_opt: SparseOptimizer, mesh: Mesh,
                  capacity_factor: float = 1.25):
+        multi = [name for name, coll in collections.items() if coll.schema.multi_hot]
+        if multi:
+            raise NotImplementedError(
+                f"sharded tables take one id a slot; collections {multi} hold multi-hot bags (pooled bags run "
+                f"on LocalTables, one device)")
         self.collections = collections
         self.sparse_opt = sparse_opt
         self.mesh = mesh

@@ -309,7 +309,10 @@ class Predictor:
         self.state = state
         self.device = device
         self.min_bucket = min_bucket
-        self._vocab = np.asarray(engine.model.schema.vocab_sizes, np.uint32)
+        # the vocab and the slot of each id column ([B, n_ids]: a multi-hot
+        # slot's bag takes several)
+        self._vocab = np.asarray(engine.model.schema.id_vocab_sizes, np.uint32)
+        self._slot_of = engine.model.schema.id_slots
         self._buckets: dict[int, _Bucket] = {}
         self._graph_state = state  # the state the bucket graphs read
         self._pool = None
@@ -352,19 +355,20 @@ class Predictor:
         return bucket.out
 
     def predict_logits(self, dense, ids) -> np.ndarray:
-        """Raises ``ValueError`` unless ``ids`` is [B, n_slots] with each id in
-        [0, vocab_size) of its slot: the gather reads the row an id names and
-        checks nothing, so an id out of range would read another slot's rows
-        or memory past the table."""
+        """Raises ``ValueError`` unless ``ids`` is [B, n_ids] (``n_slots``
+        with one id a slot; a multi-hot slot's bag takes ``hotness`` columns,
+        slot-major) with each id in [0, vocab_size) of its slot: the gather
+        reads the row an id names and checks nothing, so an id out of range
+        would read another slot's rows or memory past the table."""
         ids = np.asarray(ids, np.int32)
         if ids.ndim != 2 or ids.shape[1] != self._vocab.size:
             raise ValueError(f"ids must be [B, {self._vocab.size}], got {ids.shape}")
         # one unsigned compare: a negative id reads as >= 2^31
         bad = ids.view(np.uint32) >= self._vocab
         if bad.any():
-            b, s = np.argwhere(bad)[0]
+            b, c = np.argwhere(bad)[0]
             raise ValueError(
-                f"id {ids[b, s]} of example {b} is outside slot {s}'s vocab [0, {self._vocab[s]})"
+                f"id {ids[b, c]} of example {b} is outside slot {self._slot_of[c]}'s vocab [0, {self._vocab[c]})"
             )
         dense = np.asarray(dense, np.float32)
         n = ids.shape[0]

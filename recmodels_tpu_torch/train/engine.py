@@ -53,10 +53,10 @@ import torch
 import torch.nn.functional as F
 
 from recmodels_tpu_torch.data.schema import Schema
-from recmodels_tpu_torch.embedding.collection import EmbeddingCollection
-from recmodels_tpu_torch.embedding.gather import gather_rows
+from recmodels_tpu_torch.embedding.collection import EmbeddingCollection, gather_group
 from recmodels_tpu_torch.embedding.optim import (
-    SparseOptimizer, apply_updates, get_sparse_optimizer, needs_sort, slot_sorted_ids,
+    SparseOptimizer, apply_bag_updates, apply_updates, bag_sorted_ids, get_sparse_optimizer, needs_sort,
+    slot_sorted_ids,
 )
 from recmodels_tpu_torch.embedding.update import device_constant
 from recmodels_tpu_torch.models.base import CTRModel
@@ -91,8 +91,10 @@ class TrainState(NamedTuple):
 
 class LocalTables:
     """Single-device tables: plain row-major f32 ``[rows, dim]`` (dim-1
-    groups ``[rows]``), gathered in batch order by ``gather_rows`` and
-    updated in place by the sparse optimizer.
+    groups ``[rows]``), gathered in batch order by ``gather_rows`` (a
+    multi-hot group's bags pooled by ``bag_gather``) and updated in place by
+    the sparse optimizer (a multi-hot group's pooled grads expanded along
+    its sorted ids first, ``embedding/optim.apply_bag_updates``).
 
     A table strategy's interface (``ShardedTables`` has the same):
     ``init_params``, ``init_opt``, ``table_rows``, ``plan`` (a step's
@@ -133,8 +135,7 @@ class LocalTables:
         for name, coll in self.collections.items():
             res = {}
             for g in coll.groups:
-                t = emb_params[name][g.name]
-                res[g.name] = gather_rows(t.reshape(t.shape[0], -1), gids[name][g.name], dtype)
+                res[g.name] = gather_group(emb_params[name][g.name], g, gids[name][g.name], dtype)
             out[name] = res
         return (out, 0) if with_stats else out
 
@@ -144,8 +145,9 @@ class LocalTables:
         global step before this update (Adam's bias corrections), a 0-d
         int32 tensor, and ``lr`` a 0-d f32 tensor, on the tables' device.
         Groups that share one ids tensor (``Engine._group_ids``) share its
-        sort, as JAX's CSE shares it."""
-        sorts = []  # (ids tensor, its slot_sorted_ids)
+        sort, as JAX's CSE shares it. A multi-hot group's row grads are its
+        bags' pooled grads, [B, n_g, dim] as well."""
+        sorts = []  # (ids tensor, its slot_sorted_ids or bag_sorted_ids)
         for name, coll in self.collections.items():
             for g in coll.groups:
                 ids_2d = gids[name][g.name]
@@ -153,9 +155,13 @@ class LocalTables:
                 if needs_sort(self.sparse_opt):
                     stream = next((st for t, st in sorts if t is ids_2d), None)
                     if stream is None:
-                        stream = slot_sorted_ids(ids_2d)
+                        stream = bag_sorted_ids(ids_2d, g.hotness) if g.multi_hot else slot_sorted_ids(ids_2d)
                         sorts.append((ids_2d, stream))
                 gr = grad_rows[name][g.name]
+                if g.multi_hot:
+                    apply_bag_updates(self.sparse_opt, emb_params[name][g.name], emb_opt[name][g.name],
+                                      ids_2d, gr, g.hotness, step, lr, stream)
+                    continue
                 # dim-1 tables are 1-D [rows]; their grads flatten to [N]
                 gr_flat = gr.reshape(-1) if g.dim == 1 else gr.reshape(-1, g.dim)
                 apply_updates(self.sparse_opt, emb_params[name][g.name], emb_opt[name][g.name],
@@ -281,8 +287,9 @@ class Engine:
         return self.model.apply(dense_params, dense, emb)
 
     def logits(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-        """Inference forward: dense [B, n_dense] f32, ids [B, n_slots] int32
-        slot-local, on the parameters' device -> logits [B] f32."""
+        """Inference forward: dense [B, n_dense] f32, ids [B, n_ids] int32
+        slot-local (``n_ids == n_slots`` unless a slot is multi-hot), on the
+        parameters' device -> logits [B] f32."""
         gids = self._group_ids(ids)
         rows = self.tables.gather(state.emb_params, self.tables.plan(gids), self._gather_dtype)
         out = self._forward_from_rows(state.dense_params, rows, dense)
@@ -352,7 +359,7 @@ class Engine:
     def train_step(self, state: TrainState, dense: torch.Tensor, ids: torch.Tensor,
                    labels: torch.Tensor):
         """One optimizer step on a batch (dense [B, n_dense] f32, ids [B,
-        n_slots] int32 slot-local, labels [B] f32, on the state's device).
+        n_ids] int32 slot-local, labels [B] f32, on the state's device).
         Updates the state's tensors in place, its step included, and returns
         (state, {'loss': mean BCE, a 0-d tensor; 'overflow': the lookups
         dropped by sharded tables, summed over the ranks, a 0-d int32

@@ -11,6 +11,7 @@ Small and ragged shapes here; ``chip_smoke.py`` covers the flagship shapes.
 import pytest
 import torch
 
+from recmodels_tpu_torch.embedding.bag import bag_gather, bag_gather_reference
 from recmodels_tpu_torch.embedding.gather import gather_rows, gather_rows_reference
 from recmodels_tpu_torch.embedding.update import (
     adam_scalars, sorted_adagrad_update, sorted_adagrad_update_reference, sorted_adam_update,
@@ -290,6 +291,10 @@ _UPDATE_CASES = [
     (5000, 17, 300, 0.0, ("sentinels",)),
     *[(5000, d, 3001, 0.3, ("views", g_elems, s_bytes))
       for d, g_elems, s_bytes in ((16, 1, 4), (17, 1, 4), (1, 1, 4), (16, 1, 0), (16, 0, 4))],
+    # DLRM-DCNv2's 128-wide rows: a tile's group of 8 warps takes 32 float4
+    # columns a row
+    (20000, 128, 20001, 0.3, None),
+    (5000, 128, 4000, 0.0, ("run", 95, 2000)),
 ]
 
 
@@ -1579,3 +1584,149 @@ def test_graft_entry_on_the_card(cuda):
     with torch.no_grad():
         want = forward(cpu, dense.cpu(), ids.cpu())
     assert (got.cpu() - want).abs().max() <= BF16_REL_TOL * want.abs().max()
+
+
+# ------------------------------------------------------------ pooled bags
+# MLPerf Training DLRM-DCNv2's --multi_hot_sizes: 214 ids in 26 bags
+MLPERF_HOTNESS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100, 27, 10, 3, 1, 1)
+
+
+@pytest.mark.parametrize("hotness,d,b", [
+    (MLPERF_HOTNESS, 128, 1000), (MLPERF_HOTNESS, 16, 1000), (MLPERF_HOTNESS, 128, 16_384),
+    ((3, 1, 7, 2), 17, 333),     # no multiple of 4: a column a lane
+    ((40, 33, 1), 260, 65),      # bags past 32 ids, rows past a warp's 128 columns
+    ((1,), 128, 1), ((2, 2), 128, 0),
+])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_bag_gather_kernel_is_bit_exact(cuda, hotness, d, b, out_dtype):
+    """Against the plain version on the card and on the CPU: both sum each
+    bag's f32 rows in bag order with plain f32 additions, so they agree bit
+    for bit; a second call repeats the bits. Ids repeat within bags."""
+    g = _gen(cuda, 23)
+    rows = 300_007
+    table = torch.randn((rows, d), generator=g, device=cuda)
+    ids = torch.randint(0, rows, (b, sum(hotness)), generator=g, device=cuda, dtype=torch.int32)
+    if b and sum(hotness) > 2:
+        ids[:, 2] = ids[:, 0]
+        ids[0, 0] = rows - 1
+    before = bag_gather.launches
+    got = bag_gather(table, ids, hotness, out_dtype)
+    torch.cuda.synchronize()
+    assert bag_gather.launches == before + 1
+    assert got.shape == (b, len(hotness), d) and got.dtype == out_dtype
+    assert torch.equal(got, bag_gather_reference(table, ids, hotness, out_dtype))
+    if b <= 1000:
+        assert torch.equal(got.cpu(), bag_gather_reference(table.cpu(), ids.cpu(), hotness, out_dtype))
+    assert torch.equal(bag_gather(table, ids, hotness, out_dtype), got)
+
+
+def test_bag_gather_kernel_on_a_table_off_16_bytes(cuda):
+    """A table whose base is off 16 bytes takes the kernel's column-a-lane
+    route, with the same bits."""
+    g = _gen(cuda, 29)
+    table = _off16(torch.randn((5000, 128), generator=g, device=cuda), 4)
+    ids = torch.randint(0, 5000, (100, 12), generator=g, device=cuda, dtype=torch.int32)
+    got = bag_gather(table, ids, (3, 9), torch.bfloat16)
+    assert torch.equal(got, bag_gather_reference(table, ids, (3, 9), torch.bfloat16))
+
+
+def test_table_past_2_31_elements_is_gathered_and_updated_right(cuda):
+    """17 M rows x 128 (2.18e9 elements, past int32): the last rows pooled
+    by the bag gather, gathered by the row gather and updated by #4 against
+    their plain versions on a copy of those rows alone."""
+    rows, d, tail = 17_000_000, 128, 4096
+    g = _gen(cuda, 31)
+    table = torch.empty((rows, d), device=cuda)
+    table[-tail:].normal_(generator=g)
+    acc = torch.full((rows, d), 0.1, device=cuda)
+    ids = torch.randint(rows - tail, rows, (512, 10), generator=g, device=cuda, dtype=torch.int32)
+    ids[0, 0] = rows - 1
+    sub = table[-tail:].clone()
+    local = ids - (rows - tail)
+    assert torch.equal(bag_gather(table, ids, (4, 6), torch.float32),
+                       bag_gather_reference(sub, local, (4, 6), torch.float32))
+    assert torch.equal(gather_rows(table, ids, torch.float32), gather_rows_reference(sub, local, torch.float32))
+    sorted_ids = torch.sort(ids.reshape(-1)).values
+    grads = torch.randn((sorted_ids.numel(), d), generator=g, device=cuda).to(torch.bfloat16)
+    lr = torch.tensor(0.05, device=cuda)
+    sub_acc = acc[-tail:].clone()
+    sorted_adagrad_update_reference(sub, sub_acc, sorted_ids - (rows - tail), grads, lr, 1e-8)
+    sorted_adagrad_update(table, acc, sorted_ids, grads, lr, 1e-8)
+    torch.cuda.synchronize()
+    assert torch.equal(table[-tail:], sub) and torch.equal(acc[-tail:], sub_acc)
+
+
+def _dlrm_engine(dtype=torch.bfloat16):
+    from recmodels_tpu_torch.data.schema import Schema, slot_spec
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.train.engine import Engine
+
+    hot = (3, 1, 7, 2, 12)
+    schema = Schema(n_dense=13, slots=tuple(slot_spec(f"c{i}", 2000 + 100 * i, 32, h) for i, h in enumerate(hot)))
+    model = build_model("dlrm_dcnv2", schema, bottom=(64, 32), top=(128, 64), n_cross=3, low_rank=32,
+                        compute_dtype=dtype)
+    return Engine(model, dense_optimizer="adagrad", sparse_optimizer="adagrad", dense_lr=0.005, emb_lr=0.005)
+
+
+def _dlrm_batches(schema, n, device, batch=512, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        ids = torch.stack([torch.randint(0, 60, (batch,), generator=g) for _ in schema.id_slots], dim=1).int()
+        dense = torch.log1p(torch.rand((batch, schema.n_dense), generator=g) * 50)
+        labels = (torch.rand(batch, generator=g) < 0.3).float()
+        out.append(tuple(t.to(device) for t in (dense, ids, labels)))
+    return out
+
+
+def test_dlrm_captured_steps_equal_eager_steps(cuda):
+    """DLRM-DCNv2 on multi-hot slots: five ``jit_train_step`` steps against
+    five eager ones, bit for bit (the bag gather, the one stable sort, the
+    expansion and #4 replay their steps' values); every step launches the
+    bag gather and #4 once."""
+    eng = _dlrm_engine()
+    eager, captured = eng.init(seed=0, device=cuda), eng.init(seed=0, device=cuda)
+    ts = eng.jit_train_step()
+    for b in _dlrm_batches(eng.model.schema, 5, cuda):
+        bags, updates = bag_gather.launches, sorted_adagrad_update.launches
+        eager, me = eng.train_step(eager, *b)
+        assert (bag_gather.launches - bags, sorted_adagrad_update.launches - updates) == (1, 1)
+        captured, mc = ts(captured, *b)
+        assert torch.equal(mc["loss"], me["loss"])
+    torch.cuda.synchronize()
+    assert ts.graphs == 1
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(captured), _tensors(eager)))
+
+
+def test_dlrm_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 step on the card against the same step on the CPU's plain
+    path: the bag sums and #4 agree bit for bit with their plain versions,
+    the GEMMs sum in other orders (f32, no TF32), so the losses and the new
+    state agree to 1e-5 of each tensor's largest value."""
+    eng = _dlrm_engine(torch.float32)
+    card = eng.init(seed=0, device=cuda)
+    cpu = type(card)(*(_to_cpu(x) for x in card))
+    (b,) = _dlrm_batches(eng.model.schema, 1, cuda)
+    _, mc = eng.train_step(card, *b)
+    _, mh = eng.train_step(cpu, *(t.cpu() for t in b))
+    assert abs(float(mc["loss"]) - float(mh["loss"])) <= 1e-5 * abs(float(mh["loss"]))
+    for a, h in zip(_tensors(card), _tensors(cpu)):
+        assert float((a.cpu().double() - h.double()).abs().max()) <= 1e-5 * max(float(h.double().abs().max()), 1e-3)
+
+
+def test_dlrm_predictor_on_the_card(cuda):
+    """``Predictor`` on multi-hot ids: each bucket graph's logits equal the
+    eager ``Engine.logits`` bit for bit."""
+    import numpy as np
+
+    from recmodels_tpu_torch.serve import Predictor
+
+    eng = _dlrm_engine()
+    state = eng.init(seed=0, device=cuda)
+    (b,) = _dlrm_batches(eng.model.schema, 1, cuda, batch=300)
+    pred = Predictor(eng, state, torch.device(cuda))
+    got = pred.predict_logits(b[0].cpu().numpy(), b[1].cpu().numpy())
+    pad = torch.zeros((212, 13), device=cuda), torch.zeros((212, b[1].shape[1]), dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        want = eng.logits(state, torch.cat([b[0], pad[0]]), torch.cat([b[1], pad[1]]))[:300]
+    assert np.array_equal(got, want.cpu().numpy())

@@ -1561,8 +1561,12 @@ def bag_gather_phase(card: str, seed: int = 1) -> dict:
     its plain version (bits), timed by CUDA events over back-to-back calls
     and by torch.profiler; the gather beside the library's
     ``torch.nn.functional.embedding_bag(mode="sum")`` with its cast to bf16,
-    and its byte bound (distinct rows, ids, the pooled bf16 output). Run it
-    alone with ``python -c "import chip_smoke as c; c.bag_gather_phase(c.card_line())"``."""
+    and its byte bound (distinct rows, ids, the pooled bf16 output). #4 both
+    ways: on the expanded stream (the pooled grads' ``index_select`` along
+    the sorted bags, then #4) and on the pooled grads read through the bags
+    (``grad_index``), the two from one state bit for bit, each beside #4's
+    byte bound. Run it alone with ``python -c "import chip_smoke as c;
+    c.bag_gather_phase(c.card_line())"``."""
     import torch.nn.functional as F
 
     from benchmark import counts, counts_dcnv2
@@ -1604,27 +1608,42 @@ def bag_gather_phase(card: str, seed: int = 1) -> dict:
            "library_ms": time_ms(library), "library_warm_ms": device_ms(library),
            "library_rel_err": err, "bound_ms": counts.bound_ms(torch.cuda.get_device_name(0), nbytes=nbytes)}
     sorted_ids, bags = bag_sorted_ids(gids, hot)
-    grads = torch.randn((b * len(hot), d), device=dev).to(torch.bfloat16).index_select(0, bags)
+    pooled = torch.randn((b * len(hot), d), device=dev).to(torch.bfloat16)
+    expand = lambda: pooled.index_select(0, bags)  # noqa: E731
+    grads = expand()
     acc = torch.full_like(table, 0.1)
     lr = torch.tensor(0.005, device=dev)
     # the plain version sums in stream order on the CPU (index_add_ on the
     # card adds by atomics, in no fixed order): the touched rows alone there
     uids = torch.unique(sorted_ids.long())
-    sub_t, sub_a = table[uids].cpu(), acc[uids].cpu()
+    t0, a0 = table[uids], acc[uids]
+    sub_t, sub_a = t0.cpu(), a0.cpu()
     sorted_adagrad_update_reference(sub_t, sub_a, torch.searchsorted(uids, sorted_ids.long()).int().cpu(),
                                     grads.cpu(), lr.cpu(), 1e-8)
     sorted_adagrad_update(table, acc, sorted_ids, grads, lr, 1e-8)
     check(torch.equal(table[uids].cpu(), sub_t) and torch.equal(acc[uids].cpu(), sub_a),
           "#4 at d = 128 bit for bit its plain version")
+    # the pooled route from the same state (only the touched rows move)
+    table[uids], acc[uids] = t0, a0
+    del t0, a0
+    sorted_adagrad_update(table, acc, sorted_ids, pooled, lr, 1e-8, bags)
+    check(torch.equal(table[uids].cpu(), sub_t) and torch.equal(acc[uids].cpu(), sub_a),
+          "#4 on the pooled grads bit for bit the expanded stream's update")
+    del sub_t, sub_a
     update = lambda: sorted_adagrad_update(table, acc, sorted_ids, grads, lr, 1e-8)  # noqa: E731
+    pooled_update = lambda: sorted_adagrad_update(table, acc, sorted_ids, pooled, lr, 1e-8, bags)  # noqa: E731
+    expand_update = lambda: sorted_adagrad_update(table, acc, sorted_ids, expand(), lr, 1e-8)  # noqa: E731
     row.update(update_ms=time_ms(update), update_warm_ms=device_ms(update),
+               pooled_update_ms=time_ms(pooled_update), pooled_update_warm_ms=device_ms(pooled_update),
+               expand_ms=time_ms(expand), expand_warm_ms=device_ms(expand),
+               expand_update_ms=time_ms(expand_update), expand_update_warm_ms=device_ms(expand_update),
                update_plain_ms=time_ms(lambda: sorted_adagrad_update_reference(table, acc, sorted_ids, grads, lr,
                                                                                 1e-8), iters=3),
                update_bound_ms=counts.bound_ms(torch.cuda.get_device_name(0),
                                                nbytes=counts.adagrad_update_bytes(unique, sorted_ids.numel(), d)))
     print(json.dumps({"bag_gather": row}))
     print(card)
-    del table, acc, grads
+    del table, acc, grads, pooled
     torch.cuda.empty_cache()
     return row
 

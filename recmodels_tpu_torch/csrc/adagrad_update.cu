@@ -13,6 +13,11 @@
 //   acc[k] = acc[k] + g*g
 //   w[k]   = w[k] - lr*g / (sqrt(acc[k]) + eps)
 // with lr read from device memory (as the TPU kernel reads it from SMEM).
+// A position's grad is its row of the stream's grads [n, d], or, for a
+// multi-hot group, its bag's row of the pooled grads [P, d] (grad_index [n]:
+// the bag of each position), read where it lies: the same values summed in
+// the same order, so the pooled call gives the bits of the stream call on
+// the expanded grads.
 // Rows not in the stream are not touched (bit-identical); ids < 0 or >= R
 // (sentinels) are skipped; bf16 grads widen exactly to f32. Every operation
 // is an explicitly rounded IEEE intrinsic, so nvcc contracts nothing into an
@@ -26,7 +31,11 @@
 // come to more than its bytes (chip_smoke.py prints both bounds); and the
 // card moves such scattered rows well below its peak rate: a bare
 // read-modify-write of the same rows, nothing else, takes over twice the
-// byte bound (recmodels_tpu_torch/probes/sparse_update_rows.py).
+// byte bound (recmodels_tpu_torch/probes/sparse_update_rows.py). On a
+// multi-hot stream (DLRM-DCNv2: 3,506,176 ids in 16,384 x 26 bags, d = 128)
+// each id's grad row is read from the 109 MB of pooled grads; the sorted
+// stream visits one slot's bags (4 MB) at a time, so a bag's repeated reads
+// can hit L2, and no 0.9 GB expanded copy is written and read back.
 //
 // Design (sorted_update_common.cuh, shared with the lazy-Adam kernel): the
 // TPU kernel sweeps the whole table and sums duplicates with a one-hot MXU
@@ -60,11 +69,14 @@ struct AdagradStep {
 }  // namespace
 
 // table, acc [rows, d] f32 (d = 1 for a dim-1 table), ids [n] i32 ascending,
-// grads [n, d] (bf16 when grads_bf16, else f32) in the ids' order; lr one f32
-// in device memory (pallas_update.py reads it from SMEM).
+// grads (bf16 when grads_bf16, else f32): [n, d] in the ids' order when
+// grad_index is null, else pooled [P, d] with grad_index [n] i32 the row of
+// each position; lr one f32 in device memory (pallas_update.py reads it
+// from SMEM).
 extern "C" int rm_adagrad_update(int device, void* table, void* acc,
                                  const void* ids, const void* grads,
-                                 long long n, long long rows, int d,
+                                 const void* grad_index, long long n,
+                                 long long rows, int d,
                                  int grads_bf16, const void* lr, float eps,
                                  void* stream) {
   sorted_update::Args<AdagradStep> a{};
@@ -77,5 +89,5 @@ extern "C" int rm_adagrad_update(int device, void* table, void* acc,
   a.d = d;
   a.op = AdagradStep{0.f, eps};
   a.scalars = (const float*)lr;
-  return sorted_update::launch(a, grads_bf16, device, stream);
+  return sorted_update::launch(a, (const int*)grad_index, grads_bf16, device, stream);
 }

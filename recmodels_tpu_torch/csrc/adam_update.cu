@@ -14,7 +14,9 @@
 //   w[k] = w[k] + (-lr*(m[k]/bc1)) / (sqrt(v[k]/bc2) + eps)
 // where lr, bc1 = 1 - b1^t and bc2 = 1 - b2^t are read from device memory,
 // computed on the card from the global step tensor, as the TPU kernel reads
-// its [lr, 1-b1^t, 1-b2^t, 0] block. A row is touched when its id is in the
+// its [lr, 1-b1^t, 1-b2^t, 0] block. A position's grad is its row of the
+// stream's grads, or, for a multi-hot group, its bag's row of the pooled
+// grads read through grad_index (as in csrc/adagrad_update.cu). A row is touched when its id is in the
 // stream, whatever its grads sum to: an id whose grads sum to 0 still decays
 // its moments (lazy Adam's membership rule). Rows not in the stream keep
 // their bits; ids < 0 or >= R (sentinels) are skipped; bf16 grads widen
@@ -62,13 +64,16 @@ struct AdamStep {
 }  // namespace
 
 // table, m, v [rows, d] f32 (d = 1 for a dim-1 table), ids [n] i32 ascending,
-// grads [n, d] (bf16 when grads_bf16, else f32) in the ids' order;
+// grads (bf16 when grads_bf16, else f32): [n, d] in the ids' order when
+// grad_index is null, else pooled [P, d] with grad_index [n] i32 the row of
+// each position;
 // scalars the f32 block [lr, bc1, bc2] in device memory, computed on the
 // card from the step tensor (pallas_update.py's [lr, 1-b1^t, 1-b2^t, 0]).
 // The optimizer's constants arrive by value as f32: one_minus_b1 = f32(1 -
 // b1) rounded from the double, as JAX rounds its Python constants.
 extern "C" int rm_adam_update(int device, void* table, void* m, void* v,
-                              const void* ids, const void* grads, long long n,
+                              const void* ids, const void* grads,
+                              const void* grad_index, long long n,
                               long long rows, int d, int grads_bf16,
                               const void* scalars, float b1, float one_minus_b1,
                               float b2, float one_minus_b2, float eps,
@@ -84,5 +89,5 @@ extern "C" int rm_adam_update(int device, void* table, void* m, void* v,
   a.d = d;
   a.op = AdamStep{0.f, 0.f, 0.f, b1, one_minus_b1, b2, one_minus_b2, eps};
   a.scalars = (const float*)scalars;
-  return sorted_update::launch(a, grads_bf16, device, stream);
+  return sorted_update::launch(a, (const int*)grad_index, grads_bf16, device, stream);
 }

@@ -1,18 +1,28 @@
 // The sparse table update from a sorted id stream with duplicates, shared by
 // csrc/adagrad_update.cu and csrc/adam_update.cu: one kernel template over
 // the optimizer's element step (Op::apply, on one column of each state
-// array), the grads' type, the columns a thread
-// takes at once (V) and the elements it holds in flight (K).
+// array), the grads' type, the columns a thread takes at once (V), the
+// elements it holds in flight (K) and where the grads lie (kPooled).
 //
 // The stream is ids [n] (int32, ascending; ids < 0 or >= R are sentinels and
-// are skipped) and grads [n, d] (bf16 or f32) in the same order; the state is
-// Op::kArrays row-major [R, d] f32 arrays, the table first, updated in place.
+// are skipped) and its grads (bf16 or f32), from one of two sources:
+// - rows (kPooled false): grads [n, d] in the ids' order, position j's grad
+//   row j;
+// - pooled (kPooled true): a multi-hot group's pooled bag grads [P, d] and
+//   an int32 index [n], the bag of each position: position j's grad is row
+//   index[j] of the pooled array, read where it lies. Each bag's row is
+//   read by every id of the bag, so the rows the expanded [n, d] stream
+//   would copy are never written out.
+// The state is Op::kArrays row-major [R, d] f32 arrays, the table first,
+// updated in place.
 // The values that change from step to step (lr, the bias corrections) are
 // Op::kScalars f32 values in device memory, as the TPU kernels read them from
 // a scalar operand: a CUDA graph of a training step then replays the values
 // the step computed, not those of the step it was captured on.
 // For each distinct kept id the grads of its run are summed in f32 in stream
-// order from 0, and Op::apply updates each column of its rows once.
+// order from 0, and Op::apply updates each column of its rows once. Both
+// sources sum the same values in the same order, so a pooled call gives the
+// bits of the rows call on the expanded stream.
 //
 // Tiles and ownership. The stream is cut into tiles of 32 consecutive
 // positions, and a group of threads owns a tile: a warp per column group of
@@ -27,9 +37,10 @@
 //
 // Per tile:
 // 1. The group reads the ids of positions [base - 1, base + 64) into shared
-//    memory in one coalesced pass; the block's first threads read the
-//    Op::kScalars values of the step (lr; Adam's bias corrections) once, and
-//    Op::bind takes them after the barrier.
+//    memory in one coalesced pass (pooled: their bags beside them); the
+//    block's first threads read the Op::kScalars values of the step (lr;
+//    Adam's bias corrections) once, and Op::bind takes them after the
+//    barrier.
 // 2. Its first warp finds the run starts by a ballot of id != previous id
 //    and gives each run its rank in a compacted list (id, start, end) by a
 //    popc prefix. A run ends at the next start, or for the tile's last run
@@ -43,7 +54,14 @@
 //    16-byte aligned.
 // 4. Then each element's run sum in stream order (its grads read where they
 //    lie, neighbouring threads on neighbouring values), Op::apply and the
-//    stores.
+//    stores. Rows: the compiler's loop over the run's rows. Pooled: the run
+//    in chunks of kChunk positions, each chunk's bags read first (from
+//    shared memory in [base, base + 64), past it from device memory, all
+//    lanes of a column group at one address, the next chunk's while this
+//    chunk's rows load), then the chunk's rows (V = 4 columns one 8- or
+//    16-byte load, kept as loaded), then their adds one position after
+//    another. So a long run's chain waits on one row load a chunk, not on
+//    an index load and then a row load a position.
 //
 // What the measurements chose (NVIDIA H100 80GB HBM3; PERF.md; the
 // yardsticks are recmodels_tpu_torch/probes/sparse_update_rows.py). The
@@ -57,6 +75,13 @@
 // or double-buffered ids and grads by cp.async, was slower than blocks that
 // overlap each other's phases, and is gone; so is a register cap (the IEEE
 // division's and root's slow-path calls spill under one).
+// The pooled route, on the DLRM-DCNv2 cell's batch (3,506,176 ids, d = 128,
+// bf16; the rows instance on the expanded stream takes 2.65 ms): chunks of
+// 4 positions kept as loaded take 2.06 ms at 58 registers; of 8, 2.13 ms
+// (76). Widened to f32 at the load, chunks of 4 took 2.44 ms (63), of 8
+// 2.58 (96), of 16 7.9 (148 registers: one block an SM), of 2, 3, 5 and 6
+// 2.59-4.71; two elements a thread (K = 2) and a minimum of 3 or 4 blocks
+// an SM in the launch bound were slower too.
 
 #pragma once
 
@@ -69,6 +94,7 @@ namespace sorted_update {
 constexpr int kTile = 32;                  // stream positions a group owns
 constexpr int kBlock = 256;                // threads of a block
 constexpr int kMaxTiles = kBlock / 32;     // groups (tiles) a block holds at most
+constexpr int kChunk = 4;                  // pooled positions whose rows load at once
 
 template <class Op>
 struct Args {
@@ -95,6 +121,37 @@ __device__ __forceinline__ void load_cols(float (&x)[V], const float* p) {
   }
 }
 
+// V grads of one pooled row as loaded, widened to f32 only where they are
+// added (so a chunk in flight holds bf16 in half the registers); V = 4 is
+// one 8-byte (bf16) or 16-byte (f32) load, which the pooled route takes
+// only on an aligned pooled array. at(i) takes a constant i.
+template <int V, typename G>
+struct RowGrads {
+  G v[V];
+  __device__ __forceinline__ void load(const G* p) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = p[i];
+  }
+  __device__ __forceinline__ float at(int i) const { return to_f32(v[i]); }
+};
+
+template <>
+struct RowGrads<4, __nv_bfloat16> {
+  uint2 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) { u = *reinterpret_cast<const uint2*>(p); }
+  __device__ __forceinline__ float at(int i) const {
+    const unsigned w = i < 2 ? u.x : u.y;  // a bf16 is the top half of its f32
+    return __uint_as_float(i % 2 ? w & 0xffff0000u : w << 16);
+  }
+};
+
+template <>
+struct RowGrads<4, float> {
+  float4 f;
+  __device__ __forceinline__ void load(const float* p) { f = *reinterpret_cast<const float4*>(p); }
+  __device__ __forceinline__ float at(int i) const { return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w; }
+};
+
 template <int V>
 __device__ __forceinline__ void store_cols(float* p, const float (&x)[V]) {
   if constexpr (V == 4) {
@@ -105,13 +162,45 @@ __device__ __forceinline__ void store_cols(float* p, const float (&x)[V]) {
   }
 }
 
+// Adds the pooled grads of positions [j0, j1) of one column group (columns
+// c..c+V) to g, in order; bag_of(j) is position j's row of `pooled`.
+// kChunk positions at a time: their bags (the next chunk's read while this
+// chunk's rows load), their rows, then the adds.
+template <int V, typename G, class BagOf>
+__device__ __forceinline__ void add_pooled(float (&g)[V], const G* pooled, int d, int c, long long j0,
+                                           long long j1, const BagOf& bag_of) {
+  int bag[kChunk];
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) bag[u] = j0 + u < j1 ? bag_of(j0 + u) : 0;
+  for (long long j = j0; j < j1; j += kChunk) {
+    RowGrads<V, G> x[kChunk];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      if (j + u < j1) x[u].load(pooled + (long long)bag[u] * d + c);
+    }
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) bag[u] = j + kChunk + u < j1 ? bag_of(j + kChunk + u) : 0;
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u) {
+      if (j + u < j1) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) g[v] = __fadd_rn(g[v], x[u].at(v));
+      }
+    }
+  }
+}
+
 // Block: blockDim.x / group tiles, `group` threads each (a multiple of 32
 // up to kBlock). Each thread holds up to K elements' loads in flight.
-template <class Op, typename G, int V, int K>
-__global__ void __launch_bounds__(kBlock) sorted_update_kernel(const Args<Op> a, int group) {
+// kPooled: the grads are a.grads [P, d] read through grad_index [n] (the
+// rows instances never read it).
+template <class Op, typename G, int V, int K, bool kPooled>
+__global__ void __launch_bounds__(kBlock) sorted_update_kernel(const Args<Op> a, int group,
+                                                               const int* grad_index) {
   constexpr int kArrays = Op::kArrays;
   constexpr int kIds = 2 * kTile + 1;   // ids of [base - 1, base + 64)
   __shared__ int sid[kMaxTiles][kIds];  // sid[s][1 + j]: the id at base + j
+  __shared__ int sbag[kMaxTiles][kIds]; // pooled: sbag[s][1 + j], the bag at base + j
   __shared__ int run_id[kMaxTiles][kTile], run_start[kMaxTiles][kTile], run_end[kMaxTiles][kTile];
   __shared__ int run_count[kMaxTiles];
   __shared__ long long run_tail[kMaxTiles];
@@ -133,6 +222,7 @@ __global__ void __launch_bounds__(kBlock) sorted_update_kernel(const Args<Op> a,
     for (int l = tid; l < kIds; l += group) {
       const long long p = base - 1 + l;
       sid[slot][l] = p >= 0 && p < a.n ? a.ids[p] : 0;
+      if constexpr (kPooled) sbag[slot][l] = p >= 0 && p < a.n ? grad_index[p] : 0;
     }
   }
   __syncthreads();
@@ -199,19 +289,31 @@ __global__ void __launch_bounds__(kBlock) sorted_update_kernel(const Args<Op> a,
       const int e = e0 + k * group;
       if (e >= total) break;
       const int r = e / dv, c = (e - r * dv) * V;
-      const G* gp = grads + (base + run_start[slot][r]) * d + c;
       float g[V];
+      if constexpr (kPooled) {
+        // the run's positions relative to base: [start, end), and for the
+        // tile's last run on to the tail (end is then kTile)
+        const long long j1 = run_end[slot][r] + (r == nruns - 1 ? tail - base - kTile : 0);
+        const int* bags = sbag[slot];
+        const int* index = grad_index + base;
+        const auto bag_of = [bags, index](long long j) { return j < 2 * kTile ? bags[1 + j] : index[j]; };
 #pragma unroll
-      for (int v = 0; v < V; ++v) g[v] = __fadd_rn(0.f, to_f32(gp[v]));
-      for (int j = run_start[slot][r] + 1, j1 = run_end[slot][r]; j < j1; ++j) {
-        gp += d;
+        for (int v = 0; v < V; ++v) g[v] = 0.f;
+        add_pooled<V>(g, grads, d, c, run_start[slot][r], j1, bag_of);
+      } else {
+        const G* gp = grads + (base + run_start[slot][r]) * d + c;
 #pragma unroll
-        for (int v = 0; v < V; ++v) g[v] = __fadd_rn(g[v], to_f32(gp[v]));
-      }
-      if (r == nruns - 1) {
-        for (long long j = base + kTile; j < tail; ++j) {
+        for (int v = 0; v < V; ++v) g[v] = __fadd_rn(0.f, to_f32(gp[v]));
+        for (int j = run_start[slot][r] + 1, j1 = run_end[slot][r]; j < j1; ++j) {
+          gp += d;
 #pragma unroll
-          for (int v = 0; v < V; ++v) g[v] = __fadd_rn(g[v], to_f32(grads[j * d + c + v]));
+          for (int v = 0; v < V; ++v) g[v] = __fadd_rn(g[v], to_f32(gp[v]));
+        }
+        if (r == nruns - 1) {
+          for (long long j = base + kTile; j < tail; ++j) {
+#pragma unroll
+            for (int v = 0; v < V; ++v) g[v] = __fadd_rn(g[v], to_f32(grads[j * d + c + v]));
+          }
         }
       }
 #pragma unroll
@@ -231,17 +333,20 @@ __global__ void __launch_bounds__(kBlock) sorted_update_kernel(const Args<Op> a,
 }
 
 // Launch the update for a.state, a.ids, a.grads (bf16 when grads_bf16), a.n,
-// a.rows and a.d. V = 4 where d % 4 == 0 and every state base is 16-byte
-// aligned. A tile's group has a warp per column group up to 8 of them, and
-// a block of kBlock threads holds several groups where they are smaller.
-template <class Op>
-int launch(const Args<Op>& a, int grads_bf16, int device, void* stream) {
+// a.rows and a.d; pooled where grad_index is set. V = 4 where d % 4 == 0
+// and every state base is 16-byte aligned, and pooled grads' base is aligned
+// to a 4-column load. A tile's group has a warp per column group up to 8 of
+// them, and a block of kBlock threads holds several groups where they are
+// smaller.
+template <class Op, bool kPooled>
+int launch_source(const Args<Op>& a, const int* grad_index, int grads_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (a.d < 1) return (int)cudaErrorInvalidValue;
   if (a.n == 0) return 0;
   bool vec = a.d % 4 == 0;
   for (int q = 0; q < Op::kArrays; ++q) vec = vec && (reinterpret_cast<uintptr_t>(a.state[q]) & 15) == 0;
+  if constexpr (kPooled) vec = vec && reinterpret_cast<uintptr_t>(a.grads) % (grads_bf16 ? 8 : 16) == 0;
   const int dv = vec ? a.d / 4 : a.d;
   const int group = 32 * (dv < kBlock / 32 ? dv : kBlock / 32);
   const int per_block = kBlock / group;
@@ -250,13 +355,21 @@ int launch(const Args<Op>& a, int grads_bf16, int device, void* stream) {
   // V = 4 (d = 16: 4 elements a row) and d = 1 take one element a thread; other
   // rows two (d = 17: a tile's 544 elements on 256 threads, in two rounds)
   const auto kernel =
-      grads_bf16 ? (vec ? sorted_update_kernel<Op, __nv_bfloat16, 4, 1>
-                        : a.d == 1 ? sorted_update_kernel<Op, __nv_bfloat16, 1, 1>
-                                   : sorted_update_kernel<Op, __nv_bfloat16, 1, 2>)
-                 : (vec ? sorted_update_kernel<Op, float, 4, 1>
-                        : a.d == 1 ? sorted_update_kernel<Op, float, 1, 1> : sorted_update_kernel<Op, float, 1, 2>);
-  kernel<<<blocks, group * per_block, 0, (cudaStream_t)stream>>>(a, group);
+      grads_bf16 ? (vec ? sorted_update_kernel<Op, __nv_bfloat16, 4, 1, kPooled>
+                        : a.d == 1 ? sorted_update_kernel<Op, __nv_bfloat16, 1, 1, kPooled>
+                                   : sorted_update_kernel<Op, __nv_bfloat16, 1, 2, kPooled>)
+                 : (vec ? sorted_update_kernel<Op, float, 4, 1, kPooled>
+                        : a.d == 1 ? sorted_update_kernel<Op, float, 1, 1, kPooled>
+                                   : sorted_update_kernel<Op, float, 1, 2, kPooled>);
+  kernel<<<blocks, group * per_block, 0, (cudaStream_t)stream>>>(a, group, grad_index);
   return (int)cudaGetLastError();
+}
+
+// grad_index: null for rows, else the pooled grads' index [n]
+template <class Op>
+int launch(const Args<Op>& a, const int* grad_index, int grads_bf16, int device, void* stream) {
+  return grad_index ? launch_source<Op, true>(a, grad_index, grads_bf16, device, stream)
+                    : launch_source<Op, false>(a, grad_index, grads_bf16, device, stream);
 }
 
 }  // namespace sorted_update

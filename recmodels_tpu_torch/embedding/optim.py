@@ -30,9 +30,13 @@ bag's pooled grad. ``bag_sorted_ids`` sorts the group's whole id batch in
 one stable sort, so a row named in several hot columns of a slot and by
 several examples is one run (sorting each column on its own would give it
 one run a column, and the update kernel would write the row from two warps
-at once); ``apply_bag_updates`` expands the pooled grads along the sorted
-order (the bag of each sorted position) and hands them to the same sorted
-update. The one-hot path is not changed.
+at once), and gives the bag of each sorted position. ``apply_bag_updates``
+hands the pooled grads and those bags to the same sorted update: on the
+card, Adagrad's and lazy Adam's kernel reads each position's grad from its
+bag's pooled row (``grad_index``), so the pooled grads are never expanded
+to one row an id; dense Adam and CPU tables take the pooled grads expanded
+along the sorted order (``index_select``), the same values in the same
+order. The one-hot path is not changed.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import torch
 from recmodels_tpu_torch.embedding.update import (
     adam_scalars, bias_corrections, device_constant, sorted_adagrad_update, sorted_adam_update,
 )
-from recmodels_tpu_torch.utils.profiling import annotate
+from recmodels_tpu_torch.utils.profiling import annotate, count
 
 
 def slot_sorted_ids(ids_2d: torch.Tensor):
@@ -76,23 +80,24 @@ def slot_sorted_inverse(order_2d: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def bag_columns(hotness: tuple, device: torch.device) -> torch.Tensor:
-    """The bag of each id column, [sum(hotness)] int64 on ``device``, made
-    once a device and never written (the first, eager step makes it,
+def bag_of_id(b: int, hotness: tuple, device: torch.device) -> torch.Tensor:
+    """The bag of each id of a [b, sum(hotness)] batch in b-major order,
+    ``example * n_bags + s``, [b * sum(hotness)] int32 on ``device``; made
+    once a batch shape and never written (the first, eager step makes it,
     outside any CUDA graph capture)."""
-    return torch.repeat_interleave(torch.arange(len(hotness)), torch.tensor(hotness)).to(device)
+    cols = torch.repeat_interleave(torch.arange(len(hotness)), torch.tensor(hotness))
+    bags = torch.arange(b)[:, None] * len(hotness) + cols
+    return bags.reshape(-1).to(device=device, dtype=torch.int32)
 
 
 def bag_sorted_ids(ids_2d: torch.Tensor, hotness: Sequence[int]):
     """Sort a [B, n_ids] batch of a multi-hot group's global row ids into
     one ascending stream by one stable sort of the whole batch, so each row
     is one run, its positions in ascending b-major order (example, then
-    column). Returns (sorted_ids [N] int32, bags [N] int64): the bag ``b *
+    column). Returns (sorted_ids [N] int32, bags [N] int32): the bag ``b *
     n_bags + s`` whose pooled grad each sorted position takes."""
-    b, n = ids_2d.shape
     sorted_ids, order = torch.sort(ids_2d.reshape(-1), stable=True)
-    cols = bag_columns(tuple(hotness), ids_2d.device)
-    bags = torch.div(order, n, rounding_mode="floor") * len(hotness) + cols[order % n]
+    bags = torch.index_select(bag_of_id(ids_2d.shape[0], tuple(hotness), ids_2d.device), 0, order)
     return sorted_ids, bags
 
 
@@ -101,13 +106,20 @@ def apply_bag_updates(opt: SparseOptimizer, table, state, ids_2d, pooled, hotnes
     """A multi-hot group's update, in place; returns the table and its
     state. ``ids_2d``: the [B, n_ids] global row ids; ``pooled``: the bags'
     grads [B, n_bags, dim]; ``sorted_stream``: ``bag_sorted_ids(ids_2d,
-    hotness)`` when the caller has it. Each id takes its bag's grad, the
+    hotness)`` when the caller has it. Each id takes its bag's grad. On a
+    CUDA table Adagrad's and lazy Adam's kernels read it from the pooled
+    grads through the sorted positions' bags (each such call adds 1 to the
+    counter ``emb.bag_pooled_updates``); dense Adam and CPU tables take the
     pooled grads expanded along the sorted order (the span
-    ``emb.bag_expand``), and the sorted stream goes to
-    ``apply_sorted_updates`` (every optimizer, dense Adam too)."""
+    ``emb.bag_expand``). Either way the sorted stream goes to
+    ``apply_sorted_updates``."""
     sorted_ids, bags = bag_sorted_ids(ids_2d, hotness) if sorted_stream is None else sorted_stream
+    flat = pooled.reshape(-1, *table.shape[1:]).contiguous()
+    if table.device.type == "cuda" and needs_sort(opt):
+        count("emb.bag_pooled_updates", 1)
+        return apply_sorted_updates(opt, table, state, sorted_ids, flat, step, lr, grad_index=bags)
     with annotate("emb.bag_expand"):
-        grads = torch.index_select(pooled.reshape(-1, pooled.shape[-1]), 0, bags).reshape(-1, *table.shape[1:])
+        grads = torch.index_select(flat, 0, bags)
     return apply_sorted_updates(opt, table, state, sorted_ids, grads, step, lr)
 
 
@@ -196,17 +208,22 @@ def apply_updates(opt: SparseOptimizer, table, state, ids_2d, grads_flat, step: 
 
 
 def apply_sorted_updates(opt: SparseOptimizer, table, state, sorted_ids, grads_sorted, step: torch.Tensor,
-                         lr: torch.Tensor):
+                         lr: torch.Tensor, grad_index=None):
     """One group's update from an ascending id stream and its grads in the
     same order (the JAX package's ``apply_updates(..., presorted=True)``):
     the sharded owner's stream, whose tail may hold sentinels ``>= rows``,
-    which every route skips. In place; returns the table and its state."""
+    which every route skips. With ``grad_index`` (int32, one a position;
+    Adagrad and lazy Adam only) ``grads_sorted`` are pooled grads read
+    through it (``embedding/update.py``). In place; returns the table and
+    its state."""
     h = opt.hyper
     if opt.name == "adam":
         sorted_adam_update(table, state["m"], state["v"], sorted_ids, grads_sorted,
-                           adam_scalars(lr, step, h["b1"], h["b2"]), h["b1"], h["b2"], h["eps"])
+                           adam_scalars(lr, step, h["b1"], h["b2"]), h["b1"], h["b2"], h["eps"], grad_index)
     elif opt.name == "adagrad":
-        sorted_adagrad_update(table, state["acc"], sorted_ids, grads_sorted, lr, h["eps"])
+        sorted_adagrad_update(table, state["acc"], sorted_ids, grads_sorted, lr, h["eps"], grad_index)
+    elif grad_index is not None:
+        raise ValueError("apply_sorted_updates: dense Adam takes its grads in stream order, not through an index")
     else:
         _adam_dense_update(table, state, sorted_ids, grads_sorted, step, lr, h)
     return table, state

@@ -31,10 +31,19 @@ bf16 grads widen exactly to f32. The kernels round every operation as the
 CPU does (no FMA; the constants are the same f32 values), so kernel and
 plain version agree bit for bit when they sum in the same order.
 
+The grads come one of two ways. A stream: ``grads`` [N, d] in the ids'
+order. Pooled (``grad_index`` given, int32 [N]): ``grads`` [P, d] are a
+multi-hot group's pooled bag grads and position j's grad is row
+``grad_index[j]`` of them, which the kernels read where it lies, so the
+expanded [N, d] stream is never written. The plain versions expand
+(``index_select``) and run the stream's arithmetic, so a pooled kernel call
+equals the plain update of the expanded stream bit for bit.
+
 Both kernels are one template (``csrc/sorted_update_common.cuh``): a warp
 takes 32 stream positions at a time, and a run of one id belongs to the
 warp whose positions hold its first; that warp sums all of it in stream
-order, past its 32 positions where the run goes on.
+order, past its 32 positions where the run goes on. Where the grads lie is
+a template parameter: the stream's instances are the same code either way.
 """
 
 from __future__ import annotations
@@ -70,6 +79,16 @@ def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def _require_index(what: str, table: torch.Tensor, sorted_ids: torch.Tensor, grads: torch.Tensor,
+                   grad_index: torch.Tensor | None, device: torch.device):
+    """Raise unless the grads (and ``grad_index``) fit the kernel; returns
+    the index's address, or None (a stream of grads)."""
+    if grad_index is not None:
+        require(f"{what} grad_index", grad_index, (torch.int32,), 1, device, align=4)
+    _check_grads(what, table, sorted_ids, grads, grad_index)
+    return None if grad_index is None else grad_index.data_ptr()
+
+
 def _require_scalars(what: str, t: torch.Tensor, n: int, device: torch.device) -> None:
     """Raise unless ``t`` holds ``n`` contiguous f32 values on ``device``."""
     if t.device != device or t.dtype != torch.float32 or t.numel() != n or not t.is_contiguous():
@@ -77,10 +96,40 @@ def _require_scalars(what: str, t: torch.Tensor, n: int, device: torch.device) -
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _check_grads(what: str, table: torch.Tensor, sorted_ids: torch.Tensor, grads: torch.Tensor,
+                 grad_index: torch.Tensor | None) -> None:
+    """Raise unless ``grads`` fit the table and the stream: [N, d] (``[N]``
+    for a dim-1 table), or with ``grad_index`` an int32 [N] on the grads'
+    device and pooled grads [P, d]."""
+    n, row = sorted_ids.shape[0], tuple(table.shape[1:])
+    if grad_index is None:
+        fits = tuple(grads.shape) == (n, *row)
+    else:
+        if grad_index.dtype != torch.int32 or grad_index.device != grads.device:
+            raise TypeError(f"{what}: grad_index {grad_index.dtype} on {grad_index.device}, expected "
+                            f"int32 on {grads.device}")
+        fits = tuple(grad_index.shape) == (n,) and grads.dim() == table.dim() and tuple(grads.shape[1:]) == row
+    if not fits:
+        index = "" if grad_index is None else f", grad_index {tuple(grad_index.shape)}"
+        raise ValueError(f"{what}: table {tuple(table.shape)}, ids {tuple(sorted_ids.shape)}{index} and grads "
+                         f"{tuple(grads.shape)} do not fit together")
+
+
+def _stream_grads(what: str, table: torch.Tensor, sorted_ids: torch.Tensor, grads: torch.Tensor,
+                  grad_index: torch.Tensor | None) -> torch.Tensor:
+    """The plain versions' grads in stream order: ``grads`` as they are, or
+    pooled grads expanded along ``grad_index``."""
+    _check_grads(what, table, sorted_ids, grads, grad_index)
+    return grads if grad_index is None else torch.index_select(grads, 0, grad_index)
+
+
 def sorted_adagrad_update_reference(table: torch.Tensor, acc: torch.Tensor,
                                     sorted_ids: torch.Tensor, grads_sorted: torch.Tensor,
-                                    lr: torch.Tensor, eps: float) -> None:
-    """Plain version, in place; ``lr`` a 0-d f32 tensor."""
+                                    lr: torch.Tensor, eps: float,
+                                    grad_index: torch.Tensor | None = None) -> None:
+    """Plain version, in place; ``lr`` a 0-d f32 tensor; pooled grads (with
+    ``grad_index``) are expanded first."""
+    grads_sorted = _stream_grads("sorted_adagrad_update", table, sorted_ids, grads_sorted, grad_index)
     uids, gsum = _run_sums(table, sorted_ids, grads_sorted)
     a = acc[uids] + gsum * gsum
     acc[uids] = a
@@ -88,16 +137,19 @@ def sorted_adagrad_update_reference(table: torch.Tensor, acc: torch.Tensor,
 
 
 def sorted_adagrad_update(table: torch.Tensor, acc: torch.Tensor, sorted_ids: torch.Tensor,
-                          grads_sorted: torch.Tensor, lr: torch.Tensor, eps: float) -> None:
+                          grads_sorted: torch.Tensor, lr: torch.Tensor, eps: float,
+                          grad_index: torch.Tensor | None = None) -> None:
     """Update ``table`` and ``acc`` ([R, d] or [R] f32) in place from int32
     ``sorted_ids`` [N] (ascending, duplicates and sentinels >= R allowed)
     and ``grads_sorted`` ([N, d] or [N], bf16 or f32) in the same order,
     at the learning rate ``lr``, a 0-d f32 tensor on the table's device.
+    With ``grad_index`` (int32 [N], each position's row of ``grads_sorted``)
+    the grads are pooled, [P, d] or [P], and read through it.
 
     A CPU table takes the plain version; a CUDA table launches the kernel
     (or raises on what the kernel does not take)."""
     if table.device.type == "cpu":
-        sorted_adagrad_update_reference(table, acc, sorted_ids, grads_sorted, lr, eps)
+        sorted_adagrad_update_reference(table, acc, sorted_ids, grads_sorted, lr, eps, grad_index)
         return
     dev_t = cuda_device(table, "sorted_adagrad_update")
     nd = table.dim()
@@ -109,16 +161,14 @@ def sorted_adagrad_update(table: torch.Tensor, acc: torch.Tensor, sorted_ids: to
     require("sorted_adagrad_update grads", grads_sorted, GRAD_DTYPES, nd, dev_t,
             align=grads_sorted.element_size())
     _require_scalars("sorted_adagrad_update lr", lr, 1, dev_t)
+    index = _require_index("sorted_adagrad_update", table, sorted_ids, grads_sorted, grad_index, dev_t)
     d = 1 if nd == 1 else table.shape[1]
     n = sorted_ids.shape[0]
-    if acc.shape != table.shape or grads_sorted.shape != (n, *table.shape[1:]):
-        raise ValueError(
-            f"sorted_adagrad_update: table {tuple(table.shape)}, acc {tuple(acc.shape)}, "
-            f"ids {tuple(sorted_ids.shape)} and grads {tuple(grads_sorted.shape)} do not fit together"
-        )
+    if acc.shape != table.shape:
+        raise ValueError(f"sorted_adagrad_update: table {tuple(table.shape)} and acc {tuple(acc.shape)} differ")
     dev, stream = device_and_stream(dev_t)
     err = build.library().rm_adagrad_update(
-        dev, table.data_ptr(), acc.data_ptr(), sorted_ids.data_ptr(), grads_sorted.data_ptr(),
+        dev, table.data_ptr(), acc.data_ptr(), sorted_ids.data_ptr(), grads_sorted.data_ptr(), index,
         n, table.shape[0], d, int(grads_sorted.dtype == torch.bfloat16), lr.data_ptr(), eps, stream,
     )
     build.check(err, "sorted_adagrad_update")
@@ -169,9 +219,12 @@ def adam_constants(b1: float, b2: float, eps: float) -> dict:
 
 def sorted_adam_update_reference(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                                  sorted_ids: torch.Tensor, grads_sorted: torch.Tensor,
-                                 scalars: torch.Tensor, b1: float, b2: float, eps: float) -> None:
+                                 scalars: torch.Tensor, b1: float, b2: float, eps: float,
+                                 grad_index: torch.Tensor | None = None) -> None:
     """Plain version of lazy Adam, in place, in the kernel's order of
-    operations; ``scalars`` the f32 block [lr, bc1, bc2]."""
+    operations; ``scalars`` the f32 block [lr, bc1, bc2]; pooled grads (with
+    ``grad_index``) are expanded first."""
+    grads_sorted = _stream_grads("sorted_adam_update", table, sorted_ids, grads_sorted, grad_index)
     c = adam_constants(b1, b2, eps)
     lr, bc1, bc2 = scalars.unbind()
     uids, gsum = _run_sums(table, sorted_ids, grads_sorted)
@@ -185,17 +238,19 @@ def sorted_adam_update_reference(table: torch.Tensor, m: torch.Tensor, v: torch.
 
 def sorted_adam_update(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                        sorted_ids: torch.Tensor, grads_sorted: torch.Tensor,
-                       scalars: torch.Tensor, b1: float, b2: float, eps: float) -> None:
+                       scalars: torch.Tensor, b1: float, b2: float, eps: float,
+                       grad_index: torch.Tensor | None = None) -> None:
     """Lazy Adam: update ``table``, ``m`` and ``v`` ([R, d] or [R] f32) in
     place from int32 ``sorted_ids`` [N] (ascending, duplicates and sentinels
     >= R allowed) and ``grads_sorted`` ([N, d] or [N], bf16 or f32) in the
     same order; ``scalars`` is this step's f32 block [lr, bc1, bc2] on the
-    table's device (``adam_scalars``).
+    table's device (``adam_scalars``). With ``grad_index`` (int32 [N]) the
+    grads are pooled, [P, d] or [P], as in ``sorted_adagrad_update``.
 
     A CPU table takes the plain version; a CUDA table launches the kernel
     (or raises on what the kernel does not take)."""
     if table.device.type == "cpu":
-        sorted_adam_update_reference(table, m, v, sorted_ids, grads_sorted, scalars, b1, b2, eps)
+        sorted_adam_update_reference(table, m, v, sorted_ids, grads_sorted, scalars, b1, b2, eps, grad_index)
         return
     dev_t = cuda_device(table, "sorted_adam_update")
     nd = table.dim()
@@ -207,18 +262,16 @@ def sorted_adam_update(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     require("sorted_adam_update grads", grads_sorted, GRAD_DTYPES, nd, dev_t,
             align=grads_sorted.element_size())
     _require_scalars("sorted_adam_update scalars", scalars, 3, dev_t)
+    index = _require_index("sorted_adam_update", table, sorted_ids, grads_sorted, grad_index, dev_t)
     n = sorted_ids.shape[0]
-    if (m.shape != table.shape or v.shape != table.shape
-            or grads_sorted.shape != (n, *table.shape[1:])):
-        raise ValueError(
-            f"sorted_adam_update: table {tuple(table.shape)}, m {tuple(m.shape)}, v {tuple(v.shape)}, "
-            f"ids {tuple(sorted_ids.shape)} and grads {tuple(grads_sorted.shape)} do not fit together"
-        )
+    if m.shape != table.shape or v.shape != table.shape:
+        raise ValueError(f"sorted_adam_update: table {tuple(table.shape)}, m {tuple(m.shape)} and "
+                         f"v {tuple(v.shape)} differ")
     c = adam_constants(b1, b2, eps)
     dev, stream = device_and_stream(dev_t)
     err = build.library().rm_adam_update(
         dev, table.data_ptr(), m.data_ptr(), v.data_ptr(), sorted_ids.data_ptr(),
-        grads_sorted.data_ptr(), n, table.shape[0], 1 if nd == 1 else table.shape[1],
+        grads_sorted.data_ptr(), index, n, table.shape[0], 1 if nd == 1 else table.shape[1],
         int(grads_sorted.dtype == torch.bfloat16), scalars.data_ptr(), c["b1"],
         c["one_minus_b1"], c["b2"], c["one_minus_b2"], c["eps"], stream,
     )

@@ -56,11 +56,12 @@ _SIGNATURES = {
     "rm_split_fused_rows_backward": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     # device, x0, x1, w1, w2, q, g1p, g2p, gx0, gw1, gw2, scratch, b, d, m, h1, h2, stream
     "rm_cin2_backward": [_I] + [_P] * 11 + [_I] * 5 + [_P],
-    # device, table, acc, ids, grads, n, rows, d, grads_bf16, lr (device f32), eps, stream
-    "rm_adagrad_update": [_I, _P, _P, _P, _P, _L, _L, _I, _I, _P, _F, _P],
-    # device, table, m, v, ids, grads, n, rows, d, grads_bf16,
-    # [lr, bc1, bc2] (device f32), b1, 1 - b1, b2, 1 - b2, eps, stream
-    "rm_adam_update": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P] + [_F] * 5 + [_P],
+    # device, table, acc, ids, grads, grad_index (null: a stream of grads), n, rows, d,
+    # grads_bf16, lr (device f32), eps, stream
+    "rm_adagrad_update": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P, _F, _P],
+    # device, table, m, v, ids, grads, grad_index (null: a stream of grads), n, rows, d,
+    # grads_bf16, [lr, bc1, bc2] (device f32), b1, 1 - b1, b2, 1 - b2, eps, stream
+    "rm_adam_update": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P] + [_F] * 5 + [_P],
     # device, xk, x0, w2, out, scratch, rows, hk, m, hn, is_bf16, stream
     "rm_cin_layer_forward": [_I] + [_P] * 5 + [_L, _I, _I, _I, _I, _P],
     # device, g, xk, x0, w2, gxk, gx0, gw, scratch, rows, hk, m, hn, stream

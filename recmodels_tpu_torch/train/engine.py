@@ -93,8 +93,8 @@ class LocalTables:
     """Single-device tables: plain row-major f32 ``[rows, dim]`` (dim-1
     groups ``[rows]``), gathered in batch order by ``gather_rows`` (a
     multi-hot group's bags pooled by ``bag_gather``) and updated in place by
-    the sparse optimizer (a multi-hot group's pooled grads expanded along
-    its sorted ids first, ``embedding/optim.apply_bag_updates``).
+    the sparse optimizer (a multi-hot group's from its pooled grads, read
+    through its sorted ids' bags, ``embedding/optim.apply_bag_updates``).
 
     A table strategy's interface (``ShardedTables`` has the same):
     ``init_params``, ``init_opt``, ``table_rows``, ``plan`` (a step's

@@ -13,6 +13,7 @@ import torch
 
 from recmodels_tpu_torch.embedding.bag import bag_gather, bag_gather_reference
 from recmodels_tpu_torch.embedding.gather import gather_rows, gather_rows_reference
+from recmodels_tpu_torch.embedding.optim import bag_sorted_ids
 from recmodels_tpu_torch.embedding.update import (
     adam_scalars, sorted_adagrad_update, sorted_adagrad_update_reference, sorted_adam_update,
     sorted_adam_update_reference,
@@ -1656,6 +1657,105 @@ def test_table_past_2_31_elements_is_gathered_and_updated_right(cuda):
     assert torch.equal(table[-tail:], sub) and torch.equal(acc[-tail:], sub_acc)
 
 
+# Pooled grads read through an index by #4 and #7: MLPerf's hotness at
+# 6,400 examples (slot 5's 3 rows take runs of over 2,000 positions, slot
+# 20's bags 100 ids), runs from a tile's last lane (position 31) that end
+# inside the staged bags (33), one past them (34) or past the next tile
+# (65), a run of 2,000 from position 95, and pooled grads off 16 bytes
+# (the kernel's column-a-lane route).
+_POOLED_CASES = [("mlperf",), ("run", 31, 33), ("run", 31, 34), ("run", 31, 65), ("run", 95, 2000), ("offset",)]
+
+
+def _pooled_stream(cuda, case, dim, grad_dtype):
+    """(table, acc, sorted ids, pooled grads [P, dim] or [P], grad index
+    [N] int32) for one of ``_POOLED_CASES``."""
+    g = _gen(cuda, 37)
+    if case[0] == "mlperf":
+        b, hot = 6400, MLPERF_HOTNESS
+        vocab = [3 if s == 5 else 4 if s == 16 else 3000 for s in range(len(hot))]
+        first = [sum(vocab[:s]) for s in range(len(hot))]
+        cols = [s for s, h in enumerate(hot) for _ in range(h)]
+        ids_2d = torch.stack([torch.randint(0, vocab[s], (b,), generator=g, device=cuda) + first[s] for s in cols],
+                             dim=1).int()
+        ids, index = bag_sorted_ids(ids_2d, hot)
+        rows, p = sum(vocab), b * len(hot)
+        assert int(torch.unique_consecutive(ids, return_counts=True)[1].max()) >= 2000
+    else:
+        rows, n, p = 5000, 4000 if case[0] == "run" else 3001, 1000
+        layout = case if case[0] == "run" else None
+        _, _, ids, _ = _stream(cuda, rows, dim, n, 0.3 if layout is None else 0.0, grad_dtype, layout=layout)
+        index = torch.randint(0, p, (n,), generator=g, device=cuda, dtype=torch.int32)
+    shape = (rows,) if dim == 1 else (rows, dim)
+    table = torch.randn(shape, generator=g, device=cuda)
+    acc = torch.rand(shape, generator=g, device=cuda) + 0.1
+    pooled = torch.randn((p, *shape[1:]), generator=g, device=cuda).to(grad_dtype)
+    if case[0] == "offset":
+        pooled = _off16(pooled, 4)
+    return table, acc, ids, pooled, index
+
+
+def _sorted_update(opt, fn, arrays, ids, grads, scalars, grad_index=None):
+    """``fn`` (a sorted update of ``opt``, kernel or plain) on ``arrays``:
+    the table and acc, or the table, m and v."""
+    if opt == "adagrad":
+        fn(*arrays, ids, grads, scalars, 1e-8, grad_index)
+    else:
+        fn(*arrays, ids, grads, scalars, 0.9, 0.999, 1e-8, grad_index)
+
+
+def _pooled_setup(cuda, opt, case, dim, grad_dtype):
+    table, acc, ids, pooled, index = _pooled_stream(cuda, case, dim, grad_dtype)
+    lr = torch.tensor(0.05, device=cuda)
+    if opt == "adagrad":
+        return (table, acc), ids, pooled, index, lr, sorted_adagrad_update, sorted_adagrad_update_reference
+    scalars = adam_scalars(lr, torch.tensor(4, dtype=torch.int32, device=cuda), 0.9, 0.999)
+    return (table, acc - 0.6, acc * 0.01), ids, pooled, index, scalars, sorted_adam_update, sorted_adam_update_reference
+
+
+@pytest.mark.parametrize("case", _POOLED_CASES)
+@pytest.mark.parametrize("dim", [16, 17, 128])
+@pytest.mark.parametrize("grad_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+def test_pooled_update_kernel_is_bit_exact(cuda, case, dim, grad_dtype, opt):
+    """#4 and #7 reading pooled grads through ``grad_index`` against the
+    pooled grads expanded along the index and then the stream's kernel, and
+    against the plain version on the CPU: the same values summed in the same
+    order, so bit for bit; a second call from the same state repeats the
+    bits."""
+    arrays, ids, pooled, index, scalars, kernel, plain = _pooled_setup(cuda, opt, case, dim, grad_dtype)
+    cpu = [t.cpu() for t in arrays]
+    _sorted_update(opt, plain, cpu, ids.cpu(), pooled.cpu(), scalars.cpu(), index.cpu())
+    expanded = [t.clone() for t in arrays]
+    _sorted_update(opt, kernel, expanded, ids, torch.index_select(pooled, 0, index), scalars)
+    again = [t.clone() for t in arrays]
+    before = kernel.launches
+    _sorted_update(opt, kernel, arrays, ids, pooled, scalars, index)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert not torch.equal(arrays[0], again[0])
+    assert all(torch.equal(a, b) for a, b in zip(arrays, expanded))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(arrays, cpu))
+    _sorted_update(opt, kernel, again, ids, pooled, scalars, index)
+    assert all(torch.equal(a, b) for a, b in zip(again, arrays))
+
+
+@pytest.mark.parametrize("bad,error", [
+    ("int64", TypeError), ("short", ValueError), ("2-d", ValueError), ("cpu", ValueError), ("rows", ValueError),
+])
+@pytest.mark.parametrize("opt", ["adagrad", "adam"])
+def test_pooled_update_kernel_refuses_a_wrong_grad_index(cuda, bad, error, opt):
+    """A grad index that is not int32 [N] on the table's card, or pooled
+    grads whose rows do not fit the table, raise before a launch."""
+    arrays, ids, pooled, index, scalars, kernel, _ = _pooled_setup(cuda, opt, ("run", 31, 33), 16,
+                                                                   torch.bfloat16)
+    index = {"int64": index.long(), "short": index[:-1], "2-d": index[None], "cpu": index.cpu()}.get(bad, index)
+    grads = pooled[:, :15].contiguous() if bad == "rows" else pooled
+    before, t0 = kernel.launches, arrays[0].clone()
+    with pytest.raises(error):
+        _sorted_update(opt, kernel, arrays, ids, grads, scalars, index)
+    assert kernel.launches == before and torch.equal(arrays[0], t0)
+
+
 def _dlrm_engine(dtype=torch.bfloat16):
     from recmodels_tpu_torch.data.schema import Schema, slot_spec
     from recmodels_tpu_torch.models import build_model
@@ -1681,21 +1781,53 @@ def _dlrm_batches(schema, n, device, batch=512, seed=5):
 
 def test_dlrm_captured_steps_equal_eager_steps(cuda):
     """DLRM-DCNv2 on multi-hot slots: five ``jit_train_step`` steps against
-    five eager ones, bit for bit (the bag gather, the one stable sort, the
-    expansion and #4 replay their steps' values); every step launches the
-    bag gather and #4 once."""
+    five eager ones, bit for bit (the bag gather, the one stable sort and #4
+    on the pooled grads replay their steps' values); every step launches
+    the bag gather and #4 once, and takes the pooled route once."""
     eng = _dlrm_engine()
     eager, captured = eng.init(seed=0, device=cuda), eng.init(seed=0, device=cuda)
     ts = eng.jit_train_step()
     for b in _dlrm_batches(eng.model.schema, 5, cuda):
         bags, updates = bag_gather.launches, sorted_adagrad_update.launches
+        pooled = profiling.snapshot()["counters"].get("emb.bag_pooled_updates", 0)
         eager, me = eng.train_step(eager, *b)
         assert (bag_gather.launches - bags, sorted_adagrad_update.launches - updates) == (1, 1)
+        assert profiling.snapshot()["counters"]["emb.bag_pooled_updates"] - pooled == 1
         captured, mc = ts(captured, *b)
         assert torch.equal(mc["loss"], me["loss"])
     torch.cuda.synchronize()
     assert ts.graphs == 1
     assert all(torch.equal(a, b) for a, b in zip(_tensors(captured), _tensors(eager)))
+
+
+def test_dlrm_captured_steps_equal_the_expanded_route(cuda, monkeypatch):
+    """Five captured DLRM-DCNv2 steps (#4 reading the pooled grads through
+    the sorted bags) against five eager steps of the route before it: the
+    pooled grads expanded along the sorted bags by ``index_select``, then
+    ``apply_sorted_updates`` on the stream. The table, accumulator and
+    every dense leaf bit for bit."""
+    from recmodels_tpu_torch.embedding.optim import apply_sorted_updates
+    from recmodels_tpu_torch.train import engine as engine_mod
+
+    def expanded_route(opt, table, state, ids_2d, pooled, hotness, step, lr, sorted_stream=None):
+        sorted_ids, bags = bag_sorted_ids(ids_2d, hotness) if sorted_stream is None else sorted_stream
+        grads = torch.index_select(pooled.reshape(-1, pooled.shape[-1]), 0, bags).reshape(-1, *table.shape[1:])
+        return apply_sorted_updates(opt, table, state, sorted_ids, grads, step, lr)
+
+    eng = _dlrm_engine()
+    old, captured = eng.init(seed=0, device=cuda), eng.init(seed=0, device=cuda)
+    ts = eng.jit_train_step()
+    for b in _dlrm_batches(eng.model.schema, 5, cuda, seed=11):
+        captured, mc = ts(captured, *b)
+        with monkeypatch.context() as m:
+            m.setattr(engine_mod, "apply_bag_updates", expanded_route)
+            pooled = profiling.snapshot()["counters"].get("emb.bag_pooled_updates", 0)
+            old, mo = eng.train_step(old, *b)
+            assert profiling.snapshot()["counters"].get("emb.bag_pooled_updates", 0) == pooled
+        assert torch.equal(mc["loss"], mo["loss"])
+    torch.cuda.synchronize()
+    assert ts.graphs == 1
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(captured), _tensors(old)))
 
 
 def test_dlrm_step_on_the_card_matches_the_cpu(cuda):

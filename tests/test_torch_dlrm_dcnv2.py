@@ -38,7 +38,11 @@ from recmodels_tpu_torch.embedding import bag as bag_mod
 from recmodels_tpu_torch.embedding.bag import bag_gather, bag_gather_reference
 from recmodels_tpu_torch.embedding.collection import EmbeddingCollection
 from recmodels_tpu_torch.embedding.gather import gather_rows_reference
-from recmodels_tpu_torch.embedding.optim import bag_sorted_ids, sparse_adagrad
+from recmodels_tpu_torch.embedding import optim as optim_mod
+from recmodels_tpu_torch.embedding.optim import (
+    apply_bag_updates, apply_sorted_updates, bag_sorted_ids, get_sparse_optimizer, sparse_adagrad,
+)
+from recmodels_tpu_torch.embedding.update import adam_scalars, sorted_adagrad_update, sorted_adam_update
 from recmodels_tpu_torch.models import build_model
 from recmodels_tpu_torch.serve import Predictor
 from recmodels_tpu_torch.train import engine as engine_mod
@@ -227,17 +231,19 @@ def test_plain_bag_path_is_gather_then_sum():
 
 def test_bag_sort_gives_each_row_one_run():
     """One stable sort of the whole batch: ascending ids, each row's
-    positions together in b-major order, and each position's bag."""
+    positions together in b-major order, and each position's bag, int32
+    (the update kernels' index)."""
     engine = _engine()
     _, ids, _ = _batch(engine.model.schema, 4)
     gids = _global_ids(engine, ids)
     sorted_ids, bags = bag_sorted_ids(gids, HOT)
+    assert sorted_ids.dtype == bags.dtype == torch.int32
     assert torch.equal(sorted_ids, torch.sort(gids.reshape(-1))[0])
     assert bool((sorted_ids[1:] >= sorted_ids[:-1]).all())
     slot_of = torch.tensor(engine.model.schema.id_slots)
     flat = gids.reshape(-1)
     order = torch.sort(flat, stable=True)[1]
-    assert torch.equal(bags, (order // gids.shape[1]) * len(HOT) + slot_of[order % gids.shape[1]])
+    assert torch.equal(bags, ((order // gids.shape[1]) * len(HOT) + slot_of[order % gids.shape[1]]).int())
     starts = torch.ones_like(sorted_ids, dtype=torch.bool)
     starts[1:] = sorted_ids[1:] != sorted_ids[:-1]
     assert int(starts.sum()) == int(torch.unique(flat).numel())  # one run a row
@@ -263,7 +269,8 @@ def test_one_hot_schemas_take_the_one_hot_path(monkeypatch):
     """With every hotness at 1 nothing of the bag path runs: the row gather
     and the per-slot sort, ids [B, n_slots] offset as before; the schema's
     fields are the JAX package's; a DeepFM step gives the bits of the same
-    step on slots that are bags of one id."""
+    step on slots that are bags of one id; the pooled update route's counter
+    does not move."""
     import dataclasses
 
     sch = criteo_schema(vocab_size=50, embed_dim=8)
@@ -278,6 +285,7 @@ def test_one_hot_schemas_take_the_one_hot_path(monkeypatch):
     monkeypatch.setattr(engine_mod, "bag_sorted_ids", lambda *a: calls.append("sort"))
     monkeypatch.setattr(bag_mod, "bag_gather_reference", lambda *a: calls.append("gather"))
     before = profiling.snapshot()["counters"].get("emb.bag_calls", 0)
+    pooled_before = profiling.snapshot()["counters"].get("emb.bag_pooled_updates", 0)
 
     def run(schema):
         eng = Engine(build_model("deepfm", schema, hidden=(16,)))
@@ -293,6 +301,111 @@ def test_one_hot_schemas_take_the_one_hot_path(monkeypatch):
     for a, b in zip(run(sch), run(explicit)):
         assert torch.equal(a, b)
     assert calls == [] and profiling.snapshot()["counters"].get("emb.bag_calls", 0) == before
+    assert profiling.snapshot()["counters"].get("emb.bag_pooled_updates", 0) == pooled_before
+
+
+def _pooled_stream(dim: int, grad_dtype: torch.dtype, seed: int = 3):
+    """A multi-hot group's sorted stream on the CPU: (table [R, dim] or [R],
+    sorted ids [N] int32 with a sentinel tail, pooled grads [P, dim] or [P]
+    in ``grad_dtype``, bags [N] int32)."""
+    engine = _engine()
+    _, ids, _ = _batch(engine.model.schema, seed)
+    sorted_ids, bags = bag_sorted_ids(_global_ids(engine, ids), HOT)
+    rows = sum(VOCABS)
+    sorted_ids[-2:] = torch.tensor([rows, rows + 5], dtype=torch.int32)
+    g = torch.Generator().manual_seed(seed)
+    row = () if dim == 1 else (dim,)
+    table = torch.randn((rows, *row), generator=g)
+    pooled = torch.randn((B * len(HOT), *row), generator=g).to(grad_dtype)
+    return table, sorted_ids, pooled, bags
+
+
+def _sparse_state(name: str, table: torch.Tensor):
+    """A live optimizer state for ``table``: Adagrad's acc, Adam's m and v."""
+    g = torch.Generator().manual_seed(9)
+    if name == "adagrad":
+        return {"acc": torch.rand(table.shape, generator=g) + 0.1}
+    return {"m": torch.randn(table.shape, generator=g) * 0.1, "v": torch.rand(table.shape, generator=g) * 0.01}
+
+
+def _sorted_update(name: str, table, state, sorted_ids, grads, grad_index=None):
+    """The sorted-stream update of ``name`` at lr 0.05 (Adam at step 3)."""
+    lr = torch.tensor(0.05)
+    if name == "adagrad":
+        sorted_adagrad_update(table, state["acc"], sorted_ids, grads, lr, 1e-8, grad_index)
+    else:
+        scalars = adam_scalars(lr, torch.tensor(3, dtype=torch.int32), 0.9, 0.999)
+        sorted_adam_update(table, state["m"], state["v"], sorted_ids, grads, scalars, 0.9, 0.999, 1e-8, grad_index)
+
+
+@pytest.mark.parametrize("name", ["adagrad", "adam"])
+@pytest.mark.parametrize("dim", [8, 1])
+@pytest.mark.parametrize("grad_dtype", [torch.bfloat16, torch.float32])
+def test_pooled_plain_updates_equal_the_expanded_stream(name, dim, grad_dtype):
+    """The plain versions take pooled grads through ``grad_index`` as the
+    expanded stream: bit for bit the update of the pooled rows expanded
+    along the bags (the reference the kernels are held to on the card)."""
+    table, sorted_ids, pooled, bags = _pooled_stream(dim, grad_dtype)
+    state = _sparse_state(name, table)
+    want_t, want_s = table.clone(), {k: v.clone() for k, v in state.items()}
+    _sorted_update(name, want_t, want_s, sorted_ids, torch.index_select(pooled, 0, bags.long()))
+    _sorted_update(name, table, state, sorted_ids, pooled, bags)
+    assert not torch.equal(table, _pooled_stream(dim, grad_dtype)[0])  # the update moved rows
+    assert torch.equal(table, want_t) and all(torch.equal(state[k], want_s[k]) for k in state)
+
+
+@pytest.mark.parametrize("name", ["adagrad", "adam"])
+@pytest.mark.parametrize("bad,error", [
+    ("int64", TypeError), ("short", ValueError), ("2-d", ValueError), ("rows", ValueError),
+])
+def test_a_wrong_grad_index_raises(name, bad, error):
+    """A grad index that is not int32 [N], or pooled grads whose rows do not
+    fit the table, raise before anything is updated."""
+    table, sorted_ids, pooled, bags = _pooled_stream(8, torch.bfloat16)
+    state = _sparse_state(name, table)
+    before = table.clone()
+    index = {"int64": bags.long(), "short": bags[:-1], "2-d": bags[None]}.get(bad, bags)
+    grads = pooled[:, :7] if bad == "rows" else pooled
+    with pytest.raises(error):
+        _sorted_update(name, table, state, sorted_ids, grads, index)
+    assert torch.equal(table, before)
+
+
+@pytest.mark.parametrize("name", ["adagrad", "adam", "adam_dense"])
+def test_cpu_tables_and_dense_adam_expand_the_pooled_grads(monkeypatch, name):
+    """On a CPU table every optimizer takes the pooled grads expanded along
+    the sorted bags (dense Adam on any device): ``apply_sorted_updates``
+    gets the expanded stream and no index, the pooled route's counter does
+    not move, and the state is the old route's bit for bit."""
+    table, _, _, _ = _pooled_stream(8, torch.float32)
+    engine = _engine()
+    _, ids, _ = _batch(engine.model.schema, 8)
+    gids = _global_ids(engine, ids)
+    pooled = torch.randn((B, len(HOT), DIM), generator=torch.Generator().manual_seed(4))
+    opt = get_sparse_optimizer(name)
+    state = opt.init(table.shape[0], DIM) if name == "adam_dense" else _sparse_state(name, table)
+    old_t, old_s = table.clone(), {k: v.clone() for k, v in state.items()}
+    step, lr = torch.tensor(2, dtype=torch.int32), torch.tensor(0.05)
+    sorted_ids, bags = bag_sorted_ids(gids, HOT)
+    apply_sorted_updates(opt, old_t, old_s, sorted_ids,
+                         torch.index_select(pooled.reshape(-1, DIM), 0, bags.long()), step, lr)
+    seen = []
+    real = optim_mod.apply_sorted_updates
+    monkeypatch.setattr(optim_mod, "apply_sorted_updates",
+                        lambda *a, grad_index=None: seen.append((a[4].shape, grad_index)) or real(*a))
+    before = profiling.snapshot()["counters"].get("emb.bag_pooled_updates", 0)
+    apply_bag_updates(opt, table, state, gids, pooled, HOT, step, lr)
+    assert seen == [((B * sum(HOT), DIM), None)]
+    assert profiling.snapshot()["counters"].get("emb.bag_pooled_updates", 0) == before
+    assert torch.equal(table, old_t) and all(torch.equal(state[k], old_s[k]) for k in state)
+
+
+def test_dense_adam_refuses_a_grad_index():
+    table, sorted_ids, pooled, bags = _pooled_stream(8, torch.float32)
+    opt = get_sparse_optimizer("adam_dense")
+    with pytest.raises(ValueError, match="dense Adam"):
+        apply_sorted_updates(opt, table, opt.init(table.shape[0], 8), sorted_ids, pooled,
+                             torch.tensor(0, dtype=torch.int32), torch.tensor(0.05), grad_index=bags)
 
 
 def test_bag_gather_counts_its_lookups():

@@ -1,13 +1,23 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and its
+paths (steps, scorer, eval, CLIs, sharded steps) against the CPU's plain
+path and against their eager selves, on the card.
 
 These need an NVIDIA GPU (the kernels have no CPU mode) and skip elsewhere.
 The file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Small and ragged shapes here; ``chip_smoke.py`` covers the flagship shapes.
+Small and ragged shapes here; ``chip_smoke.py`` times the kernels at the
+flagship shapes.
 """
 
+import contextlib
+import faulthandler
+import os
+import re
+import sys
+
+import numpy as np
 import pytest
 import torch
 
@@ -15,7 +25,7 @@ from recmodels_tpu_torch.embedding.bag import bag_gather, bag_gather_reference
 from recmodels_tpu_torch.embedding.gather import gather_rows, gather_rows_reference
 from recmodels_tpu_torch.embedding.optim import bag_sorted_ids
 from recmodels_tpu_torch.embedding.update import (
-    adam_scalars, sorted_adagrad_update, sorted_adagrad_update_reference, sorted_adam_update,
+    adam_constants, adam_scalars, sorted_adagrad_update, sorted_adagrad_update_reference, sorted_adam_update,
     sorted_adam_update_reference,
 )
 from recmodels_tpu_torch.nn.mlp import ProductF32
@@ -30,6 +40,15 @@ pytestmark = pytest.mark.cuda
 BF16_REL_TOL = 1e-2
 # f32 CIN layer: the same f32 sums (up to Hk * m terms) in another order
 F32_REL_TOL = 1e-4
+# the card's logits against the CPU's plain path: the same formulas, bf16
+# rounding flips from summation order through the interaction and the MLP;
+# BCE is 1-Lipschitz in each logit, so it bounds a step's loss too
+LOGIT_REL_TOL = 1e-2
+# the card's step against the CPU's from one state: the grads pass through
+# the same bf16 rounding points, one that lands a bf16 step apart moves a
+# grad by about 2^-8 of its size; 3% of each tensor's largest change (the
+# repo's bf16 rule, tests/test_tpu_kernels.py) bounds it
+STEP_REL_TOL = 0.03
 
 
 @pytest.fixture
@@ -871,20 +890,37 @@ def test_fm_and_dcn_functions_on_the_card(cuda):
 
 
 # ------------------------------------------------ captured steps and scorer
+# path: (model, its TrainConfig fields beyond vocab 1000, dim 16, DNN(64, 64)
+# and bench.py's dtype: bf16 but for FM and LR)
+_SMALL_PATHS = {
+    "slice2": ("xdeepfm", dict(cin_sizes=(32, 32))),
+    "slice3": ("xdeepfm", dict(cin_sizes=(128, 128, 128))),
+    "xdeepfm_f32": ("xdeepfm", dict(cin_sizes=(32, 32), bf16=False)),
+    # the shapes the card once refused (ROADMAP queue 3): the fused CIN at
+    # dim 32, at widths 256 and at 100 (zero-padded to 112); DCN's x0 of
+    # 1,053, the cross stack's wide-row path
+    "xdeepfm_d32": ("xdeepfm", dict(cin_sizes=(128, 128), embed_dim=32)),
+    "cin256": ("xdeepfm", dict(cin_sizes=(256, 256))),
+    "cin100": ("xdeepfm", dict(cin_sizes=(100, 100))),
+    "dcn": ("dcn", dict(n_cross=2)),
+    "dcn_d40": ("dcn", dict(n_cross=3, embed_dim=40)),
+    "afm": ("afm", dict(attention_dim=8)),
+}
+
+
 def _small_engine(path):
     """Small engines of every training path: slice 2 (CIN(32, 32), fused
     wide column, Adagrad), slice 3 (CIN(128, 128, 128), unfused wide table,
     lazy Adam), DeepFM, DCN and FM (slice 4), LR, PNN (mode both), Wide&Deep,
-    NFM and AFM (slice 6), bench.py's dtypes."""
+    NFM and AFM (slice 6), f32 xDeepFM (its CIN a layer at a time) and the
+    repaired shapes of ``_SMALL_PATHS``, bench.py's dtypes."""
     from recmodels_tpu_torch.models import build_model
     from recmodels_tpu_torch.train.engine import Engine
     from recmodels_tpu_torch.utils.config import TrainConfig, build_schema
 
-    model = "xdeepfm" if path.startswith("slice") else path
-    kw = {"slice2": dict(cin_sizes=(32, 32)), "slice3": dict(cin_sizes=(128, 128, 128)),
-          "dcn": dict(n_cross=2), "afm": dict(attention_dim=8)}.get(path, {})
-    cfg = TrainConfig(model=model, vocab_size=1000, embed_dim=16, hidden=(64, 64),
-                      bf16=path not in ("fm", "lr"), **kw)
+    model, kw = _SMALL_PATHS.get(path, (path, {}))
+    cfg = TrainConfig(model=model, **{**dict(vocab_size=1000, embed_dim=16, hidden=(64, 64),
+                                             bf16=path not in ("fm", "lr")), **kw})
     schema = build_schema(cfg)
     opts = dict(sparse_optimizer="adam", fuse_wide=False) if path == "slice3" else {}
     return Engine(build_model(model, schema, **cfg.model_kwargs()), **opts), schema, cfg
@@ -1001,7 +1037,7 @@ def test_captured_predictor_matches_eager_logits(cuda, tmp_path):
     """The bucketed Predictor on the card (one graph a bucket, from 64):
     requests of 1, 100, 300 and 70 (buckets 64, 128, 512, 128 again) are bit
     for bit ``Engine.logits`` on the padded request, and within the serving
-    tolerance (1% of the largest |logit|, as chip_smoke.py) of the unpadded
+    tolerance (LOGIT_REL_TOL of the largest |logit|) of the unpadded
     request's."""
     from recmodels_tpu_torch.serve import export_model, load_predictor
 
@@ -1033,6 +1069,259 @@ def test_captured_predictor_matches_eager_logits(cuda, tmp_path):
     with torch.inference_mode():
         want = pred.engine.logits(pred.state, pad_d, pad_i)[:100].cpu()
     assert torch.equal(torch.from_numpy(got), want) and sorted(pred._buckets) == [128]
+
+
+# ------------------------------------ the step and the scorer against the CPU
+_FUSED_CIN = {gather_rows: True, K.split_fused_rows: True, K.cin2_forward: True, K.cin_layer_forward: False}
+_FUSED_CIN_STEP = {sorted_adagrad_update: True, K.split_fused_rows_backward: True, K.cin2_backward: True}
+_ONE_TABLE = ({gather_rows: True}, {sorted_adagrad_update: True})
+# each path's route: (the forward's kernels, the step's others), each kernel
+# to True where it launches, False where it must not, n where one eager step
+# launches it exactly n times (a served request: at least once)
+_ROUTES = {
+    "slice2": (_FUSED_CIN, _FUSED_CIN_STEP),
+    "slice3": ({gather_rows: 2, K.cin_layer_forward: 3, K.cin2_forward: False},
+               {K.transpose_minor2: True, K.cin_layer_backward: True, sorted_adam_update: 2}),
+    "deepfm": ({gather_rows: True, K.fm_pairwise_forward: True}, {sorted_adagrad_update: True}),
+    "dcn": ({gather_rows: True, K.dcn_cross_stack_forward: True}, {sorted_adagrad_update: True}),
+    "fm": ({gather_rows: True, K.fm_pairwise_forward: True}, {sorted_adagrad_update: True}),
+    "xdeepfm_f32": ({gather_rows: True, K.split_fused_rows: True, K.cin_layer_forward: 2, K.cin2_forward: False},
+                    {sorted_adagrad_update: True, K.split_fused_rows_backward: True}),
+    "lr": _ONE_TABLE, "pnn": _ONE_TABLE, "widedeep": _ONE_TABLE, "nfm": _ONE_TABLE, "afm": _ONE_TABLE,
+    "xdeepfm_d32": (_FUSED_CIN, _FUSED_CIN_STEP),
+    "cin256": (_FUSED_CIN, _FUSED_CIN_STEP),
+    "cin100": (_FUSED_CIN, _FUSED_CIN_STEP),
+    "dcn_d40": ({gather_rows: True, K.dcn_cross_stack_forward: True}, {sorted_adagrad_update: True}),
+}
+# the rows' scale in ``_liven``: the FM term and PNN's products grow with its
+# square, 3 keeps those logits within a few units; AFM's pooled pairs, far
+# smaller than the rows, grow with its cube (its p is scaled too), and 15
+# lifts them past TERM_MIN_TOLS
+_ROWS_SCALE = {"deepfm": 3.0, "fm": 3.0, "pnn": 3.0, "nfm": 3.0, "afm": 15.0}
+
+
+def _liven(state, gen, scale, dim):
+    """Give every kernel of the path a visible share of the logits, in
+    place. ``Engine.init`` leaves the first-order column, ``w_dense``, the
+    bias and DCN's cross biases at zero, and its N(0, 0.05) rows leave the
+    second CIN pool near 1e-3 of a logit: a wrong ``wide_sum`` or p2 would
+    pass a comparison with the CPU. Rows times ``scale``, a first-order
+    column (the fused table's last, of ``dim + 1``, or the dim-1 ``wide``
+    table) N(0, 0.2) and a drawn ``w_dense``, bias and cross bias fix that;
+    AFM's attention-pooled pairs are far smaller than the rows, so its ``p``
+    is scaled too."""
+    wide = state.emb_params.get("wide", {})
+    for table in state.emb_params.get("emb", {}).values():
+        if wide or table.shape[1] != dim + 1:  # no fused first-order column
+            table *= scale
+        else:
+            table[:, :-1] *= scale
+            table[:, -1] = torch.randn(table.shape[0], generator=gen, device=table.device) * 0.2
+    for table in wide.values():
+        table.copy_(torch.randn(table.shape, generator=gen, device=table.device) * 0.2)
+    dp, dev = state.dense_params, state.step.device
+    if "w_dense" in dp:
+        dp["w_dense"] = torch.randn(dp["w_dense"].shape, generator=gen, device=dev) * 0.1
+    if "cross" in dp:
+        dp["cross"]["b"] = torch.randn(dp["cross"]["b"].shape, generator=gen, device=dev) * 0.1
+    if "p" in dp:
+        dp["p"] = dp["p"] * scale
+    if "bias" in dp:
+        dp["bias"] = torch.randn((), generator=gen, device=dev) * 0.1
+
+
+# each term a kernel of the path makes must move some logit by at least this
+# many logit tolerances, so that a comparison with the CPU sees it go wrong
+TERM_MIN_TOLS = 10.0
+
+
+def _term_sizes(pred, dense, ids):
+    """Largest |contribution| to a logit over the requests given of each
+    term that a kernel of the path makes, through the predictor's own
+    wrappers (the plain versions for a CPU predictor) and the model's own
+    routes: xDeepFM's ``wide_sum``, p1 . w_cin and p2 . w_cin; the FM term
+    of DeepFM and FM; what DCN's cross layers add beyond x0,
+    (x_L - x0) . w_out; the first-order sum (all zoo models but PNN), PNN's
+    products (the MLP of its input against the MLP of it with the product
+    features zeroed), NFM's MLP of the bi-interaction against the MLP of
+    zeros, AFM's attention-pooled pairs (the logit less its linear terms)."""
+    from recmodels_tpu_torch.nn.mlp import mlp_apply
+    from recmodels_tpu_torch.ops.dispatch import get_op
+    from recmodels_tpu_torch.ops.interactions import fm_bi_interaction
+
+    eng, st = pred.engine, pred.state
+    model, dp = eng.model, st.dense_params
+    cd = getattr(model, "compute_dtype", torch.float32)
+    with torch.inference_mode():
+        ids_t = torch.as_tensor(ids, device=pred.device)
+        dense_t = torch.as_tensor(dense, device=pred.device)
+        rows = eng.tables.gather(st.emb_params, eng._group_ids(ids_t), eng._gather_dtype)
+        ((_, groups),) = rows.items()
+        (full,) = groups.values()
+        if model.name == "xdeepfm":
+            x_dm, ws = K.split_fused_rows(full.to(cd), full.shape[2] - 1)
+            pools = K.cin_stack_dm_flat(x_dm, [w.to(cd) for w in dp["cin_w"]]).float()
+            h1 = model.cin_sizes[0]
+            return {"wide_sum": ws.abs().max().item(),
+                    "p1 . w_cin": (pools[:, :h1] @ dp["w_cin"][:h1]).abs().max().item(),
+                    "p2 . w_cin": (pools[:, h1:] @ dp["w_cin"][h1:]).abs().max().item()}
+        if model.name in ("deepfm", "fm"):
+            return {"FM term": K.fm_pairwise_forward(full[..., :-1]).abs().max().item()}
+        if model.name == "dcn":
+            x0 = torch.cat([full.reshape(full.shape[0], -1), dense_t.to(cd)], dim=1)
+            xl = K.dcn_cross_stack_forward(x0, dp["cross"]["w"].to(cd), dp["cross"]["b"].to(cd))
+            return {"(x_L - x0) . w_out": ((xl.float() - x0.float()) @ dp["w_out"][: x0.shape[1]]).abs().max().item()}
+        if model.name == "lr":
+            return {"wide_sum": full.float().sum(dim=(1, 2)).abs().max().item()}
+        if model.name == "pnn":
+            b = full.shape[0]
+            z = [full.reshape(b, -1), dense_t.to(full.dtype)]
+            parts = []
+            if model.mode in ("inner", "both"):
+                parts.append(get_op("pnn_inner_products")(full))
+            if model.mode in ("outer", "both"):
+                parts.append(get_op("pnn_outer_product")(full).reshape(b, -1))
+            p = torch.cat(parts, dim=1)
+            y, y0 = (mlp_apply(dp["mlp"], torch.cat(z + [q], dim=1), final_linear=True, compute_dtype=cd)
+                     for q in (p, torch.zeros_like(p)))
+            return {"products": (y - y0).abs().max().item()}
+        e, wide = full[..., :-1], full[..., -1:].float()
+        ws = wide[..., 0].sum(dim=1)
+        out = {"wide_sum": ws.abs().max().item()}
+        if model.name == "nfm":
+            bi = fm_bi_interaction(e)
+            y, y0 = (mlp_apply(dp["mlp"], q, final_linear=True, compute_dtype=cd) for q in (bi, torch.zeros_like(bi)))
+            out["MLP(bi) - MLP(0)"] = (y - y0).abs().max().item()
+        if model.name == "afm":
+            logit = model.apply(dp, dense_t, {"emb": e, "wide": wide})
+            out["p . pooled"] = (logit - (dp["bias"] + ws + dense_t @ dp["w_dense"])).abs().max().item()
+        return out
+
+
+def _launched(route, before):
+    """Each kernel of ``route`` launched as it says since ``before`` (the
+    counts then): any number for True, none for False, exactly n for n."""
+    for k, want in route.items():
+        n = k.launches - before[k]
+        assert n == want if type(want) is int else (n > 0) is want, f"{k.__name__}: {n} launches, want {want}"
+
+
+def _held_to_the_cpu(what, got, want, before):
+    """A tensor of the card's step within STEP_REL_TOL of the CPU step's
+    largest change of it."""
+    got, want, before = got.cpu().float(), want.float(), before.float()
+    err, change = (got - want).abs().max().item(), (want - before).abs().max().item()
+    assert change > 0 and err <= STEP_REL_TOL * change, f"{what}: err {err:.6g}, change {change:.6g}"
+
+
+def _adam_step_of(before, m, v, scalars):
+    """The table after lazy Adam's step from its new moments (on the CPU, in
+    the update's order of operations and f32 constants), with the step's
+    [lr, bc1, bc2] as the card computed them."""
+    c = adam_constants(0.9, 0.999, 1e-8)
+    lr, bc1, bc2 = scalars.cpu().unbind()
+    return before + (-lr * (m / bc1)) / (torch.sqrt((v / bc2).double()).float() + c["eps"])
+
+
+def _step_matches_the_cpu(cuda, path):
+    """One step of ``_small_engine(path)`` from a live state at 512
+    examples on the card and on the CPU's plain path; see
+    ``test_step_on_the_card_matches_the_cpu``."""
+    eng, schema, cfg = _small_engine(path)
+    card = eng.init(seed=0, device=cuda)
+    _liven(card, _gen(cuda, 31), _ROWS_SCALE.get(path, 10.0), cfg.embed_dim)
+    before, cpu = _to_cpu_state(card), _to_cpu_state(card)
+    (b,) = _card_batches(schema, 1, cuda)
+    dense, ids, labels = (t.cpu() for t in b)
+    route = {**_ROUTES[path][0], **_ROUTES[path][1]}
+    counts = {k: k.launches for k in route}
+    card, mc = eng.train_step(card, *b)
+    torch.cuda.synchronize()
+    _launched(route, counts)
+    cpu, mh = eng.train_step(cpu, dense, ids, labels)
+    with torch.no_grad():
+        max_logit = eng.logits(before, dense, ids).abs().max().item()
+    assert abs(mc["loss"].item() - mh["loss"].item()) <= LOGIT_REL_TOL * max_logit
+    # Adam's moments hold the dense grads; its step m / (sqrt(v) + eps) is
+    # near lr * sign(g) where this step's grads outgrow the history (as
+    # after _liven), so the params are not compared
+    for name in ("mu", "nu"):
+        for j, leaves in enumerate(zip(card.dense_opt[name], cpu.dense_opt[name], before.dense_opt[name])):
+            _held_to_the_cpu(f"Adam {name} leaf {j}", *leaves)
+    for cname, coll in eng.collections.items():
+        for grp in coll.groups:
+            def rows(st, key=None):  # a dim-1 table as [R, 1]
+                t = st.emb_params[cname][grp.name] if key is None else st.emb_opt[cname][grp.name][key]
+                return t.cpu().reshape(t.shape[0], -1)
+
+            keys = [None, *card.emb_opt[cname][grp.name]]
+            got, want, old = ({k: rows(st, k) for k in keys} for st in (card, cpu, before))
+            touched = torch.zeros(old[None].shape[0], dtype=torch.bool)
+            touched[coll.group_row_ids(ids)[grp.name].reshape(-1).long()] = True
+            for k in keys:
+                assert torch.equal(got[k][~touched], old[k][~touched]), (cname, k, "untouched rows")
+                assert torch.equal(want[k][~touched], old[k][~touched]), (cname, k, "untouched rows")
+            if "m" in got:  # lazy Adam normalises each grad: the table moves by its own moments' step
+                for k in ("m", "v"):
+                    _held_to_the_cpu(f"{cname} {k}", got[k][touched], want[k][touched], old[k][touched])
+                scalars = adam_scalars(torch.tensor(eng.emb_lr, device=cuda), before.step.to(cuda), 0.9, 0.999)
+                assert torch.equal(got[None][touched], _adam_step_of(old[None][touched], got["m"][touched],
+                                                                     got["v"][touched], scalars))
+                continue
+            # the fused first-order column's grads outgrow the embedding
+            # columns': each part is held to its own largest change
+            parts = ((slice(0, -1), slice(-1, None)) if old[None].shape[1] == cfg.embed_dim + 1
+                     else (slice(None),))
+            for k in keys:
+                for cols in parts:
+                    _held_to_the_cpu(f"{cname} {k or 'table'} {cols}", got[k][touched, cols],
+                                     want[k][touched, cols], old[k][touched, cols])
+
+
+def _to_cpu_state(state):
+    return type(state)(*(_to_cpu(x) for x in state))
+
+
+_STEP_PATHS = ["slice2", "slice3", "deepfm", "dcn", "fm", "xdeepfm_f32", "lr", "pnn", "widedeep", "nfm", "afm",
+               "xdeepfm_d32", "cin256", "cin100", "dcn_d40"]
+
+
+@pytest.mark.parametrize("path", [p for p in _STEP_PATHS if p != "slice3"])  # an artifact has no fuse_wide
+def test_served_logits_on_the_card_match_the_cpu(cuda, path, tmp_path):
+    """A live state (``_liven``) exported and served by ``load_predictor``
+    on the card and on the CPU: at 512 requests the card's logits are
+    finite, bit for bit eager ``Engine.logits`` on the request padded to its
+    bucket, whose graph is the scorer's one, and within LOGIT_REL_TOL of the
+    largest |logit| of the CPU's plain path; the forward's kernels of the
+    path's route launch, those it names False do not; each term a kernel
+    makes (``_term_sizes``, on the CPU) moves some logit by TERM_MIN_TOLS
+    of that tolerance, so the comparison would see it go wrong."""
+    from recmodels_tpu_torch.serve import export_model, load_predictor
+
+    eng, schema, cfg = _small_engine(path)
+    state = eng.init(seed=0, device=cuda)
+    _liven(state, _gen(cuda, 37), _ROWS_SCALE.get(path, 10.0), cfg.embed_dim)
+    export_model(str(tmp_path), cfg, eng, state)
+    (dense, ids, _), = _card_batches(schema, 1, cuda, seed=9)
+    pred = load_predictor(str(tmp_path), device="cuda")
+    forward = {k: bool(want) for k, want in _ROUTES[path][0].items()}
+    counts = {k: k.launches for k in forward}
+    got = pred.predict_logits(dense.cpu().numpy(), ids.cpu().numpy())
+    torch.cuda.synchronize()
+    _launched(forward, counts)
+    bucket = pred._bucket(512)
+    assert np.all(np.isfinite(got)) and sorted(pred._buckets) == [bucket] and pred._buckets[bucket].graph is not None
+    pad_d = torch.zeros((bucket, dense.shape[1]), device=cuda)
+    pad_i = torch.zeros((bucket, ids.shape[1]), dtype=torch.int32, device=cuda)
+    pad_d[:512], pad_i[:512] = dense, ids
+    with torch.inference_mode():
+        assert torch.equal(torch.from_numpy(got), pred.engine.logits(pred.state, pad_d, pad_i)[:512].cpu())
+    cpu_pred = load_predictor(str(tmp_path), device="cpu")
+    want = cpu_pred.predict_logits(dense.cpu().numpy(), ids.cpu().numpy())
+    tol = LOGIT_REL_TOL * np.abs(want).max()
+    assert np.abs(got - want).max() <= tol
+    for name, size in _term_sizes(cpu_pred, dense.cpu(), ids.cpu()).items():
+        assert size >= TERM_MIN_TOLS * tol, f"{name}: {size:.6g} < {TERM_MIN_TOLS} x the logit tolerance {tol:.6g}"
 
 
 # ---------------------------------------------------------------- slice 6
@@ -1180,6 +1469,116 @@ def test_checkpoint_round_trip_of_a_card_state(cuda, tmp_path):
     torch.cuda.synchronize()
     assert ts.graphs == 1
     assert all(torch.equal(a, b) for a, b in zip(_tensors(target), _tensors(eager)))
+
+
+# the loop's CLIs at a small shape; past WATCHDOG_S every thread's stack goes
+# to stderr and the process exits (ROADMAP queue 3: the training loop hung
+# once on the card, with no traceback)
+WATCHDOG_S = 300
+CRITEO_SAMPLE = os.path.join(os.path.dirname(__file__), "fixtures", "criteo_sample.tsv")
+
+
+@contextlib.contextmanager
+def _watchdog():
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True, file=sys.__stderr__)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _cli_args(batch=512):
+    """bf16 xDeepFM, CIN(32, 32), DNN(64, 64) over 26 slots of 1,000 ids,
+    the engine's optimizers, adamw decay, superbatches of 5."""
+    return ["--model", "xdeepfm", "--batch-size", str(batch), "--set", "bf16=True", "--set", "vocab_size=1000",
+            "--set", "embed_dim=16", "--set", "cin_sizes=(32, 32)", "--set", "hidden=(64, 64)",
+            "--set", "scan_steps=5", "--set", "log_every=5", "--set", "producer_workers=1",
+            "--set", "dense_weight_decay=1e-4"]
+
+
+def _logged(out, kind):
+    """(step, scalars) of each ``step N <kind> {...}`` line a logger wrote."""
+    import json
+
+    return [(int(m.group(1)), json.loads(m.group(2))) for m in re.finditer(rf"step +(\d+) {kind} (\{{.*\}})", out)]
+
+
+@pytest.mark.parametrize("data", ["synthetic", "device_synth"])
+def test_cli_train_resume_export_predict_on_the_card(cuda, tmp_path, capsys, data):
+    """``cli.train`` on the card, host-fed or generated on the card, under a
+    watchdog: 40 steps with checkpoints every 10 and eval of 2 held-out
+    batches at the end launch the step's kernels inside the Trainer (and
+    the batch kernel, generated); the last logged loss is below the first,
+    val AUC and logloss finite, checkpoint 40 the latest. 20 steps, then a
+    new run resuming them to 40, end bit for bit on the straight run's
+    state. Host-fed: ``cli.export`` of checkpoint 40 and ``cli.predict`` of
+    two synthetic batches with the artifact give sigmoid(``Engine.logits``)
+    of the restored checkpoint, within a quarter of LOGIT_REL_TOL of the
+    largest |logit| (the sigmoid moves by at most a quarter of its
+    argument's change)."""
+    from recmodels_tpu_torch.cli import export as export_cli
+    from recmodels_tpu_torch.cli import predict as predict_cli
+    from recmodels_tpu_torch.cli import train as train_cli
+    from recmodels_tpu_torch.data import SyntheticSource
+    from recmodels_tpu_torch.data import device_synth as ds
+    from recmodels_tpu_torch.train.loop import Trainer
+    from recmodels_tpu_torch.utils.config import TrainConfig
+    from recmodels_tpu_torch.utils.tree import leaves
+
+    common = _cli_args() + ["--data", data, "--set", "ckpt_every=10", "--set", "eval_every=40",
+                            "--set", "eval_batches=2"]
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    route = {**_FUSED_CIN, **_FUSED_CIN_STEP, **({ds.synth_batch: True} if data == "device_synth" else {})}
+    counts = {k: k.launches for k in route}
+    with _watchdog():
+        assert train_cli.main(common + ["--steps", "40", "--ckpt-dir", a]) == 0
+        out = capsys.readouterr().out
+        _launched(route, counts)
+        assert train_cli.main(common + ["--steps", "20", "--ckpt-dir", b]) == 0
+        assert train_cli.main(common + ["--steps", "40", "--ckpt-dir", b]) == 0
+    assert "resumed from checkpoint at step 20" in capsys.readouterr().out
+    train, val = _logged(out, "train"), _logged(out, "val")
+    assert len(train) >= 2 and train[-1][1]["loss"] < train[0][1]["loss"], train
+    assert len(val) == 1 and all(np.isfinite(val[0][1][k]) for k in ("auc", "logloss")), val
+    for ckpt in (a, b):
+        assert max(int(d) for d in os.listdir(ckpt) if d.isdigit()) == 40
+    straight, resumed = (torch.load(os.path.join(d, "40", "state.pt"), map_location="cpu", weights_only=True)
+                         for d in (a, b))
+    assert all(torch.equal(x, y) for x, y in zip(leaves(straight), leaves(resumed), strict=True))
+    if data != "synthetic":
+        return
+    art, preds = str(tmp_path / "art"), str(tmp_path / "preds.txt")
+    with _watchdog():
+        assert export_cli.main(["--ckpt-dir", a, "--out", art]) == 0
+        assert predict_cli.main(["--model-dir", art, "--data", "synthetic", "--max-batches", "2", "--out", preds]) == 0
+    probs = np.loadtxt(preds)
+    cfg = TrainConfig.from_json(open(os.path.join(a, "config.json")).read())
+    trainer = Trainer(cfg.apply_overrides([f"ckpt_dir={a!r}"]))
+    state, _ = trainer.ckpt.restore(trainer.engine.init(seed=cfg.seed, device=trainer.device))
+    assert int(state.step) == 40 and probs.shape == (1024,)
+    src = iter(SyntheticSource(trainer.schema, batch_size=512, seed=cfg.seed))
+    with torch.no_grad():
+        z = torch.cat([trainer.engine.logits(state, *(torch.as_tensor(x, device=cuda) for x in (bt.dense, bt.ids)))
+                       for bt in (next(src) for _ in range(2))]).double().cpu().numpy()
+    assert np.abs(probs - 1.0 / (1.0 + np.exp(-z))).max() <= 0.25 * LOGIT_REL_TOL * np.abs(z).max() + 5e-7
+
+
+def test_cli_on_the_criteo_sample_on_the_card(cuda, tmp_path, capsys):
+    """``cli.train`` of 4 steps of 32 on the Criteo sample through the
+    native parser, then ``cli.predict`` of its 96 rows from the checkpoint,
+    under a watchdog: 96 probabilities in (0, 1), scored."""
+    from recmodels_tpu_torch.cli import predict as predict_cli
+    from recmodels_tpu_torch.cli import train as train_cli
+
+    ckpt, preds = str(tmp_path / "ckpt"), str(tmp_path / "preds.txt")
+    with _watchdog():
+        assert train_cli.main(_cli_args(32) + ["--data", CRITEO_SAMPLE, "--steps", "4", "--ckpt-dir", ckpt,
+                                               "--set", "scan_steps=2", "--set", "eval_every=0"]) == 0
+        assert predict_cli.main(["--ckpt-dir", ckpt, "--data", CRITEO_SAMPLE, "--batch-size", "32",
+                                 "--out", preds]) == 0
+    probs = np.loadtxt(preds)
+    assert probs.shape == (96,) and np.all((probs > 0) & (probs < 1))
+    assert "eval n=96 auc=" in capsys.readouterr().out
 
 
 # ------------------------------------------- slice 8: in-graph generation
@@ -1392,6 +1791,51 @@ def test_owner_gather_of_clamped_ids(cuda, nccl_mesh, capacity_factor):
     assert torch.equal(out[~zero], want[~zero])
 
 
+def test_sharded_scan_eval_and_overflow_on_the_card(cuda, nccl_mesh):
+    """In the NCCL world of one, from one start state: each eager sharded
+    step launches the kernels of the flagship's step; ``build_parallel_scan``
+    over the same four batches gives their losses bit for bit, overflow 0;
+    ``build_parallel_steps``' eval of the trained state adds the local
+    engine's ``jit_eval_step`` AUC state bit for bit; at a capacity factor
+    of 0.05 ``gather_with_stats`` drops as many lookups as the CPU's plain
+    sharded engine (a gloo group of one beside the NCCL one), whose rows are
+    the card's bit for bit."""
+    import torch.distributed as dist
+
+    from recmodels_tpu_torch.parallel import build_parallel_scan, build_parallel_steps, make_mesh, shard_state
+    from recmodels_tpu_torch.train.metrics import auc_init
+
+    local_eng, eng, schema = _sharded_twin("slice2", nccl_mesh)
+    start = eng.init(seed=0, device=cuda)
+    eager, scanned, local = (shard_state(start, nccl_mesh) for _ in range(3))
+    bs = _card_batches(schema, 4, cuda)
+    route = {**_ROUTES["slice2"][0], **_ROUTES["slice2"][1]}
+    losses = []
+    for b in bs:
+        counts = {k: k.launches for k in route}
+        eager, m = eng.train_step(eager, *b)
+        _launched(route, counts)
+        losses.append(m["loss"])
+        local, _ = local_eng.train_step(local, *b)
+    scanned, ms = build_parallel_scan(eng, nccl_mesh)(scanned, *(torch.stack([x[i] for x in bs]) for i in range(3)))
+    assert torch.equal(ms["losses"], torch.stack(losses)) and int(ms["overflow"]) == 0
+    _, evaluate = build_parallel_steps(eng, nccl_mesh)
+    es = local_eng.jit_eval_step()
+    auc_s, auc_l = auc_init(device=cuda), auc_init(device=cuda)
+    for b in _card_batches(schema, 3, cuda, seed=8):
+        evaluate(eager, auc_s, *b)
+        es(local, auc_l, *b)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(auc_s, auc_l))
+    _, low, _ = _sharded_twin("slice2", nccl_mesh, 0.05)
+    _, low_cpu, _ = _sharded_twin("slice2", make_mesh(1, group=dist.new_group(backend="gloo")), 0.05)
+    ids = bs[0][1]
+    got, overflow = low.tables.gather_with_stats(eager.emb_params, low._group_ids(ids))
+    want, overflow_cpu = low_cpu.tables.gather_with_stats(_to_cpu(eager.emb_params), low_cpu._group_ids(ids.cpu()))
+    assert int(overflow) == int(overflow_cpu) > 0
+    assert torch.equal(got["emb"]["d17"].cpu(), want["emb"]["d17"])
+
+
 @pytest.mark.parametrize("dim", [17, 16, 1])
 @pytest.mark.parametrize("opt", ["adagrad", "adam"])
 def test_sorted_updates_skip_a_sentinel_tail(cuda, dim, opt):
@@ -1452,6 +1896,70 @@ def test_dense_adam_drops_sentinels_on_the_card(cuda):
     a, b, c = run(stream, grads), run(stream, grads), run(ids, grads[:n])
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, c))
+
+
+def test_dense_adam_on_the_card_matches_the_cpu(cuda):
+    """Dense Adam (``"adam_dense"``: PyTorch ops, as the JAX package's XLA
+    route) on a 4,096 x 16 table from 512 x 26 ids with duplicates: twice
+    on the card from one state, bit for bit, with the card's inputs as drawn
+    afterwards; its duplicate sums (``index_put_`` with accumulate) within
+    f32 rounding of the CPU's (the card adds a row's duplicates in an order
+    of its own, so a sum may land an ulp apart); its moments against the
+    same update on the CPU from a host copy of the inputs, and its table
+    against the Adam step of the CPU's moments in the update's order of
+    operations with the root taken in f64 and rounded to f32 (the card's
+    f32 root is correctly rounded; the CPU's f32 ``torch.sqrt`` is not, and
+    has been seen to compute one thread's share of a tensor 3e-4 apart),
+    each within 1e-5 of the tensor's largest change (an ulp of a sum moves
+    an element by about 1e-8 of a change here); the untouched rows move
+    (the moments decay on every row)."""
+    from recmodels_tpu_torch.embedding.optim import apply_updates, get_sparse_optimizer
+    from recmodels_tpu_torch.embedding.update import bias_corrections
+
+    g = _gen(cuda, 41)
+    rows, dim = 4096, 16
+    ids = torch.randint(0, rows, (512, 26), generator=g, device=cuda, dtype=torch.int32)
+    m0 = torch.randn((rows, dim), generator=g, device=cuda) * 1e-3
+    start = [torch.randn((rows, dim), generator=g, device=cuda) * 0.05, m0, m0 * m0 * 10.0 + 1e-10]
+    grads = (torch.randn((ids.numel(), dim), generator=g, device=cuda) * 0.01).to(torch.bfloat16)
+    host = [x.cpu() for x in (ids, grads, *start)]
+    opt = get_sparse_optimizer("adam_dense")
+    step, lr = 30, 1e-2
+
+    def run(ids, grads, start):
+        device = ids.device
+        t, m, v = (x.to(device, copy=True) for x in start)
+        apply_updates(opt, t, {"m": m, "v": v}, ids, grads,
+                      torch.tensor(step, dtype=torch.int32, device=device), torch.tensor(lr, device=device))
+        return [x.cpu() for x in (t, m, v)]
+
+    def duplicate_sums(ids, grads):
+        acc = torch.zeros((rows, dim), device=ids.device)
+        acc.index_put_((ids.reshape(-1).long(),), grads.float(), accumulate=True)
+        return acc.cpu()
+
+    first, second = run(ids, grads, start), run(ids, grads, start)
+    sums = duplicate_sums(ids, grads)
+    assert all(torch.equal(x.cpu(), h) for x, h in zip((ids, grads, *start), host)), "the card's inputs changed"
+    _, m, v = run(host[0], host[1], host[2:])
+    cpu_sums = duplicate_sums(host[0], host[1])
+    magnitudes = torch.zeros((rows, dim)).index_put_((host[0].reshape(-1).long(),), host[1].float().abs(),
+                                                     accumulate=True)
+    assert (sums - cpu_sums).abs().max().item() <= 2.0 ** -20 * magnitudes.max().item()
+    h = opt.hyper
+    bc1, bc2 = bias_corrections(torch.tensor((h["b1"], h["b2"])), torch.tensor(step + 1, dtype=torch.int32))
+    table = host[2] - torch.tensor(lr) * (m / bc1) / (torch.sqrt((v / bc2).double()).float() + h["eps"])
+    untouched = torch.ones(rows, dtype=torch.bool)
+    untouched[host[0].reshape(-1).long()] = False
+    assert int(untouched.sum()) > 0
+    for name, got, again, want, old in zip(("table", "m", "v"), first, second, (table, m, v), host[2:]):
+        assert torch.equal(got, again)
+        err = (got - want).abs()
+        r, c = divmod(int(err.argmax()), dim)
+        assert err.max().item() <= 1e-5 * (want - old).abs().max().item(), (
+            f"{name} at {(r, c)}: card {got[r, c].item()!r}, CPU {want[r, c].item()!r}, start {old[r, c].item()!r}; "
+            f"duplicate sums there: card {sums[r, c].item()!r}, CPU {cpu_sums[r, c].item()!r}")
+        assert not torch.equal(got[untouched], old[untouched])
 
 
 # ------------------- checkpoints of sharded states, export, the graft entry
@@ -1559,6 +2067,24 @@ def test_cross_geometry_restore_on_the_card(cuda, nccl_mesh, tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(_tensors(back), _tensors(local)))
 
 
+def test_export_of_a_sharded_state_on_the_card(cuda, nccl_mesh, tmp_path):
+    """The artifact exported from the sharded flagship's state after two
+    steps in the NCCL world of one is, byte for byte, the artifact of its
+    gathered state exported by the local engine."""
+    from recmodels_tpu_torch.parallel import gather_state, shard_state
+    from recmodels_tpu_torch.serve import export_model
+
+    local_eng, eng, schema = _sharded_twin("slice2", nccl_mesh)
+    cfg = _small_engine("slice2")[2]
+    state = shard_state(eng.init(seed=0, device=cuda), nccl_mesh)
+    for b in _card_batches(schema, 2, cuda):
+        state, _ = eng.train_step(state, *b)
+    export_model(str(tmp_path / "sharded"), cfg, eng, state)
+    export_model(str(tmp_path / "local"), cfg, local_eng, gather_state(state, nccl_mesh))
+    for name in ("params.npz", "model.json"):
+        assert (tmp_path / "sharded" / name).read_bytes() == (tmp_path / "local" / name).read_bytes()
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -1585,6 +2111,14 @@ def test_graft_entry_on_the_card(cuda):
     with torch.no_grad():
         want = forward(cpu, dense.cpu(), ids.cpu())
     assert (got.cpu() - want).abs().max() <= BF16_REL_TOL * want.abs().max()
+
+
+def test_graft_dryrun_on_the_card(cuda):
+    """``dryrun_multichip(1)``: one rank in an NCCL world of its own, a
+    process of its own, trains a sharded step to a finite loss."""
+    import graft_entry_torch
+
+    graft_entry_torch.dryrun_multichip(1)
 
 
 # ------------------------------------------------------------ pooled bags
@@ -1830,14 +2364,26 @@ def test_dlrm_captured_steps_equal_the_expanded_route(cuda, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(_tensors(captured), _tensors(old)))
 
 
-def test_dlrm_step_on_the_card_matches_the_cpu(cuda):
-    """One f32 step on the card against the same step on the CPU's plain
-    path: the bag sums and #4 agree bit for bit with their plain versions,
-    the GEMMs sum in other orders (f32, no TF32), so the losses and the new
-    state agree to 1e-5 of each tensor's largest value."""
+@pytest.mark.parametrize("path", _STEP_PATHS + ["dlrm"])
+def test_step_on_the_card_matches_the_cpu(cuda, path):
+    """One training step on the card against the same step on the CPU's
+    plain path, from one state. Every path of ``_small_engine`` from a live
+    state (``_liven``) at 512 examples: the step launches the kernels of its
+    route (``_ROUTES``); the loss within LOGIT_REL_TOL of the largest
+    |logit|; Adam's moments and the touched rows of each table and of its
+    optimizer state within STEP_REL_TOL of the CPU step's largest change
+    (the fused table's embedding columns and first-order column each to its
+    own); lazy Adam's table the Adam step of the card's own moments, bit for
+    bit; untouched rows bit for bit. DLRM-DCNv2 in f32: the bag sums and #4
+    agree bit for bit with their plain versions, the GEMMs sum in other
+    orders (f32, no TF32), so the losses and the new state agree to 1e-5 of
+    each tensor's largest value."""
+    if path != "dlrm":
+        _step_matches_the_cpu(cuda, path)
+        return
     eng = _dlrm_engine(torch.float32)
     card = eng.init(seed=0, device=cuda)
-    cpu = type(card)(*(_to_cpu(x) for x in card))
+    cpu = _to_cpu_state(card)
     (b,) = _dlrm_batches(eng.model.schema, 1, cuda)
     _, mc = eng.train_step(card, *b)
     _, mh = eng.train_step(cpu, *(t.cpu() for t in b))

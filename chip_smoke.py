@@ -28,7 +28,8 @@ It prints, in order:
                DCN cross stack in bf16 and f32 (each with a SHA-256 of its
                output); the batch kernel of in-graph data generation at steps
                0, 1 and 2^31 - 1; the pooled bag gather at the DLRM-DCNv2
-               cell's batch. Beside each: the plain version's time, a
+               cell's batch; the bf16 MLP's epilogues forward and back at
+               its widest layer, [16,384, 1,024]. Beside each: the plain version's time, a
                library call's where one PyTorch call computes the same
                function, and the bound (benchmark.counts.bound_ms: the larger
                of bytes over the memory rate and operations over the peak
@@ -134,6 +135,9 @@ CLI_LIMIT_S = 300
 BF16_REL_TOL = 1e-2
 # f32 sums of 26 values in another order: a few f32 ulps
 F32_REL_TOL = 1e-5
+# the MLP's bias grad: the same bf16 values summed in f32 in another order,
+# against the column's sum of |g_z|
+MLP_BIAS_TOL = 1e-5
 # DCN cross stack, kernel vs plain in bf16, per element as a share of
 # dcn_cross_stack_scale: a t that rounds one bf16 step (2^-8 of itself)
 # apart moves x0 * t by that, and the next layer's t by that times x0 . w
@@ -986,6 +990,8 @@ def main() -> int:
     report["synth_batch"] = synth_row(schema)
     print(f"== the DLRM-DCNv2 cell's bag gather and #4 at {time.perf_counter() - t_run:.1f} s")
     bag_rows(report)
+    print(f"== the MLP epilogues at {time.perf_counter() - t_run:.1f} s")
+    mlp_rows(report)
     print(f"== launches a step at {time.perf_counter() - t_run:.1f} s")
     paths, served = launches_per_step(schema)
     print(f"== kernel rows at {time.perf_counter() - t_run:.1f} s")
@@ -1261,6 +1267,62 @@ def bag_rows(report: dict, seed: int = 1) -> None:
     torch.cuda.empty_cache()
 
 
+def mlp_rows(report: dict) -> None:
+    """The bf16 MLP's epilogues (``csrc/mlp_epilogue.cu``) at DLRM-DCNv2's
+    widest layer, B = 16,384 by N = 1,024 with a ReLU: the forward
+    (``bias_act``: bias, ReLU and the bf16 rounding of cuBLAS's f32
+    product) and the backward with its bias sum (``act_backward``, two
+    kernels, on the layer above's f32 input grad), each against its plain
+    version (h and g_z bit for bit, g_b within MLP_BIAS_TOL of the column's
+    |g_z| sum) and timed with ``short_times``; the library is PyTorch's chain
+    they replace: z + b, relu and the cast forward; back the input grad's
+    cast to bf16, autograd's cast back to f32, threshold_backward against
+    the f32 ReLU output, the batch sum and the cast of g_z to bf16. Bounds
+    by bytes: each input read and each output written once."""
+    from recmodels_tpu_torch.nn.mlp_epilogue import act_backward, act_backward_reference, bias_act, bias_act_reference
+
+    dev = torch.device("cuda")
+    b, n = BATCH, 1024
+    gen = torch.Generator(dev).manual_seed(SEED)
+    z = torch.randn((b, n), generator=gen, device=dev)
+    bias = torch.randn((n,), generator=gen, device=dev)
+    cot = torch.randn((b, n), generator=gen, device=dev)
+    h = bias_act(z, bias, True)
+    check(torch.equal(h, bias_act_reference(z, bias, True)), "bias_act bit for bit its plain version")
+    relu_out = torch.relu(z + bias)
+    gz, gb = act_backward(cot, h)
+    want_z, want_b = act_backward_reference(cot, h)
+    check(torch.equal(gz, want_z), "act_backward's g_z bit for bit its plain version")
+    b_err = float(((gb - want_b).abs() / want_z.float().abs().sum(dim=0)).max())
+    check(b_err <= MLP_BIAS_TOL, f"act_backward's g_b within {MLP_BIAS_TOL} of |g_z| a column ({b_err:.3g})")
+
+    def library_backward():
+        g32 = cot.to(torch.bfloat16).float()
+        masked = torch.ops.aten.threshold_backward(g32, relu_out, 0)
+        return masked.to(torch.bfloat16), masked.sum(dim=0)
+
+    shapes = f"z, g [{b}, {n}] f32, b [{n}] f32, h and g_z bf16, ReLU (DLRM-DCNv2's top MLP, layer 1)"
+    fwd_ms, fwd_by = bound_ms(b * n * (4 + 2) + n * 4)
+    report["bias_act"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/mlp_epilogue.cu",
+        replaces="none: XLA fuses the JAX package's bias, ReLU and convert into its product",
+        max_abs_err=0.0, tol=0.0, shapes=shapes,
+        **short_times(lambda: bias_act(z, bias, True), lambda: bias_act_reference(z, bias, True),
+                      lambda: torch.relu(z + bias).to(torch.bfloat16)),
+        bound_ms=fwd_ms, bound_by=fwd_by, timing=SHORT_TIMING,
+    )
+    bwd_ms, bwd_by = bound_ms(b * n * (4 + 2 + 2) + n * 4)
+    report["act_backward"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/mlp_epilogue.cu",
+        replaces="none: XLA fuses the JAX package's bias, ReLU and convert into its product",
+        max_abs_err=0.0, tol=0.0, bias_grad_rel_err=b_err, shapes=shapes,
+        **short_times(lambda: act_backward(cot, h), lambda: act_backward_reference(cot, h), library_backward),
+        bound_ms=bwd_ms, bound_by=bwd_by, timing=SHORT_TIMING,
+    )
+    del z, cot, h, relu_out, gz, want_z
+    torch.cuda.empty_cache()
+
+
 def launches_per_step(schema) -> tuple[dict[str, dict[str, int]], dict[str, dict[str, int]]]:
     """Each kernel's launches (the wrappers' ``.launches``, set to 0 just
     before and read just after) in one eager training step of each path,
@@ -1293,6 +1355,7 @@ def launches_per_step(schema) -> tuple[dict[str, dict[str, int]], dict[str, dict
     from recmodels_tpu_torch.embedding.gather import gather_rows
     from recmodels_tpu_torch.embedding.update import sorted_adagrad_update, sorted_adam_update
     from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.nn.mlp_epilogue import act_backward, bias_act
     from recmodels_tpu_torch.ops.cuda import interactions_cuda as K
     from recmodels_tpu_torch.parallel import build_parallel_engine, make_mesh, multihost, shard_state
     from recmodels_tpu_torch.train.checkpoint import CheckpointManager
@@ -1301,7 +1364,8 @@ def launches_per_step(schema) -> tuple[dict[str, dict[str, int]], dict[str, dict
 
     kernels = (gather_rows, K.split_fused_rows, K.cin2_forward, sorted_adagrad_update, K.split_fused_rows_backward,
                K.cin2_backward, sorted_adam_update, K.cin_layer_forward, K.cin_layer_backward, K.transpose_minor2,
-               K.fm_pairwise_forward, K.dcn_cross_stack_forward, ds.synth_batch, bag_gather)
+               K.fm_pairwise_forward, K.dcn_cross_stack_forward, ds.synth_batch, bag_gather, bias_act,
+               act_backward)
     dev = torch.device("cuda")
 
     def counted(step) -> dict[str, int]:

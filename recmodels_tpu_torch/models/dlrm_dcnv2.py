@@ -26,9 +26,8 @@ logit too); ``x0`` is the bottom's c output beside the pooled rows in c (a
 bag's sum is f32, rounded once by the bag gather); in each cross layer
 ``u = c(x_l V)`` (f32 sum, one rounding), ``t = c(u W + c(b))`` (f32 sum
 with the bias rounded to c added, one rounding) and ``x_{l+1} = c(x0 * t +
-x_l)`` (computed in f32, one rounding). The MLPs' backward is autograd's
-(``nn/mlp.ProductF32``). The cross stack's is written out
-(``LowRankCross``), layer by layer from the top, g the cotangent of
+x_l)`` (computed in f32, one rounding). The MLPs' backward is written out
+in ``nn/mlp.MlpStack``; the cross stack's in ``LowRankCross``, layer by layer from the top, g the cotangent of
 ``x_{l+1}`` in c: ``g_t = c(g * x0)``; x0's cotangent accumulates ``c(acc +
 g * t)``; the weights' grads are c products summed in f32 and kept in f32
 (``g_W = u^T g_t``, ``g_V = x_l^T g_u``, ``g_b`` the f32 sum of ``g_t``);

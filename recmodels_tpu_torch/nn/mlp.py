@@ -3,7 +3,9 @@
 Parameters are a list of ``{"w": [in, out], "b": [out]}`` f32 dicts, the JAX
 package's layout (``nn.Linear`` would store ``[out, in]``), so artifacts
 carry over without transposes. He init for ReLU layers, Glorot-style for the
-linear output.
+linear output. In bf16 each layer is a cuBLAS product summed in f32 and one
+pass of ``nn/mlp_epilogue.py`` for the bias, ReLU and rounding, with the
+backward written out (``MlpStack``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,9 @@ import math
 from typing import Sequence
 
 import torch
+
+from recmodels_tpu_torch.nn.mlp_epilogue import act_backward, bias_act
+from recmodels_tpu_torch.utils import profiling
 
 
 def mlp_init(generator: torch.Generator, in_dim: int, hidden: Sequence[int],
@@ -33,15 +38,83 @@ def mlp_apply(layers: list[dict], x: torch.Tensor, final_linear: bool,
 
     The JAX package's rounding points: operands in ``compute_dtype``, the
     product summed in f32, the f32 bias added, ReLU, then a cast back to
-    ``compute_dtype`` between layers."""
+    ``compute_dtype`` between layers. In bf16 the layers run as ``MlpStack``
+    when grads are wanted, else as its forward alone, and each call adds
+    the number of layers to the counter ``mlp.fused_layers``
+    (``utils/profiling.py``); in f32 PyTorch's ops run as they are."""
     h = x.to(compute_dtype)
     n = len(layers)
+    if compute_dtype == torch.bfloat16 and n:
+        profiling.count("mlp.fused_layers", n)
+        ws = [layer["w"].to(compute_dtype) for layer in layers]
+        bs = [layer["b"] for layer in layers]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (h, *ws, *bs)):
+            h = MlpStack.apply(final_linear, h, *(t for wb in zip(ws, bs) for t in wb))
+        else:
+            h = _stack_forward(final_linear, h, ws, bs)[-1]
+        return h.float()
     for i, layer in enumerate(layers):
-        h = _product_f32(h, layer["w"].to(compute_dtype)) + layer["b"]
+        h = h @ layer["w"].to(compute_dtype) + layer["b"]
         if not (final_linear and i == n - 1):
             h = torch.relu(h)
         h = h.to(compute_dtype)
     return h.float()
+
+
+def _relu_at(final_linear: bool, n: int, i: int) -> bool:
+    return not (final_linear and i == n - 1)
+
+
+def _stack_forward(final_linear: bool, x: torch.Tensor, ws, bs) -> list[torch.Tensor]:
+    """Each layer's bf16 input and, last, the stack's output: ``bias_act``
+    of each bf16 product summed in f32."""
+    hs = [x]
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        hs.append(bias_act(_mm_f32(hs[-1], w), b, _relu_at(final_linear, len(ws), i)))
+    return hs
+
+
+class MlpStack(torch.autograd.Function):
+    """The bf16 layers: ``forward(final_linear, x, w_0, b_0, w_1, ...)`` ->
+    the last layer's bf16 output, with x and each ``w`` bf16 and each ``b``
+    f32. Per layer the f32 product ``_mm_f32`` and ``bias_act`` (bias, ReLU
+    and the rounding in one pass); it saves each layer's bf16 input, the
+    output where the last layer has a ReLU, and the weights.
+
+    The backward, from the top: ``act_backward`` of the cotangent (the
+    layer above's f32 input grad, rounded there to bf16, or the stack's
+    bf16 cotangent) gives ``g_z`` and the bias's f32 grad; ``g_w`` is the
+    f32 sum of ``h^T g_z`` rounded to bf16 and ``g_in`` the f32 sum of ``g_z
+    w^T``, rounded by the next layer's ``act_backward``, or to x's dtype for
+    the stack's input, and not computed where x needs no grad. These are
+    the bits of autograd through ``ProductF32``, the bias add, ``relu`` and
+    the cast (JAX's transpose rule for the f32-summed product), except the
+    bias grads' f32 summation order and the mask, which reads the bf16
+    output (``nn/mlp_epilogue.py``)."""
+
+    @staticmethod
+    def forward(ctx, final_linear: bool, x: torch.Tensor, *wb: torch.Tensor) -> torch.Tensor:
+        ws, bs = wb[0::2], wb[1::2]
+        hs = _stack_forward(final_linear, x, ws, bs)
+        ctx.final_linear = final_linear
+        ctx.save_for_backward(*(hs if _relu_at(final_linear, len(ws), len(ws) - 1) else hs[:-1]), *ws)
+        return hs[-1]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        n = (len(ctx.needs_input_grad) - 2) // 2
+        saved = ctx.saved_tensors
+        hs, ws = saved[:-n], saved[-n:]
+        grads = [None] * (2 * n)
+        g = g.contiguous()
+        for i in reversed(range(n)):
+            gz, grads[2 * i + 1] = act_backward(g, hs[i + 1] if _relu_at(ctx.final_linear, n, i) else None)
+            if ctx.needs_input_grad[2 + 2 * i]:
+                grads[2 * i] = _mm_f32(hs[i].t(), gz).to(torch.bfloat16)
+            if i > 0 or ctx.needs_input_grad[1]:
+                g = _mm_f32(gz, ws[i].t())
+        g_in = g.to(hs[0].dtype) if ctx.needs_input_grad[1] else None
+        return (None, g_in, *grads)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,7 +133,9 @@ class ProductF32(torch.autograd.Function):
     f32 sum of the cotangent against the other operand, rounded to bf16. The
     backward rounds the cotangent to bf16 first so that both of its products
     are bf16 products too; on the MLP's path that cast is exact, because
-    every layer's output is rounded to bf16 and so is its cotangent."""
+    every layer's output is rounded to bf16 and so is its cotangent. With
+    PyTorch's bias add, ``relu`` and cast it was the bf16 MLP's route
+    before ``MlpStack``, which the tests hold ``MlpStack`` to."""
 
     @staticmethod
     def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -74,11 +149,3 @@ class ProductF32(torch.autograd.Function):
         ga = _mm_f32(g, b.t()).to(torch.bfloat16) if ctx.needs_input_grad[0] else None
         gb = _mm_f32(a.t(), g).to(torch.bfloat16) if ctx.needs_input_grad[1] else None
         return ga, gb
-
-
-def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` summed in f32 for bf16 or f32 operands. A bf16
-    ``torch.matmul`` would round the product to bf16 before the bias add."""
-    if a.dtype == torch.float32:
-        return a @ b.float()
-    return ProductF32.apply(a, b)

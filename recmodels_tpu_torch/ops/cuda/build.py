@@ -75,6 +75,10 @@ _SIGNATURES = {
     # device, step (device int32), seed_hi, seed_lo, dense_w, slot_proj, vocab,
     # dense, ids, labels, scratch, bits (or null), b, n_dense, n_slots, signal_dim, stream
     "rm_device_synth_batch": [_I, _P, _U, _U] + [_P] * 8 + [_I] * 4 + [_P],
+    # device, z, b, h, rows, n, relu, vec, stream
+    "rm_mlp_bias_act": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # device, g, h (null: no mask), gz, partials, gb, rows, n, g_bf16, vec, stream
+    "rm_mlp_act_backward": [_I] + [_P] * 5 + [_I] * 4 + [_P],
 }
 # functions that return something other than a CUDA error code
 _RESTYPES = {
@@ -88,6 +92,8 @@ _RESTYPES = {
     "rm_cin_layer_forward_scratch": ([_P, _P, _L, _I, _I, _I, _I], _L),
     # device, g, xk, w2, rows, hk, m, hn -> scratch bytes of rm_cin_layer_backward, or -1
     "rm_cin_layer_backward_scratch": ([_I, _P, _P, _P, _L, _I, _I, _I], _L),
+    # rows, n, vec -> rows of rm_mlp_act_backward's partials, or -1
+    "rm_mlp_partial_rows": ([_I] * 3, _I),
     "rm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -28,7 +28,8 @@ from recmodels_tpu_torch.embedding.update import (
     adam_constants, adam_scalars, sorted_adagrad_update, sorted_adagrad_update_reference, sorted_adam_update,
     sorted_adam_update_reference,
 )
-from recmodels_tpu_torch.nn.mlp import ProductF32
+from recmodels_tpu_torch.nn.mlp import ProductF32, mlp_apply, mlp_init
+from recmodels_tpu_torch.nn.mlp_epilogue import act_backward, act_backward_reference, bias_act, bias_act_reference
 from recmodels_tpu_torch.ops.cuda import build
 from recmodels_tpu_torch.ops.cuda import interactions_cuda as K
 from recmodels_tpu_torch.utils import profiling
@@ -381,6 +382,198 @@ def test_product_function_on_the_card(cuda):
                                rtol=2 ** -7, atol=1e-5)
     torch.testing.assert_close(gw.float(), (a.detach().float().t() @ cot).to(torch.bfloat16).float(),
                                rtol=2 ** -7, atol=1e-5)
+
+
+# the bias grad: the same bf16 values summed in f32 in another order, each
+# partial sum within a few f32 ulps of the column's |g_z| sum
+MLP_BIAS_TOL = 1e-5
+# the widths the MLPs take (the logit's 1, DLRM's, DeepFM's 400) and one
+# that is no multiple of 8 (the scalar path)
+_MLP_WIDTHS = [1, 128, 256, 400, 512, 1024, 100]
+
+
+def _bias_grad_close(got, want, gz):
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    bound = MLP_BIAS_TOL * gz.float().abs().sum(dim=0)
+    assert torch.all((got - want).abs() <= bound), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("b", [16384, 1000])
+@pytest.mark.parametrize("n", _MLP_WIDTHS)
+@pytest.mark.parametrize("relu", [True, False])
+def test_mlp_epilogue_kernels_match_their_plain_versions(cuda, b, n, relu):
+    """The forward kernel bit for bit its plain version (the chain z + b,
+    relu, cast); the backward's g_z bit for bit for an f32 cotangent (the
+    layer above's input grad) and a bf16 one, its bias grad within
+    MLP_BIAS_TOL of the column's |g_z| sum, and bit for bit a second call
+    (no atomics)."""
+    g = _gen(cuda, n + b)
+    z = torch.randn((b, n), generator=g, device=cuda) * 2
+    bias = torch.randn((n,), generator=g, device=cuda)
+    before = bias_act.launches
+    h = bias_act(z, bias, relu)
+    torch.cuda.synchronize()
+    assert bias_act.launches == before + 1
+    assert h.dtype == torch.bfloat16 and torch.equal(h, bias_act_reference(z, bias, relu))
+    mask = h if relu else None
+    for g_dtype in (torch.float32, torch.bfloat16):
+        cot = torch.randn((b, n), generator=g, device=cuda).to(g_dtype)
+        gz, gb = act_backward(cot, mask)
+        want_z, want_b = act_backward_reference(cot, mask)
+        assert gz.dtype == torch.bfloat16 and torch.equal(gz, want_z)
+        _bias_grad_close(gb, want_b, want_z)
+        again = act_backward(cot, mask)
+        assert torch.equal(again[0], gz) and torch.equal(again[1], gb)
+
+
+def test_mlp_epilogue_kernels_on_tensors_off_16_bytes(cuda):
+    """Tensors that start off a 16-byte boundary take the one-element path,
+    with the same bits."""
+    g = _gen(cuda, 3)
+    b, n = 1000, 512
+
+    def off(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    z, bias = off(torch.randn((b, n), generator=g, device=cuda)), off(torch.randn((n,), generator=g, device=cuda))
+    h = bias_act(z, bias, True)
+    assert torch.equal(h, bias_act_reference(z, bias, True))
+    cot, hm = off(torch.randn((b, n), generator=g, device=cuda)), off(h)
+    gz, gb = act_backward(cot, hm)
+    want_z, want_b = act_backward_reference(cot, hm)
+    assert torch.equal(gz, want_z)
+    _bias_grad_close(gb, want_b, want_z)
+
+
+@pytest.mark.parametrize("n", [1, 100, 1024])
+def test_mlp_epilogue_kernels_propagate_nan_as_torch(cuda, n):
+    """A NaN in z stays NaN through the forward, as through torch.relu; a
+    NaN output passes its grad and a NaN cotangent stays NaN, as through
+    threshold_backward; elsewhere the bits of autograd's chain."""
+    g = _gen(cuda, 17)
+    b = 300
+    z = torch.randn((b, n), generator=g, device=cuda)
+    z[5, n // 2] = float("nan")
+    z[9, 0] = float("nan")
+    z[11, n - 1] = 100.0  # a positive output whose cotangent is NaN
+    bias = torch.randn((n,), generator=g, device=cuda)
+    h = bias_act(z, bias, True)
+    zz = (z + bias).requires_grad_(True)
+    out = torch.relu(zz)
+    torch.testing.assert_close(h, out.detach().to(torch.bfloat16), rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(h[5, n // 2]) and torch.isnan(h[9, 0])
+    cot = torch.randn((b, n), generator=g, device=cuda)
+    cot[11, n - 1] = float("nan")
+    (want,) = torch.autograd.grad(out, zz, cot.to(torch.bfloat16).float())
+    gz, gb = act_backward(cot, h)
+    torch.testing.assert_close(gz.float(), want, rtol=0, atol=0, equal_nan=True)
+    assert gz[5, n // 2] == cot[5, n // 2].to(torch.bfloat16) and torch.isnan(gz[11, n - 1])
+    assert torch.isnan(gb[n - 1])
+
+
+def _old_mlp_chain(layers, x, final_linear):
+    """The bf16 MLP before ``MlpStack``: autograd through ``ProductF32``,
+    PyTorch's f32 bias add, relu and cast."""
+    h = x.to(torch.bfloat16)
+    n = len(layers)
+    for i, layer in enumerate(layers):
+        h = ProductF32.apply(h, layer["w"].to(torch.bfloat16)) + layer["b"]
+        if not (final_linear and i == n - 1):
+            h = torch.relu(h)
+        h = h.to(torch.bfloat16)
+    return h.float()
+
+
+def _mlp_and_grads(fn, layers, x, x_grad, cot):
+    params = [{k: v.clone().requires_grad_(True) for k, v in layer.items()} for layer in layers]
+    x = x.clone().requires_grad_(x_grad)
+    out = fn(params, x)
+    leaves = [t for p in params for t in (p["w"], p["b"])] + ([x] if x_grad else [])
+    return out, torch.autograd.grad((out * cot).sum(), leaves)
+
+
+# (in, hidden, out_dim, final_linear, x bf16 needing a grad): DLRM-DCNv2's
+# top on the cross stack's output and its bottom on the dense features,
+# DeepFM's DNN(400,400,400) on its [B, 429] input
+_MLP_CASES = {
+    "dlrm_top": (3456, (1024, 1024, 512, 256), 1, True, True),
+    "dlrm_bottom": (13, (512, 256, 128), None, False, False),
+    "deepfm": (429, (400, 400, 400), 1, True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(_MLP_CASES))
+def test_mlp_stack_on_the_card_equals_the_old_chain(cuda, case):
+    """``mlp_apply`` in bf16 on the card against the chain it replaced, from
+    one state at 4,096 examples: outputs, input grads and weight grads bit
+    for bit (the same cuBLAS products of the same bf16 operands, the same
+    roundings), each bias grad within MLP_BIAS_TOL of its column's |g_z|
+    sum; and the epilogue kernels ran, once a layer each way."""
+    d_in, hidden, out_dim, final_linear, x_grad = _MLP_CASES[case]
+    g = _gen(cuda, 23)
+    layers = mlp_init(g, d_in, hidden, out_dim=out_dim, device=cuda)
+    for layer in layers:
+        layer["b"] = torch.randn(layer["b"].shape, generator=g, device=cuda) * 0.1
+    x = torch.randn((4096, d_in), generator=g, device=cuda)
+    x = x.to(torch.bfloat16) if x_grad else x
+    n_out = out_dim or hidden[-1]
+    cot = torch.randn((4096, n_out), generator=g, device=cuda)
+    before = (bias_act.launches, act_backward.launches)
+    got_out, got = _mlp_and_grads(lambda p, h: mlp_apply(p, h, final_linear, torch.bfloat16), layers, x, x_grad, cot)
+    torch.cuda.synchronize()
+    assert (bias_act.launches - before[0], act_backward.launches - before[1]) == (len(layers), len(layers))
+    want_out, want = _mlp_and_grads(lambda p, h: _old_mlp_chain(p, h, final_linear), layers, x, x_grad, cot)
+    assert torch.equal(got_out, want_out)
+    for j, (a, w) in enumerate(zip(got, want)):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        if j < 2 * len(layers) and j % 2 == 1:
+            continue
+        assert torch.equal(a, w), j
+    # the bias grads against each layer's g_z from the old chain
+    params = [{k: v.clone().requires_grad_(True) for k, v in layer.items()} for layer in layers]
+    zs, h = [], x.to(torch.bfloat16)
+    for i, p in enumerate(params):
+        z = ProductF32.apply(h, p["w"].to(torch.bfloat16)) + p["b"]
+        z.retain_grad()
+        zs.append(z)
+        h = (z if final_linear and i == len(params) - 1 else torch.relu(z)).to(torch.bfloat16)
+    (h.float() * cot).sum().backward()
+    for i, z in enumerate(zs):
+        _bias_grad_close(got[2 * i + 1], want[2 * i + 1], z.grad)
+
+
+def test_mlp_stack_captured_equals_eager(cuda):
+    """A CUDA graph of DLRM-DCNv2's top MLP forward and backward replays to
+    the eager call's bits, bias grads too (no atomics). The leaves are made
+    inside the captured call, as ``Engine`` makes its live parameters."""
+    d_in, hidden, out_dim, final_linear, _ = _MLP_CASES["dlrm_top"]
+    g = _gen(cuda, 29)
+    layers = mlp_init(g, d_in, hidden, out_dim=out_dim, device=cuda)
+    x0 = torch.randn((2048, d_in), generator=g, device=cuda).to(torch.bfloat16)
+    cot = torch.randn((2048, 1), generator=g, device=cuda)
+
+    def run():
+        params = [{k: v.detach().requires_grad_(True) for k, v in layer.items()} for layer in layers]
+        x = x0.detach().requires_grad_(True)
+        out = mlp_apply(params, x, final_linear, torch.bfloat16)
+        leaves = [t for p in params for t in (p["w"], p["b"])] + [x]
+        return (out.detach(), *torch.autograd.grad((out * cot).sum(), leaves))
+
+    eager = [t.clone() for t in run()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(static, eager))
 
 
 @pytest.mark.parametrize("rows,dim,n,hot,layout", _UPDATE_CASES)
@@ -1072,26 +1265,32 @@ def test_captured_predictor_matches_eager_logits(cuda, tmp_path):
 
 
 # ------------------------------------ the step and the scorer against the CPU
-_FUSED_CIN = {gather_rows: True, K.split_fused_rows: True, K.cin2_forward: True, K.cin_layer_forward: False}
-_FUSED_CIN_STEP = {sorted_adagrad_update: True, K.split_fused_rows_backward: True, K.cin2_backward: True}
+_FUSED_CIN = {gather_rows: True, K.split_fused_rows: True, K.cin2_forward: True, K.cin_layer_forward: False,
+              bias_act: True}
+_FUSED_CIN_STEP = {sorted_adagrad_update: True, K.split_fused_rows_backward: True, K.cin2_backward: True,
+                   act_backward: True}
 _ONE_TABLE = ({gather_rows: True}, {sorted_adagrad_update: True})
 # each path's route: (the forward's kernels, the step's others), each kernel
 # to True where it launches, False where it must not, n where one eager step
 # launches it exactly n times (a served request: at least once)
 _ROUTES = {
     "slice2": (_FUSED_CIN, _FUSED_CIN_STEP),
-    "slice3": ({gather_rows: 2, K.cin_layer_forward: 3, K.cin2_forward: False},
-               {K.transpose_minor2: True, K.cin_layer_backward: True, sorted_adam_update: 2}),
-    "deepfm": ({gather_rows: True, K.fm_pairwise_forward: True}, {sorted_adagrad_update: True}),
-    "dcn": ({gather_rows: True, K.dcn_cross_stack_forward: True}, {sorted_adagrad_update: True}),
+    "slice3": ({gather_rows: 2, K.cin_layer_forward: 3, K.cin2_forward: False, bias_act: 3},
+               {K.transpose_minor2: True, K.cin_layer_backward: True, sorted_adam_update: 2, act_backward: 3}),
+    "deepfm": ({gather_rows: True, K.fm_pairwise_forward: True, bias_act: 3},
+               {sorted_adagrad_update: True, act_backward: 3}),
+    "dcn": ({gather_rows: True, K.dcn_cross_stack_forward: True, bias_act: 2},
+            {sorted_adagrad_update: True, act_backward: 2}),
     "fm": ({gather_rows: True, K.fm_pairwise_forward: True}, {sorted_adagrad_update: True}),
-    "xdeepfm_f32": ({gather_rows: True, K.split_fused_rows: True, K.cin_layer_forward: 2, K.cin2_forward: False},
-                    {sorted_adagrad_update: True, K.split_fused_rows_backward: True}),
+    "xdeepfm_f32": ({gather_rows: True, K.split_fused_rows: True, K.cin_layer_forward: 2, K.cin2_forward: False,
+                     bias_act: False}, {sorted_adagrad_update: True, K.split_fused_rows_backward: True,
+                                        act_backward: False}),
     "lr": _ONE_TABLE, "pnn": _ONE_TABLE, "widedeep": _ONE_TABLE, "nfm": _ONE_TABLE, "afm": _ONE_TABLE,
     "xdeepfm_d32": (_FUSED_CIN, _FUSED_CIN_STEP),
     "cin256": (_FUSED_CIN, _FUSED_CIN_STEP),
     "cin100": (_FUSED_CIN, _FUSED_CIN_STEP),
-    "dcn_d40": ({gather_rows: True, K.dcn_cross_stack_forward: True}, {sorted_adagrad_update: True}),
+    "dcn_d40": ({gather_rows: True, K.dcn_cross_stack_forward: True, bias_act: 2},
+                {sorted_adagrad_update: True, act_backward: 2}),
 }
 # the rows' scale in ``_liven``: the FM term and PNN's products grow with its
 # square, 3 keeps those logits within a few units; AFM's pooled pairs, far

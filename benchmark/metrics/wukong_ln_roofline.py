@@ -1,0 +1,15 @@
+"""The Wukong residual LayerNorm kernels' share of their roofline in a
+training step: the bytes every layer's residual sum and LN_d need forward and
+backward (``counts_wukong.ln_bytes`` at the configuration's widths and the
+step's batch) at the card's bandwidth, over the device time a step of the
+kernels ``wukong_ln_fwd_kernel``, ``wukong_ln_bwd_kernel`` and
+``wukong_ln_grad_sum_kernel``, selected by name
+(``counts_wukong.kernels_roofline``: nothing where no layer took them)."""
+
+from benchmark import counts_wukong
+
+KERNELS = ("wukong_ln_fwd_kernel", "wukong_ln_bwd_kernel", "wukong_ln_grad_sum_kernel")
+
+
+def read(ctx):
+    return counts_wukong.kernels_roofline(ctx, KERNELS, counts_wukong.ln_bytes)

@@ -29,7 +29,10 @@ It prints, in order:
                output); the batch kernel of in-graph data generation at steps
                0, 1 and 2^31 - 1; the pooled bag gather at the DLRM-DCNv2
                cell's batch; the bf16 MLP's epilogues forward and back at
-               its widest layer, [16,384, 1,024]. Beside each: the plain version's time, a
+               its widest layer, [16,384, 1,024]; the Wukong FM kernels
+               forward and back at the Wukong cell's layers (n 32 and
+               layer 1's 27) and its residual LayerNorm forward and back.
+               Beside each: the plain version's time, a
                library call's where one PyTorch call computes the same
                function, and the bound (benchmark.counts.bound_ms: the larger
                of bytes over the memory rate and operations over the peak
@@ -45,7 +48,7 @@ It prints, in order:
                path at its shape: the flagship, slice 3 (CIN(128,128,128),
                an unfused wide table, lazy Adam), DeepFM, DCN, FM, f32
                xDeepFM, LR, PNN, Wide&Deep, NFM, AFM, the generated step,
-               DLRM-DCNv2 and, in an NCCL world of one, the sharded flagship
+               DLRM-DCNv2, Wukong and, in an NCCL world of one, the sharded flagship
                and slice 3 and the sharded flagship restored from a local
                checkpoint; and in one eager served forward (Engine.logits)
                of each unsharded path. Each of those paths also serves a
@@ -992,6 +995,9 @@ def main() -> int:
     bag_rows(report)
     print(f"== the MLP epilogues at {time.perf_counter() - t_run:.1f} s")
     mlp_rows(report)
+    print(f"== the Wukong FM kernels at {time.perf_counter() - t_run:.1f} s")
+    wukong_rows(report)
+    wukong_ln_rows(report)
     print(f"== launches a step at {time.perf_counter() - t_run:.1f} s")
     paths, served = launches_per_step(schema)
     print(f"== kernel rows at {time.perf_counter() - t_run:.1f} s")
@@ -1323,6 +1329,133 @@ def mlp_rows(report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def wukong_rows(report: dict) -> None:
+    """The Wukong FM kernels (``csrc/wukong_fm.cu``) at the Wukong cell's
+    layer, B = 16,384, n = 32 embeddings of d = 128, FM rank k = 32, n_L =
+    16 (the ``layer1_`` keys: layer 1's n = 27), each against its plain
+    version (``nn/wukong_fm``: a, l and g_x within 1e-2 of their largest
+    value, the weight grads within 1e-2 of the plain version's norm: Z and
+    g_F round to bf16 after sums in another order) and timed with
+    ``short_times``; no one PyTorch call computes either. Bounds by bytes
+    (``benchmark.counts_wukong.fm_bytes``' terms): forward X read, a, l and
+    the LN's statistics written; backward X, g_a, g_L and g_res read, g_x
+    written."""
+    from recmodels_tpu_torch.nn.wukong_fm import (
+        fm_backward, fm_backward_reference, fm_forward, fm_forward_reference,
+    )
+
+    dev = torch.device("cuda")
+    b, d, k, n_l, n_f = BATCH, 128, 32, 16, 16
+    rows = {"fm_forward": {}, "fm_backward": {}}
+    for n, prefix in ((32, ""), (27, "layer1_")):
+        gen = torch.Generator(dev).manual_seed(SEED + n)
+        x = torch.randn((b, n, d), generator=gen, device=dev).to(torch.bfloat16)
+        y = (torch.randn((n, k), generator=gen, device=dev) / n ** 0.5).to(torch.bfloat16)
+        w = (torch.randn((n, n_l), generator=gen, device=dev) / n ** 0.5).to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn((n * k,), generator=gen, device=dev)
+        shift = 0.1 * torch.randn((n * k,), generator=gen, device=dev)
+        g_a = torch.randn((b, n * k), generator=gen, device=dev).to(torch.bfloat16)
+        g_s = torch.randn((b, n_f + n_l, d), generator=gen, device=dev).to(torch.bfloat16)
+        g_res = torch.randn((b, n, d), generator=gen, device=dev).to(torch.bfloat16)
+        a, l, mean, rstd = fm_forward(x, y, w, scale, shift)
+        want = fm_forward_reference(x, y, w, scale, shift, 1e-5)
+        fwd_err = max(rel_err(a, want[0])[0] / rel_err(a, want[0])[1], rel_err(l, want[1])[0] / rel_err(l, want[1])[1])
+        check(fwd_err <= 1e-2, f"fm_forward within 1e-2 of its plain version (n {n}: {fwd_err:.3g})")
+        grads = fm_backward(x, y, w, scale, mean, rstd, g_a, g_s, n_f, g_res)
+        refs = fm_backward_reference(x, y, w, scale, mean, rstd, g_a, g_s, n_f, g_res)
+        gx_err = rel_err(grads[0], refs[0])[0] / rel_err(grads[0], refs[0])[1]
+        w_err = max(float((p - q).norm() / q.norm()) for p, q in zip(grads[1:], refs[1:]))
+        check(gx_err <= 1e-2 and w_err <= 1e-2, f"fm_backward within 1e-2 of its plain version (n {n}: g_x "
+              f"{gx_err:.3g}, weight grads {w_err:.3g})")
+        again = fm_backward(x, y, w, scale, mean, rstd, g_a, g_s, n_f, g_res)
+        check(all(torch.equal(p, q) for p, q in zip(grads, again)), "fm_backward repeats bit for bit")
+        shapes = f"x [{b}, {n}, {d}] bf16, y [{n}, {k}], w [{n}, {n_l}], g_s [{b}, {n_f + n_l}, {d}]"
+        fwd_ms, fwd_by = bound_ms(b * ((n * d + n * k + n_l * d) * 2 + 8))
+        rows["fm_forward"].update({
+            prefix + "max_abs_err": fwd_err, prefix + "tol": 1e-2, prefix + "shapes": shapes,
+            **short_times(lambda: fm_forward(x, y, w, scale, shift),
+                          lambda: fm_forward_reference(x, y, w, scale, shift, 1e-5), prefix=prefix),
+            prefix + "library_ms": None, prefix + "bound_ms": fwd_ms, prefix + "bound_by": fwd_by})
+        bwd_ms, bwd_by = bound_ms(b * ((3 * n * d + n * k + n_l * d) * 2 + 8))
+        rows["fm_backward"].update({
+            prefix + "max_abs_err": gx_err, prefix + "tol": 1e-2, prefix + "weight_grad_rel_err": w_err,
+            prefix + "shapes": shapes,
+            **short_times(lambda: fm_backward(x, y, w, scale, mean, rstd, g_a, g_s, n_f, g_res),
+                          lambda: fm_backward_reference(x, y, w, scale, mean, rstd, g_a, g_s, n_f, g_res),
+                          prefix=prefix),
+            prefix + "library_ms": None, prefix + "bound_ms": bwd_ms, prefix + "bound_by": bwd_by})
+        del x, y, w, g_a, g_s, g_res, a, l, grads, refs, again, want
+    for name, r in rows.items():
+        report[name] = dict(route="cuda", source="recmodels_tpu_torch/csrc/wukong_fm.cu",
+                            replaces="none: the JAX package has no Wukong", timing=SHORT_TIMING, **r)
+    torch.cuda.empty_cache()
+
+
+def wukong_ln_rows(report: dict) -> None:
+    """The Wukong residual sum and LayerNorm (``csrc/wukong_ln.cu``) at the
+    Wukong cell's layer: B = 16,384 examples of 16 FMB and 16 LCB rows of
+    d = 128, against its plain version (``nn/wukong_ln``: s bit for bit, y
+    and g_s within 1e-2 of their largest value, the weight grads within 1e-4
+    of the plain version's norm) and timed with ``short_times``; the library
+    is what the kernels replace, ``torch.cat``, the add and PyTorch's fused
+    ``layer_norm`` (the scale and shift in bf16), and its backward. Bounds by
+    bytes: forward h, l, r read, s and y written (bf16), the row statistics
+    (f32); backward g, s read, g_s and g_h written."""
+    from recmodels_tpu_torch.nn.wukong_ln import (
+        residual_ln_backward, residual_ln_backward_reference, residual_ln_forward, residual_ln_forward_reference,
+    )
+
+    dev = torch.device("cuda")
+    b, n_f, n_l, d = BATCH, 16, 16, 128
+    m = n_f + n_l
+    gen = torch.Generator(dev).manual_seed(SEED)
+    h = torch.randn((b, n_f * d), generator=gen, device=dev).to(torch.bfloat16)
+    l = torch.randn((b, n_l, d), generator=gen, device=dev).to(torch.bfloat16)
+    r = torch.randn((b, m, d), generator=gen, device=dev).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    shift = 0.1 * torch.randn((d,), generator=gen, device=dev)
+    cot = torch.randn((b, m, d), generator=gen, device=dev).to(torch.bfloat16)
+    s, y, mean, rstd = residual_ln_forward(h, l, r, scale, shift)
+    want = residual_ln_forward_reference(h, l, r, scale, shift, 1e-5)
+    y_err = rel_err(y, want[1])[0] / rel_err(y, want[1])[1]
+    check(torch.equal(s, want[0]) and y_err <= 1e-2, f"residual_ln_forward within 1e-2 of its plain version ({y_err:.3g})")
+    grads = residual_ln_backward(cot, s, mean, rstd, scale, n_f)
+    refs = residual_ln_backward_reference(cot, s, mean, rstd, scale, n_f)
+    g_err = rel_err(grads[0], refs[0])[0] / rel_err(grads[0], refs[0])[1]
+    w_err = max(float((p - q).norm() / q.norm()) for p, q in zip(grads[2:], refs[2:]))
+    check(g_err <= 1e-2 and w_err <= 1e-4, f"residual_ln_backward within its tolerances ({g_err:.3g}, {w_err:.3g})")
+    sc16, sh16 = scale.to(torch.bfloat16), shift.to(torch.bfloat16)
+
+    def library_forward():
+        x = torch.cat([h.reshape(b, n_f, d), l], dim=1) + r
+        return torch.native_layer_norm(x, (d,), sc16, sh16, 1e-5)
+
+    lib_out = library_forward()
+
+    def library_backward():
+        return torch.ops.aten.native_layer_norm_backward(cot, lib_out[0], (d,), lib_out[1], lib_out[2], sc16, sh16,
+                                                         [True, True, True])
+
+    shapes = f"h [{b}, {n_f * d}], l [{b}, {n_l}, {d}], r, s, y, g [{b}, {m}, {d}] bf16, scale, shift [{d}] f32"
+    fwd_ms, fwd_by = bound_ms(b * m * d * 2 * 4 + b * m * 8)
+    report["residual_ln_forward"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/wukong_ln.cu",
+        replaces="none: the JAX package has no Wukong", max_abs_err=y_err, tol=1e-2, shapes=shapes,
+        **short_times(lambda: residual_ln_forward(h, l, r, scale, shift),
+                      lambda: residual_ln_forward_reference(h, l, r, scale, shift, 1e-5), library_forward),
+        bound_ms=fwd_ms, bound_by=fwd_by, timing=SHORT_TIMING)
+    bwd_ms, bwd_by = bound_ms(b * m * d * 2 * 3 + b * n_f * d * 2 + b * m * 8)
+    report["residual_ln_backward"] = dict(
+        route="cuda", source="recmodels_tpu_torch/csrc/wukong_ln.cu",
+        replaces="none: the JAX package has no Wukong", max_abs_err=g_err, tol=1e-2, weight_grad_rel_err=w_err,
+        shapes=shapes,
+        **short_times(lambda: residual_ln_backward(cot, s, mean, rstd, scale, n_f),
+                      lambda: residual_ln_backward_reference(cot, s, mean, rstd, scale, n_f), library_backward),
+        bound_ms=bwd_ms, bound_by=bwd_by, timing=SHORT_TIMING)
+    del h, l, r, cot, s, y, grads, refs, want, lib_out
+    torch.cuda.empty_cache()
+
+
 def launches_per_step(schema) -> tuple[dict[str, dict[str, int]], dict[str, dict[str, int]]]:
     """Each kernel's launches (the wrappers' ``.launches``, set to 0 just
     before and read just after) in one eager training step of each path,
@@ -1332,8 +1465,9 @@ def launches_per_step(schema) -> tuple[dict[str, dict[str, int]], dict[str, dict
     DeepFM, DCN, FM, f32 xDeepFM (bench.py --no-bf16: its CIN a layer at a
     time), LR, PNN, Wide&Deep, NFM and AFM at bench.py's widths and 26 slots
     of VOCAB ids; one generated step of the flagship (``train_scan_gen``);
-    DLRM-DCNv2 at its cell's widths and batch with its vocabularies cut to
-    10,000 a slot (the counts depend on the widths, not the rows); then, in
+    DLRM-DCNv2 and Wukong at their cells' widths and batch with their
+    vocabularies cut to 10,000 a slot (the counts depend on the widths, not
+    the rows); then, in
     an NCCL world of one, the sharded flagship and slice 3, and the sharded
     flagship restored from a checkpoint of the local one. Each path's counts
     are keyed by kernel name, in the order the kernel rows take their count
@@ -1347,7 +1481,7 @@ def launches_per_step(schema) -> tuple[dict[str, dict[str, int]], dict[str, dict
 
     import torch.distributed as dist
 
-    from benchmark import port_multihot
+    from benchmark import port_multihot, port_wukong
     from recmodels_tpu_torch.cli import train as train_cli
     from recmodels_tpu_torch.data import SyntheticSource
     from recmodels_tpu_torch.data import device_synth as ds
@@ -1356,6 +1490,8 @@ def launches_per_step(schema) -> tuple[dict[str, dict[str, int]], dict[str, dict
     from recmodels_tpu_torch.embedding.update import sorted_adagrad_update, sorted_adam_update
     from recmodels_tpu_torch.models import build_model
     from recmodels_tpu_torch.nn.mlp_epilogue import act_backward, bias_act
+    from recmodels_tpu_torch.nn.wukong_fm import fm_backward, fm_forward
+    from recmodels_tpu_torch.nn.wukong_ln import residual_ln_backward, residual_ln_forward
     from recmodels_tpu_torch.ops.cuda import interactions_cuda as K
     from recmodels_tpu_torch.parallel import build_parallel_engine, make_mesh, multihost, shard_state
     from recmodels_tpu_torch.train.checkpoint import CheckpointManager
@@ -1365,7 +1501,7 @@ def launches_per_step(schema) -> tuple[dict[str, dict[str, int]], dict[str, dict
     kernels = (gather_rows, K.split_fused_rows, K.cin2_forward, sorted_adagrad_update, K.split_fused_rows_backward,
                K.cin2_backward, sorted_adam_update, K.cin_layer_forward, K.cin_layer_backward, K.transpose_minor2,
                K.fm_pairwise_forward, K.dcn_cross_stack_forward, ds.synth_batch, bag_gather, bias_act,
-               act_backward)
+               act_backward, fm_forward, fm_backward, residual_ln_forward, residual_ln_backward)
     dev = torch.device("cuda")
 
     def counted(step) -> dict[str, int]:
@@ -1416,20 +1552,22 @@ def launches_per_step(schema) -> tuple[dict[str, dict[str, int]], dict[str, dict
         del engine, state, batch
     out["device_synth"] = generated
 
-    cfg = json.load(open(os.path.join(ROOT, "benchmark", "configs", "dlrm-dcnv2-criteo1tb.json")))
-    cfg["num_embeddings_per_feature"] = [min(v, 10_000) for v in cfg["num_embeddings_per_feature"]]
-    engine = port_multihot.build_engine(cfg)
-    sch = engine.model.schema
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    b = cfg["batch_size"]
-    vocab = torch.tensor(sch.id_vocab_sizes, device=dev)
-    ids = (torch.rand((b, len(sch.id_vocab_sizes)), generator=g, device=dev) * vocab).int()
-    dense = torch.rand((b, sch.n_dense), generator=g, device=dev)
-    labels = (torch.rand(b, generator=g, device=dev) < 0.25).float()
-    state = engine.init(seed=SEED, device=dev)
-    out["dlrm_dcnv2"] = counted(lambda: engine.train_step(state, dense, ids, labels))
-    served_and_replayed("dlrm_dcnv2", engine, state, (dense, ids, labels))
-    del engine, state, ids, dense, labels
+    for path, config, door in (("dlrm_dcnv2", "dlrm-dcnv2-criteo1tb", port_multihot),
+                               ("wukong", "wukong-criteo1tb", port_wukong)):
+        cfg = json.load(open(os.path.join(ROOT, "benchmark", "configs", f"{config}.json")))
+        cfg["num_embeddings_per_feature"] = [min(v, 10_000) for v in cfg["num_embeddings_per_feature"]]
+        engine = door.build_engine(cfg)
+        sch = engine.model.schema
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        b = cfg["batch_size"]
+        vocab = torch.tensor(sch.id_vocab_sizes, device=dev)
+        ids = (torch.rand((b, len(sch.id_vocab_sizes)), generator=g, device=dev) * vocab).int()
+        dense = torch.rand((b, sch.n_dense), generator=g, device=dev)
+        labels = (torch.rand(b, generator=g, device=dev) < 0.25).float()
+        state = engine.init(seed=SEED, device=dev)
+        out[path] = counted(lambda: engine.train_step(state, dense, ids, labels))
+        served_and_replayed(path, engine, state, (dense, ids, labels))
+        del engine, state, ids, dense, labels
 
     cfg, _ = configs["slice2"]
     argv = ["--model", cfg.model, "--batch-size", str(BATCH), "--steps", str(CLI_STEPS), "--data", "synthetic",

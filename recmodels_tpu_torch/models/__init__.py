@@ -1,6 +1,8 @@
 """Model registry (port of ``recmodels_tpu/models/__init__.py``): the nine
-models of the JAX zoo under the same names, and the port's own DLRM-DCNv2
-(``dlrm_dcnv2``: multi-hot pooled slots, low-rank DCN-V2 cross layers)."""
+models of the JAX zoo under the same names, and the port's own models of
+multi-hot pooled slots: DLRM-DCNv2 (``dlrm_dcnv2``: low-rank DCN-V2 cross
+layers) and Wukong (``wukong``: stacked FM and linear-compress layers with
+residual LayerNorm)."""
 
 from recmodels_tpu_torch.models.afm import AFMModel
 from recmodels_tpu_torch.models.base import CTRModel, wide_schema
@@ -12,6 +14,7 @@ from recmodels_tpu_torch.models.lr import LRModel
 from recmodels_tpu_torch.models.nfm import NFMModel
 from recmodels_tpu_torch.models.pnn import PNNModel
 from recmodels_tpu_torch.models.widedeep import WideDeepModel
+from recmodels_tpu_torch.models.wukong import WukongModel
 from recmodels_tpu_torch.models.xdeepfm import XDeepFMModel
 
 MODEL_REGISTRY = {
@@ -25,6 +28,7 @@ MODEL_REGISTRY = {
     "nfm": NFMModel,
     "afm": AFMModel,
     "dlrm_dcnv2": DLRMDCNv2Model,
+    "wukong": WukongModel,
 }
 
 
@@ -36,4 +40,4 @@ def build_model(name: str, schema, **kwargs) -> CTRModel:
 
 __all__ = ["CTRModel", "wide_schema", "LRModel", "FMModel", "DeepFMModel", "PNNModel", "DCNModel",
            "XDeepFMModel", "WideDeepModel", "NFMModel", "AFMModel", "DLRMDCNv2Model",
-           "MODEL_REGISTRY", "build_model"]
+           "WukongModel", "MODEL_REGISTRY", "build_model"]

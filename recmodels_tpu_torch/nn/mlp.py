@@ -66,12 +66,48 @@ def _relu_at(final_linear: bool, n: int, i: int) -> bool:
 
 
 def _stack_forward(final_linear: bool, x: torch.Tensor, ws, bs) -> list[torch.Tensor]:
-    """Each layer's bf16 input and, last, the stack's output: ``bias_act``
-    of each bf16 product summed in f32."""
+    """Each layer's input and, last, the stack's output: in bf16 ``bias_act``
+    of each bf16 product summed in f32; in f32 ``addmm`` and ``relu``. The
+    f32 branch serves ``models/wukong.WukongStack``, whose hand-written
+    backward the CPU tests hold to the plain f32 reference at rtol 1e-5
+    (``tests/test_torch_wukong.py``); f32 ``mlp_apply`` keeps autograd."""
     hs = [x]
     for i, (w, b) in enumerate(zip(ws, bs)):
-        hs.append(bias_act(_mm_f32(hs[-1], w), b, _relu_at(final_linear, len(ws), i)))
+        relu = _relu_at(final_linear, len(ws), i)
+        if x.dtype == torch.bfloat16:
+            hs.append(bias_act(_mm_f32(hs[-1], w), b, relu))
+        else:
+            h = torch.addmm(b, hs[-1], w)
+            hs.append(torch.relu(h) if relu else h)
     return hs
+
+
+def stack_backward(final_linear: bool, hs, ws, g: torch.Tensor, input_grad: bool = True,
+                   weight_grads: bool = True) -> tuple:
+    """The backward of ``_stack_forward``'s layers from the top (``MlpStack``'s
+    docstring): ``hs`` each layer's input and, where the last layer has a
+    ReLU, its output; ``g`` the output's cotangent. Returns (the input's
+    cotangent in its dtype, or None unless ``input_grad``; [g_w_0, g_b_0,
+    ...], the weights' grads None unless ``weight_grads``). In bf16 the
+    bits of ``MlpStack``; in f32 the plain chain's (mask, batch sum,
+    products), for ``WukongStack``'s f32 route alone, as ``_stack_forward``'s
+    f32 branch."""
+    n = len(ws)
+    bf16 = hs[0].dtype == torch.bfloat16
+    grads = [None] * (2 * n)
+    g = g.contiguous()
+    for i in reversed(range(n)):
+        h = hs[i + 1] if _relu_at(final_linear, n, i) else None
+        if bf16:
+            gz, grads[2 * i + 1] = act_backward(g, h)
+        else:
+            gz = g if h is None else g.masked_fill(h <= 0, 0)
+            grads[2 * i + 1] = gz.sum(dim=0)
+        if weight_grads:
+            grads[2 * i] = _mm_f32(hs[i].t(), gz).to(torch.bfloat16) if bf16 else hs[i].t() @ gz
+        if i > 0 or input_grad:
+            g = _mm_f32(gz, ws[i].t()) if bf16 else gz @ ws[i].t()
+    return (g.to(hs[0].dtype) if input_grad else None), grads
 
 
 class MlpStack(torch.autograd.Function):
@@ -105,15 +141,8 @@ class MlpStack(torch.autograd.Function):
         n = (len(ctx.needs_input_grad) - 2) // 2
         saved = ctx.saved_tensors
         hs, ws = saved[:-n], saved[-n:]
-        grads = [None] * (2 * n)
-        g = g.contiguous()
-        for i in reversed(range(n)):
-            gz, grads[2 * i + 1] = act_backward(g, hs[i + 1] if _relu_at(ctx.final_linear, n, i) else None)
-            if ctx.needs_input_grad[2 + 2 * i]:
-                grads[2 * i] = _mm_f32(hs[i].t(), gz).to(torch.bfloat16)
-            if i > 0 or ctx.needs_input_grad[1]:
-                g = _mm_f32(gz, ws[i].t())
-        g_in = g.to(hs[0].dtype) if ctx.needs_input_grad[1] else None
+        g_in, grads = stack_backward(ctx.final_linear, hs, ws, g, ctx.needs_input_grad[1],
+                                     any(ctx.needs_input_grad[2::2]))
         return (None, g_in, *grads)
 
 

@@ -79,6 +79,15 @@ _SIGNATURES = {
     "rm_mlp_bias_act": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     # device, g, h (null: no mask), gz, partials, gb, rows, n, g_bf16, vec, stream
     "rm_mlp_act_backward": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    # device, x, y, w, scale, shift, a, l, mean, rstd, b, n, d, k, n_l, eps, stream
+    "rm_wukong_fm_forward": [_I] + [_P] * 9 + [_I] * 5 + [_F, _P],
+    # device, x, y, w, scale, mean, rstd, g_a, g_s, g_res, g_x, partials, g_y, g_w, g_scale, g_shift,
+    # b, n, d, k, n_l, m, n_f, stream
+    "rm_wukong_fm_backward": [_I] + [_P] * 15 + [_I] * 7 + [_P],
+    # device, h, l, r, scale, shift, s, y, mean, rstd, b, m, n_f, d, eps, stream
+    "rm_wukong_ln_forward": [_I] + [_P] * 9 + [_L, _I, _I, _I, _F, _P],
+    # device, g, s, mean, rstd, scale, g_s, g_h, partials, g_scale, g_shift, b, m, n_f, d, stream
+    "rm_wukong_ln_backward": [_I] + [_P] * 10 + [_L, _I, _I, _I, _P],
 }
 # functions that return something other than a CUDA error code
 _RESTYPES = {
@@ -94,6 +103,10 @@ _RESTYPES = {
     "rm_cin_layer_backward_scratch": ([_I, _P, _P, _P, _L, _I, _I, _I], _L),
     # rows, n, vec -> rows of rm_mlp_act_backward's partials, or -1
     "rm_mlp_partial_rows": ([_I] * 3, _I),
+    # b, k, n_l -> floats of rm_wukong_fm_backward's partials, or -1
+    "rm_wukong_fm_partial_floats": ([_I] * 3, _L),
+    # b, m, d -> floats of rm_wukong_ln_backward's partials, or -1
+    "rm_wukong_ln_partial_floats": ([_L, _I, _I], _L),
     "rm_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -2607,3 +2607,228 @@ def test_dlrm_predictor_on_the_card(cuda):
     with torch.inference_mode():
         want = eng.logits(state, torch.cat([b[0], pad[0]]), torch.cat([b[1], pad[1]]))[:300]
     assert np.array_equal(got, want.cpu().numpy())
+
+
+# The Wukong FM kernels (csrc/wukong_fm.cu): the cell's layers (n 32, and
+# layer 1's 27 rows), the small and ragged, and every template (k 16 or 32,
+# n_L up to 16 or 32)
+_WUKONG_FM_CASES = {
+    "cell": (16384, 32, 128, 32, 16, 16),
+    "cell_layer1": (16384, 27, 128, 32, 16, 16),
+    "small": (100, 5, 16, 16, 3, 2),
+    "wide": (77, 32, 256, 32, 32, 0),
+    "ragged": (65, 17, 48, 16, 20, 1),
+}
+
+
+def _wukong_fm_inputs(cuda, b, n, d, k, n_l, n_f, seed=0):
+    g = _gen(cuda, seed)
+    x = torch.randn((b, n, d), generator=g, device=cuda).to(torch.bfloat16)
+    y = (torch.randn((n, k), generator=g, device=cuda) / n ** 0.5).to(torch.bfloat16)
+    w = (torch.randn((n, n_l), generator=g, device=cuda) / n ** 0.5).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn((n * k,), generator=g, device=cuda)
+    shift = 0.1 * torch.randn((n * k,), generator=g, device=cuda)
+    g_a = torch.randn((b, n * k), generator=g, device=cuda).to(torch.bfloat16)
+    g_s = torch.randn((b, n_f + n_l + 1, d), generator=g, device=cuda).to(torch.bfloat16)
+    g_res = torch.randn((b, n, d), generator=g, device=cuda).to(torch.bfloat16)
+    return x, y, w, scale, shift, g_a, g_s, g_res
+
+
+def _rel_norm(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("case", sorted(_WUKONG_FM_CASES))
+def test_wukong_fm_kernels_match_their_plain_versions(cuda, case):
+    """Both FM kernels against their plain versions (``nn/wukong_fm``): the
+    bf16 outputs a, l and g_x within BF16_REL_TOL of their largest value (Z
+    and g_F round to bf16 after sums in another order, so an element may
+    land a bf16 step apart), the LN's mean within 1e-2 of its standard
+    deviation and rstd within 1e-2; the f32 weight grads (batch sums of
+    terms that carry those roundings) within 1e-2 of the reference's norm,
+    g_shift (sums of the same bf16 values in another order) within 1e-5;
+    each call launches once and a second backward gives the same bits (no
+    atomics)."""
+    from recmodels_tpu_torch.nn.wukong_fm import (
+        fm_backward, fm_backward_reference, fm_forward, fm_forward_reference,
+    )
+
+    b, n, d, k, n_l, n_f = _WUKONG_FM_CASES[case]
+    x, y, w, scale, shift, g_a, g_s, g_res = _wukong_fm_inputs(cuda, b, n, d, k, n_l, n_f)
+    before = fm_forward.launches, fm_backward.launches
+    a, l, mean, rstd = fm_forward(x, y, w, scale, shift)
+    want = fm_forward_reference(x, y, w, scale, shift, 1e-5)
+    torch.cuda.synchronize()
+    for got, ref in ((a, want[0]), (l, want[1])):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        err, top = _max_err(got, ref)
+        assert err <= BF16_REL_TOL * top, (case, err, top)
+    assert float(((mean - want[2]) * want[3]).abs().max()) <= 1e-2
+    assert float((rstd / want[3] - 1).abs().max()) <= 1e-2
+    grads = fm_backward(x, y, w, scale, mean, rstd, g_a, g_s, n_f, g_res)
+    refs = fm_backward_reference(x, y, w, scale, mean, rstd, g_a, g_s, n_f, g_res)
+    torch.cuda.synchronize()
+    assert (fm_forward.launches, fm_backward.launches) == (before[0] + 1, before[1] + 1)
+    err, top = _max_err(grads[0], refs[0])
+    assert grads[0].dtype == torch.bfloat16 and err <= BF16_REL_TOL * top, (case, err, top)
+    for got, ref in zip(grads[1:4], refs[1:4]):
+        assert got.dtype == torch.float32 and got.shape == ref.shape and _rel_norm(got, ref) <= 1e-2, case
+    assert _rel_norm(grads[4], refs[4]) <= 1e-5
+    again = fm_backward(x, y, w, scale, mean, rstd, g_a, g_s, n_f, g_res)
+    assert all(torch.equal(p, q) for p, q in zip(grads, again))
+
+
+def _max_err(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+@pytest.mark.parametrize("n,k,n_l,d", [(33, 32, 16, 128), (32, 24, 16, 128), (32, 32, 33, 128), (32, 32, 16, 40)])
+def test_wukong_fm_kernels_refuse_shapes_past_their_limits(cuda, n, k, n_l, d):
+    from recmodels_tpu_torch.nn.wukong_fm import fm_forward
+
+    x, y, w, scale, shift, *_ = _wukong_fm_inputs(cuda, 8, n, d, k, n_l, 0)
+    before = fm_forward.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        fm_forward(x, y, w, scale, shift)
+    assert fm_forward.launches == before
+
+
+def _wukong_engine(dtype=torch.bfloat16):
+    from recmodels_tpu_torch.data.schema import Schema, slot_spec
+    from recmodels_tpu_torch.models import build_model
+    from recmodels_tpu_torch.train.engine import Engine
+
+    hot = (3, 1, 7, 2, 12)
+    schema = Schema(n_dense=13, slots=tuple(slot_spec(f"c{i}", 2000 + 100 * i, 32, h) for i, h in enumerate(hot)))
+    model = build_model("wukong", schema, bottom=(64, 32), top=(128, 64), n_layers=3, n_fmb=8, n_lcb=8,
+                        fm_rank=16, fmb_hidden=(256,), compute_dtype=dtype)
+    return Engine(model, dense_optimizer="adagrad", sparse_optimizer="adagrad", dense_lr=0.005, emb_lr=0.005)
+
+
+def test_wukong_captured_steps_equal_eager_steps(cuda):
+    """Wukong (three layers, the first projecting 6 inputs to 16) on
+    multi-hot slots: five ``jit_train_step`` steps against five eager ones,
+    bit for bit (the FM kernels' weight grads are fixed-order sums); each
+    eager step launches each FM kernel once a layer and adds 3 to
+    ``wukong.fm_layers``, the captured steps at their eager first call and
+    at capture (the graph and its timed twin), not on replays."""
+    from recmodels_tpu_torch.nn.wukong_fm import fm_backward, fm_forward
+
+    eng = _wukong_engine()
+    eager, captured = eng.init(seed=0, device=cuda), eng.init(seed=0, device=cuda)
+    ts = eng.jit_train_step()
+    counter = lambda: profiling.snapshot()["counters"].get("wukong.fm_layers", 0)  # noqa: E731
+    before_captured = 0
+    for i, b in enumerate(_dlrm_batches(eng.model.schema, 5, cuda, seed=13)):
+        launches, layers = (fm_forward.launches, fm_backward.launches), counter()
+        eager, me = eng.train_step(eager, *b)
+        assert (fm_forward.launches - launches[0], fm_backward.launches - launches[1]) == (3, 3)
+        assert counter() - layers == 3
+        before_captured = counter()
+        captured, mc = ts(captured, *b)
+        # the eager first call; the capture of the graph and of its timed twin
+        assert counter() - before_captured == {0: 3, 1: 6}.get(i, 0)
+        assert torch.equal(mc["loss"], me["loss"])
+    torch.cuda.synchronize()
+    assert ts.graphs == 1
+    assert all(torch.equal(a, b) for a, b in zip(_tensors(captured), _tensors(eager)))
+
+
+def test_wukong_step_on_the_card_matches_the_cpu(cuda):
+    """One bf16 Wukong step on the card (the FM kernels) against the same
+    step on the CPU's plain path, from one state: the loss within
+    LOGIT_REL_TOL of the largest |logit|; each parameter's change (every
+    dense leaf and the table) within STEP_REL_TOL of the CPU step's largest
+    change of it (Adagrad's first step moves each element by its grad over
+    the root of 0.1 plus its square, so a grad's bf16 rounding flips move it
+    alike). The accumulators, which move by the grads' squares and double
+    their relative error, are left to the f32 and bit-for-bit tests."""
+    eng = _wukong_engine()
+    card = eng.init(seed=0, device=cuda)
+    cpu = _to_cpu_state(card)
+
+    def params(state):
+        from recmodels_tpu_torch.utils.tree import leaves
+
+        return [*leaves(state.dense_params), *state.emb_params["emb"].values()]
+
+    start = [t.cpu().clone() for t in params(card)]
+    (b,) = _dlrm_batches(eng.model.schema, 1, cuda, seed=17)
+    with torch.no_grad():
+        top = float(eng.logits(cpu, *(t.cpu() for t in b[:2])).abs().max())
+    _, mc = eng.train_step(card, *b)
+    _, mh = eng.train_step(cpu, *(t.cpu() for t in b))
+    assert abs(float(mc["loss"]) - float(mh["loss"])) <= LOGIT_REL_TOL * max(top, 1.0)
+    for a, h, s in zip(params(card), params(cpu), start):
+        da, dh = a.cpu().double() - s.double(), h.double() - s.double()
+        assert float((da - dh).abs().max()) <= STEP_REL_TOL * max(float(dh.abs().max()), 1e-12)
+
+
+def test_wukong_predictor_on_the_card(cuda):
+    """``Predictor`` on multi-hot ids through the FM kernels: each bucket
+    graph's logits equal the eager ``Engine.logits`` bit for bit."""
+    from recmodels_tpu_torch.serve import Predictor
+
+    eng = _wukong_engine()
+    state = eng.init(seed=0, device=cuda)
+    (b,) = _dlrm_batches(eng.model.schema, 1, cuda, batch=300)
+    pred = Predictor(eng, state, torch.device(cuda))
+    got = pred.predict_logits(b[0].cpu().numpy(), b[1].cpu().numpy())
+    pad = torch.zeros((212, 13), device=cuda), torch.zeros((212, b[1].shape[1]), dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        want = eng.logits(state, torch.cat([b[0], pad[0]]), torch.cat([b[1], pad[1]]))[:300]
+    assert np.array_equal(got, want.cpu().numpy())
+
+
+# The Wukong residual sum and LayerNorm (csrc/wukong_ln.cu): the cell's
+# layers (16 FMB and 16 LCB rows of 128), and each width it takes
+_WUKONG_LN_CASES = {
+    "cell": (16384, 16, 16, 128),
+    "d32": (100, 3, 5, 32),
+    "d64": (90, 5, 3, 64),
+    "d256": (33, 2, 1, 256),
+    "fmb_only": (70, 4, 0, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_WUKONG_LN_CASES))
+def test_wukong_ln_kernels_match_their_plain_versions(cuda, case):
+    """Both LayerNorm kernels against their plain versions (``nn/wukong_ln``):
+    s bit for bit (one rounding of the same f32 sum); y and g_s within
+    BF16_REL_TOL of their largest value (the row statistics summed in
+    another order may move a value a bf16 step), the mean and rstd within
+    1e-5; g_h the first n_F rows of g_s bit for bit; the scale's and
+    shift's grads (f32 sums over every row in another order) within 1e-4 of
+    the plain version's norm; a second backward the same bits."""
+    from recmodels_tpu_torch.nn.wukong_ln import (
+        residual_ln_backward, residual_ln_backward_reference, residual_ln_forward, residual_ln_forward_reference,
+    )
+
+    b, n_f, n_l, d = _WUKONG_LN_CASES[case]
+    g = _gen(cuda, 5)
+    h = torch.randn((b, n_f * d), generator=g, device=cuda).to(torch.bfloat16)
+    l = torch.randn((b, n_l, d), generator=g, device=cuda).to(torch.bfloat16)
+    r = torch.randn((b, n_f + n_l, d), generator=g, device=cuda).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn((d,), generator=g, device=cuda)
+    shift = 0.1 * torch.randn((d,), generator=g, device=cuda)
+    cot = torch.randn(r.shape, generator=g, device=cuda).to(torch.bfloat16)
+    before = residual_ln_forward.launches, residual_ln_backward.launches
+    s, y, mean, rstd = residual_ln_forward(h, l, r, scale, shift)
+    want = residual_ln_forward_reference(h, l, r, scale, shift, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(s, want[0])
+    err, top = _max_err(y, want[1])
+    assert err <= BF16_REL_TOL * top, (case, err, top)
+    assert torch.allclose(mean, want[2], rtol=1e-5, atol=1e-6) and torch.allclose(rstd, want[3], rtol=1e-5)
+    grads = residual_ln_backward(cot, s, mean, rstd, scale, n_f)
+    refs = residual_ln_backward_reference(cot, s, mean, rstd, scale, n_f)
+    torch.cuda.synchronize()
+    assert (residual_ln_forward.launches, residual_ln_backward.launches) == (before[0] + 1, before[1] + 1)
+    err, top = _max_err(grads[0], refs[0])
+    assert err <= BF16_REL_TOL * top, (case, err, top)
+    assert torch.equal(grads[1], grads[0][:, :n_f].reshape(b, -1))
+    for got, ref in zip(grads[2:], refs[2:]):
+        assert got.dtype == torch.float32 and _rel_norm(got, ref) <= 1e-4, case
+    again = residual_ln_backward(cot, s, mean, rstd, scale, n_f)
+    assert all(torch.equal(p, q) for p, q in zip(grads, again))

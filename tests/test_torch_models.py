@@ -389,16 +389,16 @@ def test_pnn_modes_forward_matches_jax(mode, bf16):
 
 def test_every_model_of_the_zoo_builds():
     """``build_model`` builds the nine models of the JAX registry under the
-    same names, and the port's own DLRM-DCNv2 beside them, and refuses a
-    name it does not know."""
+    same names, and the port's own DLRM-DCNv2 and Wukong beside them, and
+    refuses a name it does not know."""
     from recmodels_tpu.models import MODEL_REGISTRY as JREGISTRY
     from recmodels_tpu_torch.models import MODEL_REGISTRY
 
-    assert sorted(MODEL_REGISTRY) == sorted([*JREGISTRY, "dlrm_dcnv2"]) and len(JREGISTRY) == 9
+    assert sorted(MODEL_REGISTRY) == sorted([*JREGISTRY, "dlrm_dcnv2", "wukong"]) and len(JREGISTRY) == 9
     schema = build_schema(TrainConfig(vocab_size=50))
     for name in MODEL_REGISTRY:
-        # DLRM's bottom MLP ends at the embedding dim (16 here)
-        kwargs = {"bottom": (32, 16)} if name == "dlrm_dcnv2" else {}
+        # DLRM's and Wukong's bottom MLPs end at the embedding dim (16 here)
+        kwargs = {"bottom": (32, 16)} if name in ("dlrm_dcnv2", "wukong") else {}
         assert build_model(name, schema, **kwargs).name == name
     with pytest.raises(KeyError, match="unknown model"):
         build_model("ffm", schema)
